@@ -1,0 +1,294 @@
+// Decode attention over one layer of the stacked KV cache, for Hopper (sm_90a).
+//
+// Replaces handsonvlm_tpu/ops/decode_attention.py::_decode_stacked_kernel
+// (the bf16/f32 path, quant=False, reached through decode_attention_stacked).
+// It computes the same thing, not the same blocks: a query window of T <= 8
+// rows (T = 1 for plain decode, T > 1 for a speculative verify window)
+// attends over positions [0, length) of one layer of the (L, B, S, K, D)
+// cache with grouped-query heads, a (B, S) key mask, the per-row causal
+// limit pos < length - (T-1) + tq, an fp32 online softmax, masked
+// probabilities zeroed explicitly and l == 0 -> output 0 (a row with no
+// valid key gives zeros, not NaN or the block mean).
+//
+// Design: a thread block per (kv head, batch row, split of the key range)
+// carries all groups x T query rows of that head (row r = g*T + tq, as the
+// Pallas kernel lays them out) and sweeps its split of [0, length) in
+// tiles of 32 keys. Keys past `length` are never read; tiles with no valid
+// key under the mask are skipped after reading 32 mask bytes. Scores use
+// one warp per key (lanes split D); the softmax uses one warp per row (one
+// lane per key); the P.V update gives each thread (row, d) pairs against a
+// V tile staged in shared memory as fp32. Each split writes its fp32
+// (m, l, acc) to a scratch buffer, and a second kernel merges the splits
+// (rescaling by exp(m_s - max m), l == 0 -> output 0). The caller passes a
+// pointer to the layer (ck[layer_idx] is a free view in torch), so no copy
+// of the cache is made.
+//
+// Bound: memory. Each call reads 2 * length * K * D * sizeof(T) bytes of
+// cache (B = 1, K = 32, D = 128, length ~ 450 at the 7B decode shape:
+// ~7.4 MB per layer in bf16, ~2.5 us at 3 TB/s). One block per (kv head,
+// row) alone gives a grid of 32 blocks at B = 1, each walking ~14 tiles in
+// series (~0.29 ms per layer in context); the caller splits the key range
+// so that the grid covers every SM about twice. cp.async/TMA staging of K
+// and V is the later work toward the bandwidth bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;     // keys per tile: one key per lane in the softmax
+constexpr int kMaxDPerLane = 8;  // D <= 256
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Dynamic shared memory, in this order: q[R*D], acc[R*D], v[kTile*D],
+// s[R*kTile] (scores, then probabilities), m[R], l[R], corr[R] as floats,
+// then ok[R*kTile] bytes.
+size_t smem_bytes(int rows, int d) {
+  return sizeof(float) * (2 * (size_t)rows * d + (size_t)kTile * d +
+                          (size_t)rows * kTile + 3 * (size_t)rows) +
+         (size_t)rows * kTile;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    decode_attn_kernel(const T* __restrict__ q,         // (B, tw, H, D)
+                       const T* __restrict__ ck,        // (B, S, K, D), one layer
+                       const T* __restrict__ cv,        // (B, S, K, D)
+                       const uint8_t* __restrict__ mask,  // (B, S) or nullptr
+                       float* __restrict__ part_acc,  // (B, K, n_split, R, D)
+                       float* __restrict__ part_ml,   // (B, K, n_split, 2, R)
+                       int tw, int H, int K, int D, int S, int length,
+                       int split_keys, float scale) {
+  extern __shared__ float smem[];
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int G = H / K;
+  const int R = G * tw;
+  float* sq = smem;
+  float* sacc = sq + R * D;
+  float* sv = sacc + R * D;
+  float* ss = sv + kTile * D;
+  float* sm = ss + R * kTile;
+  float* sl = sm + R;
+  float* scorr = sl + R;
+  uint8_t* sok = reinterpret_cast<uint8_t*>(scorr + R);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < R * D; i += kThreads) {
+    const int r = i / D, d = i % D, g = r / tw, tq = r % tw;
+    sq[i] = to_f32(q[((size_t)(b * tw + tq) * H + kh * G + g) * D + d]);
+    sacc[i] = 0.f;
+  }
+  for (int r = tid; r < R; r += kThreads) {
+    sm[r] = kNegInf;
+    sl[r] = 0.f;
+  }
+  __syncthreads();
+
+  const size_t pos_stride = (size_t)K * D;
+  const T* kbase = ck + (size_t)b * S * pos_stride + (size_t)kh * D;
+  const T* vbase = cv + (size_t)b * S * pos_stride + (size_t)kh * D;
+  const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
+  const int start = split * split_keys;
+  const int end = min(min(length, S), start + split_keys);
+
+  for (int t0 = start; t0 < end; t0 += kTile) {
+    bool any = false;
+    if (tid < kTile) {
+      const int p = t0 + tid;
+      any = p < end && (mrow == nullptr || mrow[p]);
+    }
+    if (!__syncthreads_or(any)) continue;  // no valid key in this tile
+
+    for (int i = tid; i < kTile * D; i += kThreads) {
+      const int j = i / D, d = i % D, p = t0 + j;
+      sv[i] = p < end ? to_f32(vbase[p * pos_stride + d]) : 0.f;
+    }
+
+    // scores: one warp per key, lanes split D; the key stays in registers
+    // across the R query rows
+    for (int j = warp; j < kTile; j += kWarps) {
+      const int p = t0 + j;
+      const bool key_ok = p < end && (mrow == nullptr || mrow[p]);
+      float kr[kMaxDPerLane];
+#pragma unroll
+      for (int i = 0; i < kMaxDPerLane; ++i) {
+        const int d = lane + 32 * i;
+        kr[i] = (key_ok && d < D) ? to_f32(kbase[p * pos_stride + d]) : 0.f;
+      }
+      for (int r = 0; r < R; ++r) {
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxDPerLane; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) part += sq[r * D + d] * kr[i];
+        }
+        const float s = warp_sum(part) * scale;
+        const int tq = r % tw;
+        const bool ok = key_ok && p < length - (tw - 1) + tq;
+        if (lane == 0) {
+          ss[r * kTile + j] = ok ? s : kNegInf;
+          sok[r * kTile + j] = ok;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per row, lane j holds key j of the tile
+    for (int r = warp; r < R; r += kWarps) {
+      const float s = ss[r * kTile + lane];
+      const bool ok = sok[r * kTile + lane];
+      const float m_prev = sm[r];
+      const float m_new = fmaxf(m_prev, warp_max(s));
+      // masked probabilities are zeroed explicitly: a row whose keys are all
+      // masked so far has s == m_new == NEG_INF and would otherwise get 1
+      const float p = ok ? expf(s - m_new) : 0.f;
+      const float corr = expf(m_prev - m_new);
+      const float psum = warp_sum(p);
+      ss[r * kTile + lane] = p;
+      if (lane == 0) {
+        sm[r] = m_new;
+        sl[r] = sl[r] * corr + psum;
+        scorr[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < R * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      const float* pr = ss + r * kTile;
+      float a = sacc[i] * scorr[r];
+#pragma unroll 8
+      for (int j = 0; j < kTile; ++j) a += pr[j] * sv[j * D + d];
+      sacc[i] = a;
+    }
+    __syncthreads();
+  }
+
+  const size_t part = ((size_t)b * K + kh) * gridDim.z + split;
+  for (int i = tid; i < R * D; i += kThreads) part_acc[part * R * D + i] = sacc[i];
+  for (int r = tid; r < R; r += kThreads) {
+    part_ml[(part * 2) * R + r] = sm[r];
+    part_ml[(part * 2 + 1) * R + r] = sl[r];
+  }
+}
+
+// Merge the splits of one (kv head, batch row): out = sum_s e_s acc_s /
+// sum_s e_s l_s with e_s = exp(m_s - max_s m_s); a row with no valid key
+// (every l_s == 0) gives 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    decode_attn_merge_kernel(const float* __restrict__ part_acc,
+                             const float* __restrict__ part_ml,
+                             T* __restrict__ out,  // (B, tw, H, D)
+                             int n_split, int tw, int H, int K, int D) {
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = H / K;
+  const int R = G * tw;
+  const size_t first = ((size_t)b * K + kh) * n_split;
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, d = i % D, g = r / tw, tq = r % tw;
+    float m_max = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      m_max = fmaxf(m_max, part_ml[((first + s) * 2) * R + r]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float e = expf(part_ml[((first + s) * 2) * R + r] - m_max);
+      num += e * part_acc[(first + s) * R * D + i];
+      den += e * part_ml[((first + s) * 2 + 1) * R + r];
+    }
+    out[((size_t)(b * tw + tq) * H + kh * G + g) * D + d] =
+        from_f32<T>(num / (den == 0.f ? 1.f : den));
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* ck, const void* cv,
+                   const void* mask, void* out, void* part_acc, void* part_ml,
+                   int B, int tw, int H, int K, int D, int S, int length,
+                   int split_keys, float scale, cudaStream_t stream) {
+  const int rows = (H / K) * tw;
+  const size_t bytes = smem_bytes(rows, D);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_split = (min(length, S) + split_keys - 1) / split_keys;
+  decode_attn_kernel<T><<<dim3(K, B, n_split), kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(ck),
+      static_cast<const T*>(cv), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), tw, H, K,
+      D, S, length, split_keys, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_attn_merge_kernel<T><<<dim3(K, B), kThreads, 0, stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<T*>(out), n_split, tw, H, K, D);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory the kernel needs for `rows` = (H / K) * T query rows of
+// head size `d`; the wrapper checks it against the card's per-block limit.
+extern "C" size_t hv_decode_attention_smem_bytes(int rows, int d) {
+  return smem_bytes(rows, d);
+}
+
+// q, out: (B, tw, H, D); ck_layer, cv_layer: (B, S, K, D) views of one layer;
+// mask: (B, S) bytes or null. All contiguous, of one dtype (bf16 or f32).
+// The key range [0, length) is cut into splits of `split_keys` keys (a
+// multiple of 32); part_acc (B, K, n_split, R, D) and part_ml
+// (B, K, n_split, 2, R) are fp32 scratch with n_split = ceil(length /
+// split_keys) and R = (H / K) * tw. Returns cudaGetLastError().
+extern "C" int hv_decode_attention_stacked(
+    const void* q, const void* ck_layer, const void* cv_layer, const void* mask,
+    void* out, void* part_acc, void* part_ml, int is_bf16, int B, int tw, int H,
+    int K, int D, int S, int length, int split_keys, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_keys <= 0 || split_keys % kTile) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)launch<__nv_bfloat16>(q, ck_layer, cv_layer, mask, out,
+                                      part_acc, part_ml, B, tw, H, K, D, S,
+                                      length, split_keys, scale, st);
+  return (int)launch<float>(q, ck_layer, cv_layer, mask, out, part_acc,
+                            part_ml, B, tw, H, K, D, S, length, split_keys,
+                            scale, st);
+}
+
+extern "C" const char* hv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Every `handsonvlm_torch/csrc/*.cu` is compiled at first use by `nvcc` for
+Hopper (`sm_90a`) into one shared library with a plain C interface, which
+is loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
+The library lands in `build/handsonvlm_torch/` at the repository root,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads the existing file.
+
+There is no fallback: a missing `nvcc` or a failed build raises
+`KernelBuildError`, and a C entry point that returns a CUDA error makes
+`check` raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "handsonvlm_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points and their argument types (pointers and the stream as
+# c_void_p: a bare Python int would be passed as a 32-bit int)
+SIGNATURES = {
+    "hv_decode_attention_stacked": (
+        [_P] * 7 + [_I] * 9 + [_F, _P], _I),
+    "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
+    "hv_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelBuildError(
+        "nvcc not found (not on PATH, not at /usr/local/cuda/bin/nvcc): the "
+        "handsonvlm_torch CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhandsonvlm_torch_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; declare signatures.
+
+    The build log (nvcc's per-kernel register and shared-memory usage and
+    the build time) is written beside the library as `<name>.log`."""
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc exited {proc.returncode}: {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+        path.with_suffix(".log").write_text(
+            f"build_seconds={seconds:.3f}\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if status != 0:
+        msg = load_library().hv_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,117 @@
+"""Attention: the plain reference and the dispatch to the Hopper kernels.
+
+Port of `handsonvlm_tpu/ops/attention.py`. All functions take q (B,T,H,D),
+k/v (B,S,K,D), an optional boolean key mask (B,S) and causal masking, and
+return (B,T,H,D).
+
+- ``xla``    plain PyTorch transcription of the JAX `attention_xla`: fp32
+             scores, NEG_INF bias, fp32 softmax, probabilities cast to
+             q's dtype before the P.V product.
+- ``decode`` cached attention of a window of T <= MAX_T_WINDOW rows over
+             one layer of the decode cache (`decode_length` given), served
+             by the stacked decode kernel over a one-layer view.
+- ``vit``    non-causal unmasked CLIP attention (ops/vit_attention).
+- ``auto``   cached windows go to ``decode`` on every device, as the JAX
+             package's decoder layer routes them (the decode wrapper runs
+             its plain version on a CPU tensor). Otherwise the tensor's
+             device decides: on a CUDA tensor ``vit`` wherever
+             `vit_attention_ok` holds (no batch-size crossover), else
+             ``xla``; on a CPU tensor ``xla``, as the JAX package does off
+             the TPU. Prefill at T >= 2048 stays ``xla`` until the flash
+             kernel is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from handsonvlm_torch.ops.decode_attention import MAX_T_WINDOW, decode_attention_stacked
+from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ok
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B,S,K,D) -> (B,S,K*n_rep,D) for grouped-query attention."""
+    if n_rep == 1:
+        return x
+    b, s, k, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, k, n_rep, d).reshape(b, s, k * n_rep, d)
+
+
+def attention_xla(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    q_offset=0,
+) -> torch.Tensor:
+    """Reference attention; softmax in fp32.
+
+    ``q_offset`` is the absolute position of q[:, 0] (int or (B,) tensor),
+    used for causal masking during cached decode."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if kh != h:
+        k = _repeat_kv(k, h // kh)
+        v = _repeat_kv(v, h // kh)
+
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+
+    bias = torch.zeros((b, 1, t, s), dtype=torch.float32, device=q.device)
+    if key_mask is not None:
+        bias = torch.where(key_mask.bool()[:, None, None, :], bias, NEG_INF)
+    if causal:
+        offset = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)
+        q_pos = torch.arange(t, device=q.device)[None, :] + offset
+        k_pos = torch.arange(s, device=q.device)
+        causal_ok = q_pos[:, :, None] >= k_pos[None, None, :]
+        bias = torch.where(causal_ok[:, None, :, :], bias, NEG_INF)
+
+    probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    q_offset=0,
+    impl: str = "auto",
+    decode_length: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention entry point used by the models.
+
+    `decode_length` (valid cache positions, = q_offset + T) marks k/v as one
+    layer of the decode cache and enables the decode kernel."""
+    if impl == "auto":
+        impl = _best_impl(q, k, v, decode_length, key_mask=key_mask, causal=causal)
+    if impl == "vit":
+        return vit_attention(q, k, v)
+    if impl == "decode":
+        if decode_length is None:
+            raise ValueError("impl='decode' needs decode_length")
+        # k, v (B,S,K,D) are one layer: a leading-axis view is the stacked layout
+        return decode_attention_stacked(
+            q, k[None], v[None], 0, decode_length,
+            key_mask=None if key_mask is None else key_mask.bool().contiguous())
+    if impl == "xla":
+        return attention_xla(q, k, v, key_mask=key_mask, causal=causal, q_offset=q_offset)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _best_impl(q, k, v, decode_length=None, *, key_mask=None, causal=True) -> str:
+    if decode_length is not None and q.shape[1] <= MAX_T_WINDOW:
+        return "decode"
+    if q.is_cuda and vit_attention_ok(q, k, v, key_mask, causal):
+        return "vit"
+    return "xla"

@@ -1,0 +1,93 @@
+"""The Hopper kernels against their plain versions, on the card.
+
+The `cuda` tests skip where torch.cuda.is_available() is false. This file
+imports no jax, so it also runs on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
+
+Tolerance, kernel vs plain version (max abs): 1e-2 in bf16 (rounding of
+the output, and of p in the plain vit version), 1e-4 in fp32 (summation
+order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from handsonvlm_torch.ops.decode_attention import (
+    decode_attention_stacked,
+    decode_attention_stacked_ref,
+)
+from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
+
+# (L, B, S, H, K, D, T, layer, length, mask)
+DECODE_CASES = {
+    "layer0": (3, 2, 48, 4, 4, 16, 1, 0, 37, None),
+    "last_layer": (3, 2, 48, 4, 4, 16, 1, 2, 37, None),
+    "gqa_h8_k2": (2, 2, 48, 8, 2, 16, 1, 1, 40, None),
+    "left_pad_and_hole": (2, 2, 48, 4, 4, 16, 1, 0, 45, "pad_hole"),
+    "length_1": (2, 1, 48, 4, 4, 16, 1, 1, 1, None),
+    "length_block_edge": (2, 1, 48, 4, 4, 16, 1, 0, 16, None),
+    "length_past_block_edge": (2, 1, 48, 4, 4, 16, 1, 0, 17, None),
+    "length_full": (2, 1, 48, 4, 4, 16, 1, 0, 48, None),
+    "window_t4": (2, 2, 48, 8, 2, 16, 4, 1, 30, "pad_hole"),
+    "all_masked_row": (2, 2, 48, 4, 4, 16, 1, 1, 37, "dead_row"),
+    "masked_first_split": (2, 1, 96, 4, 4, 16, 2, 1, 90, "long_pad"),
+}
+
+
+def decode_inputs(L, B, S, H, K, D, T, mask_kind, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    ck = rng.normal(size=(L, B, S, K, D)).astype(np.float32)
+    cv = rng.normal(size=(L, B, S, K, D)).astype(np.float32)
+    mask = None
+    if mask_kind is not None:
+        mask = np.ones((B, S), bool)
+        mask[:, :5] = False  # left pad
+        mask[:, 20:26] = False  # interior hole
+        if mask_kind == "dead_row":
+            mask[1] = False
+        if mask_kind == "long_pad":  # a whole 32-key tile and more
+            mask[:, :40] = False
+    return q, ck, cv, mask
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels build with nvcc for sm_90a)")
+    return torch.device("cuda")
+
+
+CUDA_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=0), torch.float32: dict(atol=1e-4, rtol=0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(DECODE_CASES), ids=list(DECODE_CASES))
+def test_decode_attention_kernel(cuda, case, dtype):
+    L, B, S, H, K, D, T, layer, length, mask_kind = DECODE_CASES[case]
+    q, ck, cv, mask = decode_inputs(L, B, S, H, K, D, T, mask_kind, seed=len(case))
+    q, ck, cv = (torch.from_numpy(x).to(cuda, dtype) for x in (q, ck, cv))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = decode_attention_stacked.LAUNCHES
+    got = decode_attention_stacked(q, ck, cv, layer, length, key_mask=t_mask)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.LAUNCHES == before + 1
+    want = decode_attention_stacked_ref(q, ck, cv, layer, length, key_mask=t_mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 17, 2, 64), (10, 257, 16, 64)])
+def test_vit_attention_kernel(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    before = vit_attention.LAUNCHES
+    got = vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), vit_attention_ref(q, k, v).float(),
+                               **CUDA_TOL[dtype])
