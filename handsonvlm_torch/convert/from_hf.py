@@ -1,15 +1,23 @@
-"""HF state dict -> the port's modules.
+"""HF state dict -> the port's modules, and JAX parameters -> HF names.
 
 The names are the reference checkpoint's (HandsOnVLMForCausalLM layout),
-which `handsonvlm_tpu/convert/jax_to_hf.py` also writes. The port's module
-tree uses the HF names below four prefixes, so loading is a prefix rename
-and a copy. `from_jax_params` carries JAX parameters over through that
-export: the bridge that lets both packages compute the same thing in tests.
+which the JAX package's exporter (`convert/jax_to_hf.py`) also writes. The
+port's module tree uses the HF names below four prefixes, so loading is a
+prefix rename and a copy.
+
+`from_jax_params` maps a JAX parameter tree (a nested dict of arrays) to
+that naming itself, with the JAX exporter's mapping: the bridge that lets
+both packages compute the same thing in tests. An int4 tree (the JAX
+package's `quantize_llama_int4` / `init_llama_int4`: fused stacked `w4t`/
+`gst` tiles under `layers["int4"]`, an int8 head `w8`/`scale`) maps to the
+port's int4 layout: `model.int4.<name>.{w4t,gst}` (stacked over layers,
+bytes unchanged) and `lm_head.{w8,scale}` (transposed to (V, d), the vocab
+cut to `vocab_size`), which load into a model built with quantize="int4".
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -23,6 +31,24 @@ PREFIXES = (
     ("model.", "llama."),
     ("lm_head.", "llama.lm_head."),
 )
+
+
+# JAX dense decoder layer leaf -> HF name below model.layers.<i>.
+_LLAMA_NAMES = {
+    "self_attn.q_proj": ("attn", "wq"), "self_attn.k_proj": ("attn", "wk"),
+    "self_attn.v_proj": ("attn", "wv"), "self_attn.o_proj": ("attn", "wo"),
+    "mlp.gate_proj": ("mlp", "w_gate"), "mlp.up_proj": ("mlp", "w_up"),
+    "mlp.down_proj": ("mlp", "w_down"),
+}
+# JAX CLIP layer leaf -> HF name below encoder.layers.<i>.
+_CLIP_NAMES = {
+    "self_attn.q_proj": ("attn", "wq"), "self_attn.k_proj": ("attn", "wk"),
+    "self_attn.v_proj": ("attn", "wv"), "self_attn.out_proj": ("attn", "wo"),
+    "mlp.fc1": ("mlp", "fc1"), "mlp.fc2": ("mlp", "fc2"),
+}
+# JAX CVAE leaf -> HF name below hand_traj_decoder.hand_traj_decoder.cvae.
+_CVAE_NAMES = (("enc_MLP.0", "enc"), ("linear_means", "mean"),
+               ("linear_log_var", "log_var"), ("dec_MLP.0", "dec1"), ("dec_MLP.2", "dec2"))
 
 
 def _module_name(key: str):
@@ -50,7 +76,7 @@ def load_state_dict_into(model: nn.Module, sd: Mapping[str, object]) -> None:
         name = _module_name(key)
         if name is not None:
             by_name[name] = value
-    params = dict(model.named_parameters())
+    params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     missing = sorted(set(params) - set(by_name))
     if missing:
         raise ValueError(f"checkpoint lacks {len(missing)} parameters, e.g. {missing[:5]}")
@@ -62,17 +88,75 @@ def load_state_dict_into(model: nn.Module, sd: Mapping[str, object]) -> None:
         p.copy_(t)
 
 
-def from_jax_params(params, vocab_size: int = 32101) -> dict:
-    """JAX HandsOnVLM parameters -> HF-named state dict of numpy arrays
-    (through `handsonvlm_tpu.convert.jax_to_hf.export_handsonvlm`)."""
-    from handsonvlm_tpu.convert.jax_to_hf import export_handsonvlm
-
-    host = _to_numpy(params)
-    return {k: np.ascontiguousarray(v) for k, v in
-            export_handsonvlm(host, vocab_size=vocab_size).items()}
+def _np(x) -> np.ndarray:
+    """A leaf on the host: floats as f32 (bf16 has no numpy type), integer
+    (quantized) leaves unchanged."""
+    a = np.asarray(x)
+    return a if a.dtype.kind in "iub" else a.astype(np.float32)
 
 
-def _to_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    return np.asarray(tree, np.float32)
+def _llama_names(p, vocab_size: int, prefix: str = "model.") -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    # the JAX package may pad the vocab for its sharding layout: cut it
+    sd[prefix + "embed_tokens.weight"] = _np(p["embed"]["weight"])[:vocab_size]
+    layers = p["layers"]
+    L = layers["attn_norm"]["scale"].shape[0]
+    for i in range(L):
+        lp = prefix + f"layers.{i}."
+        if "int4" not in layers:
+            for hf, (grp, key) in _LLAMA_NAMES.items():
+                sd[lp + hf + ".weight"] = _np(layers[grp][key][i]).T
+        sd[lp + "input_layernorm.weight"] = _np(layers["attn_norm"]["scale"][i])
+        sd[lp + "post_attention_layernorm.weight"] = _np(layers["mlp_norm"]["scale"][i])
+    for name, leaf in layers.get("int4", {}).items():
+        if "w4t" not in leaf:
+            raise ValueError(f"int4 leaf {name} is in the flat layout; the port "
+                             "takes the tiled one (tile_int4_stacked)")
+        sd[prefix + f"int4.{name}.w4t"] = _np(leaf["w4t"])
+        sd[prefix + f"int4.{name}.gst"] = _np(leaf["gst"])
+    sd[prefix + "norm.weight"] = _np(p["final_norm"]["scale"])
+    head = p.get("lm_head")
+    if head is not None and "w8" in head:
+        sd["lm_head.w8"] = _np(head["w8"])[:, :vocab_size].T
+        sd["lm_head.scale"] = _np(head["scale"])[:vocab_size]
+    elif head is not None:
+        sd["lm_head.weight"] = _np(head["weight"])[:, :vocab_size].T
+    return sd
+
+
+def _clip_names(p, prefix: str) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    sd[prefix + "embeddings.patch_embedding.weight"] = _np(
+        p["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    sd[prefix + "embeddings.class_embedding"] = _np(p["class_embed"])
+    sd[prefix + "embeddings.position_embedding.weight"] = _np(p["pos_embed"])
+    sd[prefix + "pre_layrnorm.weight"] = _np(p["pre_norm"]["scale"])
+    sd[prefix + "pre_layrnorm.bias"] = _np(p["pre_norm"]["bias"])
+    layers = p["layers"]
+    for i in range(layers["ln1"]["scale"].shape[0]):
+        lp = prefix + f"encoder.layers.{i}."
+        for hf, (grp, key) in _CLIP_NAMES.items():
+            sd[lp + hf + ".weight"] = _np(layers[grp][key]["kernel"][i]).T
+            sd[lp + hf + ".bias"] = _np(layers[grp][key]["bias"][i])
+        for hf, key in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            sd[lp + hf + ".weight"] = _np(layers[key]["scale"][i])
+            sd[lp + hf + ".bias"] = _np(layers[key]["bias"][i])
+    return sd
+
+
+def from_jax_params(params, vocab_size: int = 32101) -> Dict[str, np.ndarray]:
+    """JAX HandsOnVLM parameters (dense or int4) -> a state dict of
+    contiguous numpy arrays under the checkpoint's names (the JAX
+    exporter's `export_handsonvlm` mapping, extended to the int4 tree)."""
+    sd = _llama_names(params["llama"], vocab_size)
+    sd["model.mm_projector.weight"] = _np(params["projector"]["kernel"]).T
+    sd["model.mm_projector.bias"] = _np(params["projector"]["bias"])
+    if "vision" in params:
+        sd.update(_clip_names(params["vision"],
+                              "model.vision_tower.vision_tower.vision_model."))
+    cvae = params["traj"]
+    for hf, key in _CVAE_NAMES:
+        p = "hand_traj_decoder.hand_traj_decoder.cvae." + hf
+        sd[p + ".weight"] = _np(cvae[key]["kernel"]).T
+        sd[p + ".bias"] = _np(cvae[key]["bias"])
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}

@@ -1,7 +1,11 @@
 // Decode attention over one layer of the stacked KV cache, for Hopper (sm_90a).
 //
-// Replaces handsonvlm_tpu/ops/decode_attention.py::_decode_stacked_kernel
-// (the bf16/f32 path, quant=False, reached through decode_attention_stacked).
+// Replaces handsonvlm_tpu/ops/decode_attention.py::_decode_stacked_kernel in
+// both of its modes: the bf16/f32 cache (quant=False, reached through
+// decode_attention_stacked: kernel B1) and the int8 cache with per-(token,
+// kv head) f32 scales (quant=True, reached through
+// decode_attention_stacked_q: kernel B6). One kernel body, templated on the
+// cache's element type, serves both entry points.
 // It computes the same thing, not the same blocks: a query window of T <= 8
 // rows (T = 1 for plain decode, T > 1 for a speculative verify window)
 // attends over positions [0, length) of one layer of the (L, B, S, K, D)
@@ -23,17 +27,28 @@
 // pointer to the layer (ck[layer_idx] is a free view in torch), so no copy
 // of the cache is made.
 //
-// Bound: memory. Each call reads 2 * length * K * D * sizeof(T) bytes of
-// cache (B = 1, K = 32, D = 128, length ~ 450 at the 7B decode shape:
-// ~7.4 MB per layer in bf16, ~2.5 us at 3 TB/s). One block per (kv head,
+// Over the int8 cache the dequantization is exact and needs no transpose,
+// as in the Pallas kernel: each score is scaled by its key's k-scale
+// ((q . k8) * ks == q . (k8 * ks)) and each probability, after it has been
+// added to l, by its key's v-scale before the P.V product
+// ((p * vs) . v8 == p . (v8 * vs)). The scales are (B, K, S) per layer,
+// contiguous in S: a tile's 32 scales are one 128-byte read.
+//
+// Bound: memory. Each call reads 2 * length * K * D * sizeof(cache type)
+// bytes of cache (B = 1, K = 32, D = 128, length ~ 450 at the 7B decode
+// shape: ~7.4 MB per layer in bf16, 2.2 us at 3.35 TB/s; 3.8 MB with the
+// int8 cache and its scales, 1.1 us). One block per (kv head,
 // row) alone gives a grid of 32 blocks at B = 1, each walking ~14 tiles in
 // series (~0.29 ms per layer in context); the caller splits the key range
 // so that the grid covers every SM about twice. cp.async/TMA staging of K
-// and V is the later work toward the bandwidth bound.
+// and V, and 16-byte loads of the int8 rows (a lane reads one byte per
+// element here), are the later work toward the bandwidth bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,6 +60,7 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -76,16 +92,21 @@ size_t smem_bytes(int rows, int d) {
          (size_t)rows * kTile;
 }
 
-template <typename T>
+// T: the type of q and the output; C: the cache's (T, or int8_t with
+// scales ks/vs, else nullptr)
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_kernel(const T* __restrict__ q,         // (B, tw, H, D)
-                       const T* __restrict__ ck,        // (B, S, K, D), one layer
-                       const T* __restrict__ cv,        // (B, S, K, D)
+                       const C* __restrict__ ck,        // (B, S, K, D), one layer
+                       const C* __restrict__ cv,        // (B, S, K, D)
+                       const float* __restrict__ ks,    // (B, K, S), one layer
+                       const float* __restrict__ vs,    // (B, K, S)
                        const uint8_t* __restrict__ mask,  // (B, S) or nullptr
                        float* __restrict__ part_acc,  // (B, K, n_split, R, D)
                        float* __restrict__ part_ml,   // (B, K, n_split, 2, R)
                        int tw, int H, int K, int D, int S, int length,
                        int split_keys, float scale) {
+  constexpr bool kQuant = std::is_same<C, int8_t>::value;
   extern __shared__ float smem[];
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -116,8 +137,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const size_t pos_stride = (size_t)K * D;
-  const T* kbase = ck + (size_t)b * S * pos_stride + (size_t)kh * D;
-  const T* vbase = cv + (size_t)b * S * pos_stride + (size_t)kh * D;
+  const C* kbase = ck + (size_t)b * S * pos_stride + (size_t)kh * D;
+  const C* vbase = cv + (size_t)b * S * pos_stride + (size_t)kh * D;
+  const float* ksrow = kQuant ? ks + ((size_t)b * K + kh) * S : nullptr;
+  const float* vsrow = kQuant ? vs + ((size_t)b * K + kh) * S : nullptr;
   const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
   const int start = split * split_keys;
   const int end = min(min(length, S), start + split_keys);
@@ -146,6 +169,7 @@ __global__ void __launch_bounds__(kThreads)
         const int d = lane + 32 * i;
         kr[i] = (key_ok && d < D) ? to_f32(kbase[p * pos_stride + d]) : 0.f;
       }
+      const float kscale = kQuant && key_ok ? ksrow[p] : 1.f;
       for (int r = 0; r < R; ++r) {
         float part = 0.f;
 #pragma unroll
@@ -153,7 +177,8 @@ __global__ void __launch_bounds__(kThreads)
           const int d = lane + 32 * i;
           if (d < D) part += sq[r * D + d] * kr[i];
         }
-        const float s = warp_sum(part) * scale;
+        // int8: (q . k8) * ks, then the softmax scale, the Pallas order
+        const float s = kQuant ? warp_sum(part) * kscale * scale : warp_sum(part) * scale;
         const int tq = r % tw;
         const bool ok = key_ok && p < length - (tw - 1) + tq;
         if (lane == 0) {
@@ -165,6 +190,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // online softmax: one warp per row, lane j holds key j of the tile
+    const int pos = t0 + lane;
+    const float vscale = kQuant && pos < end ? vsrow[pos] : 1.f;
     for (int r = warp; r < R; r += kWarps) {
       const float s = ss[r * kTile + lane];
       const bool ok = sok[r * kTile + lane];
@@ -175,7 +202,8 @@ __global__ void __launch_bounds__(kThreads)
       const float p = ok ? expf(s - m_new) : 0.f;
       const float corr = expf(m_prev - m_new);
       const float psum = warp_sum(p);
-      ss[r * kTile + lane] = p;
+      // l takes p; the P.V product takes p * vs (v-scales folded into p)
+      ss[r * kTile + lane] = kQuant ? p * vscale : p;
       if (lane == 0) {
         sm[r] = m_new;
         sl[r] = sl[r] * corr + psum;
@@ -233,23 +261,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* ck, const void* cv,
-                   const void* mask, void* out, void* part_acc, void* part_ml,
-                   int B, int tw, int H, int K, int D, int S, int length,
-                   int split_keys, float scale, cudaStream_t stream) {
+template <typename T, typename C>
+cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks,
+                   const void* vs, const void* mask, void* out, void* part_acc,
+                   void* part_ml, int B, int tw, int H, int K, int D, int S,
+                   int length, int split_keys, float scale, cudaStream_t stream) {
   const int rows = (H / K) * tw;
   const size_t bytes = smem_bytes(rows, D);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_attn_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return err;
   }
   const int n_split = (min(length, S) + split_keys - 1) / split_keys;
-  decode_attn_kernel<T><<<dim3(K, B, n_split), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), static_cast<const uint8_t*>(mask),
+  decode_attn_kernel<T, C><<<dim3(K, B, n_split), kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(ck),
+      static_cast<const C*>(cv), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), tw, H, K,
       D, S, length, split_keys, scale);
   cudaError_t err = cudaGetLastError();
@@ -281,12 +310,31 @@ extern "C" int hv_decode_attention_stacked(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (split_keys <= 0 || split_keys % kTile) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, ck_layer, cv_layer, mask, out,
-                                      part_acc, part_ml, B, tw, H, K, D, S,
-                                      length, split_keys, scale, st);
-  return (int)launch<float>(q, ck_layer, cv_layer, mask, out, part_acc,
-                            part_ml, B, tw, H, K, D, S, length, split_keys,
-                            scale, st);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, ck_layer, cv_layer, nullptr, nullptr, mask, out, part_acc, part_ml,
+        B, tw, H, K, D, S, length, split_keys, scale, st);
+  return (int)launch<float, float>(q, ck_layer, cv_layer, nullptr, nullptr,
+                                   mask, out, part_acc, part_ml, B, tw, H, K,
+                                   D, S, length, split_keys, scale, st);
+}
+
+// The same over an int8 cache: ck_layer, cv_layer (B, S, K, D) int8 and
+// ks_layer, vs_layer (B, K, S) f32 scales, views of one layer; q and out
+// bf16 or f32. Returns cudaGetLastError().
+extern "C" int hv_decode_attention_stacked_q(
+    const void* q, const void* ck_layer, const void* cv_layer, const void* ks_layer,
+    const void* vs_layer, const void* mask, void* out, void* part_acc, void* part_ml,
+    int is_bf16, int B, int tw, int H, int K, int D, int S, int length,
+    int split_keys, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_keys <= 0 || split_keys % kTile) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)launch<__nv_bfloat16, int8_t>(
+        q, ck_layer, cv_layer, ks_layer, vs_layer, mask, out, part_acc, part_ml,
+        B, tw, H, K, D, S, length, split_keys, scale, st);
+  return (int)launch<float, int8_t>(q, ck_layer, cv_layer, ks_layer, vs_layer,
+                                    mask, out, part_acc, part_ml, B, tw, H, K,
+                                    D, S, length, split_keys, scale, st);
 }
 
 extern "C" const char* hv_error_string(int err) {

@@ -7,6 +7,12 @@ Port of `handsonvlm_tpu/infer/builder.py` for two sources:
 - an HF HandsOnVLM checkpoint directory (`*.safetensors` or
   `pytorch_model*.bin`), the reference's names.
 
+`quantize="int4"` quantizes the decoder (models/llama.quantize_llama_int4):
+a random model is initialised in its dtype on the device and quantized
+there layer by layer, each dense projection freed as soon as it is
+quantized; a checkpoint is loaded and quantized on the CPU, and only the
+quantized model moves to the device.
+
 Orbax and adapter directories are read by the JAX package only.
 """
 
@@ -22,16 +28,17 @@ import torch
 from handsonvlm_torch.config import HandsOnVLMConfig, get_config
 from handsonvlm_torch.convert.from_hf import load_state_dict_into
 from handsonvlm_torch.models.handsonvlm import HandsOnVLM
+from handsonvlm_torch.models.llama import quantize_llama_int4
 
 RANDOM_SEED = 0
 
 
 def load_tokenizer(model_path: Optional[str], model_max_length: int = 2048):
     if model_path and os.path.exists(os.path.join(model_path, "tokenizer.model")):
-        from handsonvlm_tpu.data.tokenization import HFTokenizer
+        from handsonvlm_torch.data.tokenization import HFTokenizer
 
         return HFTokenizer(model_path, model_max_length)
-    from handsonvlm_tpu.data.mock_tokenizer import MockTokenizer
+    from handsonvlm_torch.data.mock_tokenizer import MockTokenizer
 
     return MockTokenizer(model_max_length)
 
@@ -54,28 +61,40 @@ def load_hf_state_dict(path: str) -> dict:
     return sd
 
 
-def build_model(cfg: HandsOnVLMConfig, device) -> HandsOnVLM:
-    """Allocate the model on `device` in cfg.pdtype, uninitialised."""
+def build_model(cfg: HandsOnVLMConfig, device, quantize: Optional[str] = None) -> HandsOnVLM:
+    """Allocate the model on `device` in cfg.pdtype, uninitialised
+    (`quantize="int4"`: in the int4 layout, to load a quantized state dict)."""
     with torch.device("meta"):
-        model = HandsOnVLM(cfg)
+        model = HandsOnVLM(cfg, quantize=quantize)
     return model.to_empty(device=device).requires_grad_(False).eval()
 
 
 def load_pretrained_model(
-    model_path: str, preset: str = "7b", device="cuda",
+    model_path: str, preset: str = "7b", device="cuda", quantize: Optional[str] = None,
 ) -> Tuple[HandsOnVLM, HandsOnVLMConfig, object]:
-    """Returns (model, cfg, tokenizer) with the model on `device`."""
+    """Returns (model, cfg, tokenizer) with the model on `device`;
+    `quantize="int4"` gives the decoder int4 weights and an int8 head."""
+    if quantize not in (None, "int4"):
+        raise ValueError(f"unknown quantize mode {quantize!r} (the port has int4)")
     cfg = get_config(preset)
     # the released checkpoints always ship the CVAE head
     cfg = dataclasses.replace(cfg, traj=dataclasses.replace(cfg.traj, kind="CVAE"))
     device = torch.device(device)
-    model = build_model(cfg, device)
     if model_path.startswith("random:"):
+        model = build_model(cfg, device)
         generator = torch.Generator(device=device).manual_seed(RANDOM_SEED)
         model.init_weights(generator)
+        if quantize == "int4":
+            quantize_llama_int4(model.llama, cfg.llama)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         return model, cfg, load_tokenizer(None)
     if not os.path.isdir(model_path):
         raise FileNotFoundError(
             f"{model_path}: expected random:<preset> or an HF checkpoint directory")
+    model = build_model(cfg, "cpu" if quantize else device)
     load_state_dict_into(model, load_hf_state_dict(model_path))
+    if quantize == "int4":
+        quantize_llama_int4(model.llama, cfg.llama)
+        model = model.to(device)
     return model, cfg, load_tokenizer(model_path)

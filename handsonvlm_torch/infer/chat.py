@@ -5,7 +5,10 @@ the model emits <hand_traj> tokens, then render the predicted trajectory.
 
 Usage:
   python -m handsonvlm_torch.infer.chat --model-path random:7b --preset 7b \
-      --path frame.jpg --device cuda
+      --path frame.jpg --device cuda [--int4] [--kv-int8]
+
+`--int4` runs the decoder with int4 weights and an int8 head; `--kv-int8`
+decodes over the int8 cache.
 """
 
 from __future__ import annotations
@@ -15,18 +18,17 @@ import argparse
 import numpy as np
 import torch
 
-from handsonvlm_tpu.constants import DEFAULT_IMAGE_TOKEN
-from handsonvlm_tpu.data.conversation import conv_templates
-from handsonvlm_tpu.data.tokenization import tokenizer_image_token
-from handsonvlm_tpu.data.video_io import load_image, load_video
+from handsonvlm_torch.constants import DEFAULT_IMAGE_TOKEN
+from handsonvlm_torch.data.conversation import conv_templates
+from handsonvlm_torch.data.tokenization import tokenizer_image_token
+from handsonvlm_torch.data.video_io import load_image, load_video
 from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.infer.sampler import SampleOutput, clip_pred_hands, generate_host
+from handsonvlm_torch.infer.viz import create_trajectory_video
 
 # flags the JAX CLI has whose modes the port does not have yet
 _NOT_PORTED = {
-    "int8": "ROADMAP A6 (quantized inference, kernels B4-B7, B9)",
-    "int4": "ROADMAP A6 (quantized inference, kernels B4-B7, B9)",
-    "kv_int8": "ROADMAP A6 (int8 KV cache, kernel B6)",
+    "int8": "ROADMAP A6 (int8 weight-only decoder, kernel B9)",
     "spec": "ROADMAP A7 (speculative decode)",
 }
 
@@ -76,7 +78,7 @@ def prompt_ids(conv, tokenizer, user_input: str) -> np.ndarray:
 
 def chat_turn(model, cfg, tokenizer, conv, user_input: str, video, frame_map,
               generator, *, max_new_tokens: int, temperature: float, top_p: float,
-              on_token=None) -> SampleOutput:
+              on_token=None, kv_quant=None) -> SampleOutput:
     """One user turn: append it, generate the reply and record it in `conv`."""
     ids = prompt_ids(conv, tokenizer, user_input)
     # stop on the conv separator like the reference cli's KeywordsStoppingCriteria
@@ -85,7 +87,7 @@ def chat_turn(model, cfg, tokenizer, conv, user_input: str, video, frame_map,
         model, cfg, ids, video, generator, max_new_tokens=max_new_tokens,
         temperature=temperature, top_p=top_p, frame_map=frame_map,
         on_token=on_token, stop_strs=[stop_str] if stop_str else None,
-        tokenizer=tokenizer)
+        tokenizer=tokenizer, kv_quant=kv_quant)
     n = int(out.num_tokens[0])
     conv.messages[-1][1] = tokenizer.decode(out.sequences[0, :n])
     return out
@@ -112,9 +114,9 @@ def main():
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not in the "
                                       f"PyTorch port yet: {item}")
 
-    from handsonvlm_tpu.infer.viz import create_trajectory_video
-
-    model, cfg, tokenizer = load_pretrained_model(args.model_path, args.preset, args.device)
+    model, cfg, tokenizer = load_pretrained_model(
+        args.model_path, args.preset, args.device, quantize="int4" if args.int4 else None)
+    kv_quant = "int8" if args.kv_int8 else None
     video, frame_map, frame_paths = load_frames(args.path, cfg)
     conv = new_conversation()
     generator = torch.Generator(device=args.device).manual_seed(0)
@@ -133,7 +135,8 @@ def main():
 
         out = chat_turn(model, cfg, tokenizer, conv, user_input, video, frame_map,
                         generator, max_new_tokens=args.max_new_tokens,
-                        temperature=args.temperature, top_p=args.top_p, on_token=stream)
+                        temperature=args.temperature, top_p=args.top_p, on_token=stream,
+                        kv_quant=kv_quant)
         print()
         pred, valid = clip_pred_hands(out.pred_hands, out.num_hands)
         if valid[0]:

@@ -1,0 +1,137 @@
+"""Where a chat turn's time goes: torch.profiler over one prefill and a
+window of decode steps, after a warm-up turn.
+
+    python -m handsonvlm_torch.infer.profile [--quantize int4] [--kv-int8] \
+        [--preset 7b] [--device cuda] [--steps 16]
+
+For each part it prints the host (wall) ms of a run without the profiler,
+the device ms of a traced run (the sum of the kernels' own device time, so
+no work is counted twice as an op and as its kernel), the device's busy
+share (device over the untraced wall), the launches, and the kernels that
+take the most device time; then one JSON line with the same numbers.
+Random weights from the builder's seed, 10 distinct frames tiled into the
+clip, the chat CLI's prompt. `--device cpu` runs the same control flow on
+the CPU (no device numbers) to rehearse it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from handsonvlm_torch.infer import sampler
+from handsonvlm_torch.infer.builder import load_pretrained_model
+from handsonvlm_torch.infer.chat import frame_map_for, new_conversation, prompt_ids
+
+TOP = 8  # kernels listed per part
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def random_video(cfg, seed: int = 0):
+    """10 distinct CLIP-normalised frames (1, 10, 3, H, W) and the slot map
+    that tiles them x10 into the 100-frame interface (the chat CLI's rule)."""
+    rng = np.random.default_rng(seed)
+    n_unique = min(10, cfg.num_frames)
+    size = cfg.vision.image_size
+    video = rng.normal(size=(1, n_unique, 3, size, size)).astype(np.float32)
+    return video, frame_map_for(n_unique, cfg.num_frames)
+
+
+def _measure(fn, device, activities, steps: int) -> dict:
+    """Per step: the wall ms of fn() untraced, and from a traced fn() the
+    device ms, busy share, launches and the top kernels (None off the card)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if device.type != "cuda":
+        return {"wall_ms": wall_ms, "device_ms": None, "busy": None, "launches": None,
+                "top": []}
+    with profile(activities=activities) as prof:
+        fn()
+        _sync(device)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "busy": device_ms / wall_ms,
+        "launches": sum(e.count for e in kernels) / steps,
+        "top": [(e.key[:60], e.count / steps, e.self_device_time_total / 1e3 / steps)
+                for e in kernels[:TOP]],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="7b")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize", choices=["int4"], default=None)
+    ap.add_argument("--kv-int8", action="store_true")
+    ap.add_argument("--steps", type=int, default=16, help="decode steps traced")
+    args = ap.parse_args()
+    device = torch.device(args.device)
+    kv_quant = "int8" if args.kv_int8 else None
+
+    model, cfg, tokenizer = load_pretrained_model(f"random:{args.preset}", args.preset,
+                                                  device, quantize=args.quantize)
+    video, frame_map = random_video(cfg)
+    images = torch.as_tensor(video, device=device)
+    ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer,
+                                     "What is the person doing in this video?"), device=device)
+    max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + 2 * args.steps + 4
+    gen = torch.Generator(device=device).manual_seed(0)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+
+    def run_prefill():
+        return sampler.prefill(model, cfg, ids, images, max_len, frame_map=frame_map,
+                               kv_quant=kv_quant)
+
+    def run_decode(steps):
+        """A function that runs the next `steps` decode steps over one
+        fresh prefill's cache (the prefill runs here, before any clock)."""
+        _, cache, mask = run_prefill()
+        token = torch.zeros((1,), dtype=torch.long, device=device)
+        waypoint = torch.zeros((1, 2, 2), device=device)
+
+        def steps_fn():
+            nonlocal token, waypoint, cache
+            for _ in range(steps):
+                token, waypoint, cache = sampler.decode_step(
+                    model, cfg, cache, mask, token, waypoint, gen, temperature=0.5,
+                    top_p=0.9)
+        return steps_fn
+
+    with torch.inference_mode():
+        run_decode(4)()  # warm-up: the first use of every kernel and library call
+        prefill = _measure(run_prefill, device, activities, 1)
+        # two windows of steps from one prefill: untraced, then traced
+        decode = _measure(run_decode(args.steps), device, activities, args.steps)
+
+    on_card = device.type == "cuda"
+    name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    print(f"{args.preset} quantize={args.quantize} kv_quant={kv_quant} on {name}, "
+          f"prompt {ids.shape[1] + cfg.num_visual_tokens - 1} rows after the splice")
+    for part, s in (("prefill (CLIP + decoder)", prefill), ("decode step", decode)):
+        dev = (f"device {s['device_ms']:.3f} ms, busy {100 * s['busy']:.1f}%, "
+               f"{s['launches']:.0f} launches" if on_card else "device not measured")
+        print(f"{part}: wall {s['wall_ms']:.3f} ms, {dev}")
+        for key, count, ms in s["top"]:
+            print(f"    {ms:9.4f} ms  x{count:g}  {key}")
+    print(json.dumps({"device": name, "preset": args.preset, "quantize": args.quantize,
+                      "kv_quant": kv_quant, "prefill": prefill, "decode_step": decode}))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,9 @@ embedding gets the sinusoidal encoding of its own waypoint added.
 Sampling follows HF's warper stack: temperature, then top-p, then a
 categorical draw (temperature <= 0: greedy argmax). Draws come from a
 `torch.Generator`. The cache holds prompt + max_new_tokens + 1 positions.
+`kv_quant="int8"` decodes over the int8 cache: the prefill attends over a
+cache in the model's dtype, which is then quantized, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from handsonvlm_torch.models.handsonvlm import (
     encode_video,
     splice_visual_tokens,
 )
-from handsonvlm_torch.models.llama import KVCache, apply_llama, lm_logits
+from handsonvlm_torch.models.llama import KVCache, apply_llama, lm_logits, quantize_kv_cache
 
 MAX_HAND_STEPS = 10  # generous cap; eval pads/clips to 4
 
@@ -78,10 +81,14 @@ def prefill(
     attn_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     frame_map: Optional[torch.Tensor] = None,
+    kv_quant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Encode the video, splice, run the prompt through the decoder once.
 
-    Returns (last_hidden (B,D), cache, cache_attn_mask (B, max_len))."""
+    Returns (last_hidden (B,D), cache, cache_attn_mask (B, max_len)); with
+    kv_quant="int8" the cache is a QuantKVCache."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
     b = input_ids.shape[0]
     text_embeds = model.llama.embed_tokens(torch.where(input_ids < 0, 0, input_ids))
     visual = encode_video(model, cfg, images, attn_impl=attn_impl, frame_map=frame_map)
@@ -95,6 +102,8 @@ def prefill(
                                                      device=sp.embeds.device)], dim=1)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
                                 attn_mask=cache_mask, kv_cache=cache, attn_impl=attn_impl)
+    if kv_quant == "int8":
+        cache = quantize_kv_cache(cache)
     return hidden[:, -1, :], cache, cache_mask
 
 
@@ -152,8 +161,10 @@ def generate_host(
     stop_strs=None,
     tokenizer=None,
     z_steps: Optional[Sequence] = None,
+    kv_quant: Optional[str] = None,
 ) -> SampleOutput:
-    """Prefill + host-driven per-token decode.
+    """Prefill + host-driven per-token decode (`kv_quant="int8"`: over the
+    int8 cache).
 
     `on_token` (token_id -> None) streams row 0's tokens as they are sampled.
     `stop_strs` (+ `tokenizer`) finish a row when the decoded tail of its
@@ -178,7 +189,7 @@ def generate_host(
 
     last_hidden, cache, cache_mask = prefill(
         model, cfg, input_ids, images, max_len, attn_mask=attn_mask,
-        attn_impl=attn_impl, frame_map=frame_map)
+        attn_impl=attn_impl, frame_map=frame_map, kv_quant=kv_quant)
     token, waypoint = _sample_and_hook(model, cfg, last_hidden, generator,
                                        temperature, top_p, z_at(0))
 

@@ -20,8 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from handsonvlm_tpu.constants import HAND_TOKEN_ID, IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from handsonvlm_torch.config import HandsOnVLMConfig
+from handsonvlm_torch.constants import HAND_TOKEN_ID, IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from handsonvlm_torch.models.clip_vit import ClipVision, apply_clip_vision
 from handsonvlm_torch.models.llama import Llama, apply_llama, lm_logits
 from handsonvlm_torch.models.pooling import pool_video_tokens
@@ -40,12 +40,13 @@ NUM_HAND_TOKENS = 4  # waypoints per answer (4 future steps)
 
 
 class HandsOnVLM(nn.Module):
-    """llama (decoder + head), vision (CLIP), projector, traj (CVAE)."""
+    """llama (decoder + head), vision (CLIP), projector, traj (CVAE).
+    `quantize="int4"` gives the decoder the int4 layout (models/llama.py)."""
 
-    def __init__(self, cfg: HandsOnVLMConfig, device=None):
+    def __init__(self, cfg: HandsOnVLMConfig, device=None, quantize=None):
         super().__init__()
         factory = {"device": device, "dtype": cfg.pdtype}
-        self.llama = Llama(cfg.llama, **factory)
+        self.llama = Llama(cfg.llama, quantize, **factory)
         self.vision = ClipVision(cfg.vision, **factory)
         self.projector = build_projector(cfg.mm_hidden_size, cfg.llama.hidden_size, **factory)
         self.traj = TrajCVAE(cfg.traj, cfg.llama.hidden_size // 2, **factory)

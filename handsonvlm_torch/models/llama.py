@@ -10,6 +10,15 @@ Cached decode writes each step's k/v rows into the (L, B, S, K, D) cache in
 place (the JAX package returns a new cache) and attends through
 `ops.attention.attention`, which serves windows of T <= 8 with the decode
 kernel over a view of the layer (no copy).
+
+The int4 mode (`quantize_llama_int4`, the JAX package's
+`quantize_llama_int4` tree) keeps the four fused projections of every
+layer (wqkv, wo, wgu, w_down) as stacked tiled int4 buffers under
+`Llama.int4`, read per layer through `ops.int8_matmul.int4_matmul_stacked`
+(a view, never a copy), and the head as int8 (`Int8Head`). The int8 decode
+cache (`QuantKVCache`) holds int8 k/v with per-(token, kv head) f32 scales;
+decode quantizes each step's rows in place and attends through kernel B6.
+`attn_impl="xla"` runs every op's plain version instead of its kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +32,16 @@ from torch import nn
 
 from handsonvlm_torch.config import LlamaConfig
 from handsonvlm_torch.ops.attention import attention
+from handsonvlm_torch.ops.decode_attention import MAX_T_WINDOW, decode_attention_stacked_q
+from handsonvlm_torch.ops.int8_matmul import (
+    INT4_GROUP,
+    dequantize_tiled,
+    int4_matmul_stacked,
+    quantize_int4,
+    quantize_lm_head,
+    tile_int4_stacked,
+    tiled_shapes,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +68,43 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 decode cache: k, v (L, B, S_max, K, D) int8 and per-(token, kv
+    head) scales ks, vs (L, B, K, S_max) f32, laid out head-major so a kv
+    head's scales are contiguous in S. Written in place; `index` counts the
+    valid positions. Built from a prefill's cache by `quantize_kv_cache`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+    index: int = 0
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def _quantize_kv_rows(x: torch.Tensor):
+    """(..., K, D) -> int8 values and f32 scales (..., K), one scale per row:
+    amax / 127 (1 for an all-zero row), round half to even, clip to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    sc = torch.where(amax > 0, amax / 127.0, 1.0)
+    q8 = torch.clamp(torch.round(xf / sc[..., None]), -127, 127).to(torch.int8)
+    return q8, sc
+
+
+def quantize_kv_cache(cache: KVCache) -> QuantKVCache:
+    """A filled cache -> its int8 form (every position, as the JAX package
+    quantizes it inside the prefill program)."""
+    k8, ks = _quantize_kv_rows(cache.k)  # scales (L, B, S, K)
+    v8, vs = _quantize_kv_rows(cache.v)
+    return QuantKVCache(k=k8, v=v8, ks=ks.transpose(2, 3).contiguous(),
+                        vs=vs.transpose(2, 3).contiguous(), index=cache.index)
 
 
 # ---------------------------------------------------------------------------
@@ -82,25 +138,71 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, **factory):
+    """One block's weights; `dense=False` (the int4 mode) keeps only the
+    norms, the projections living in `Llama.int4`."""
+
+    def __init__(self, cfg: LlamaConfig, dense: bool = True, **factory):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg, **factory)
-        self.mlp = LlamaMLP(cfg, **factory)
+        self.self_attn = LlamaAttention(cfg, **factory) if dense else None
+        self.mlp = LlamaMLP(cfg, **factory) if dense else None
         self.input_layernorm = RMSNorm(cfg.hidden_size, **factory)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, **factory)
 
 
-class Llama(nn.Module):
-    """Decoder stack + head. The embedding and head keep `vocab_size` rows."""
+def int4_projection_shapes(cfg: LlamaConfig):
+    """(din, dout) of the four fused projections of a layer."""
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    return {"wqkv": (d, (cfg.num_heads + 2 * cfg.kv_heads) * hd),
+            "wo": (cfg.num_heads * hd, d), "wgu": (d, 2 * f), "w_down": (f, d)}
 
-    def __init__(self, cfg: LlamaConfig, **factory):
+
+class Int4Weight(nn.Module):
+    """One fused projection of every layer in the tiled int4 layout:
+    w4t (L, NB, G, g/2, BN) int8 and gst (L, NB, G, BN) f32."""
+
+    def __init__(self, din: int, dout: int, num_layers: int, group: int = INT4_GROUP,
+                 device=None):
         super().__init__()
+        w_shape, s_shape = tiled_shapes(din, dout, num_layers, group)
+        self.register_buffer("w4t", torch.empty(w_shape, dtype=torch.int8, device=device))
+        self.register_buffer("gst", torch.empty(s_shape, dtype=torch.float32, device=device))
+
+
+class Int8Head(nn.Module):
+    """The head as int8 w8 (V, d) with one f32 scale per vocab entry."""
+
+    def __init__(self, vocab: int, d: int, device=None):
+        super().__init__()
+        self.register_buffer("w8", torch.empty((vocab, d), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty((vocab,), dtype=torch.float32,
+                                                  device=device))
+
+
+class Llama(nn.Module):
+    """Decoder stack + head. The embedding and head keep `vocab_size` rows.
+
+    `quantize="int4"` builds the int4 layout directly (projections under
+    `int4`, an `Int8Head`), as `quantize_llama_int4` leaves a dense model."""
+
+    def __init__(self, cfg: LlamaConfig, quantize: Optional[str] = None, **factory):
+        super().__init__()
+        if quantize not in (None, "int4"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        dense = quantize is None
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, **factory) for _ in range(cfg.num_layers))
+            LlamaLayer(cfg, dense, **factory) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, **factory)
-        self.lm_head = (None if cfg.tie_word_embeddings else
-                        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **factory))
+        device = factory.get("device")
+        self.int4 = None if dense else nn.ModuleDict({
+            name: Int4Weight(din, dout, cfg.num_layers, device=device)
+            for name, (din, dout) in int4_projection_shapes(cfg).items()})
+        if cfg.tie_word_embeddings:
+            self.lm_head = None
+        elif dense:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **factory)
+        else:
+            self.lm_head = Int8Head(cfg.vocab_size, cfg.hidden_size, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -145,30 +247,146 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * cos + rotated * sin
 
 
+# ---------------------------------------------------------------------------
+# int4 weights
+# ---------------------------------------------------------------------------
+
+_FUSED = {  # fused projection -> (submodule, Linear names concatenated on dout)
+    "wqkv": ("self_attn", ("q_proj", "k_proj", "v_proj")),
+    "wo": ("self_attn", ("o_proj",)),
+    "wgu": ("mlp", ("gate_proj", "up_proj")),
+    "w_down": ("mlp", ("down_proj",)),
+}
+
+
+@torch.no_grad()
+def quantize_llama_int4(llama: Llama, cfg: LlamaConfig, group: int = INT4_GROUP) -> Llama:
+    """Quantize a dense decoder in place into the int4 layout (the JAX
+    package's `quantize_llama_int4`): per layer, fuse wq|wk|wv, wo,
+    w_gate|w_up and w_down, quantize each to int4 (group 128), tile it into
+    the stacked buffers and free its dense weights at once, so the peak is
+    the dense model plus one layer's quantization; then quantize the head
+    to int8. Norms and the embedding keep their dtype."""
+    device = llama.embed_tokens.weight.device
+    llama.int4 = nn.ModuleDict({
+        name: Int4Weight(din, dout, cfg.num_layers, group, device=device)
+        for name, (din, dout) in int4_projection_shapes(cfg).items()})
+    for i, lp in enumerate(llama.layers):
+        for name, (sub, parts) in _FUSED.items():
+            mod = getattr(lp, sub)
+            w = torch.cat([getattr(mod, p).weight.t() for p in parts], dim=1)
+            w4, gs = quantize_int4(w, group)
+            buf = llama.int4[name]
+            w4t, gst = tile_int4_stacked(w4[None], gs[None], buf.w4t.shape[-1])
+            buf.w4t[i].copy_(w4t[0])
+            buf.gst[i].copy_(gst[0])
+            del w, w4, gs, w4t, gst
+            for p in parts:
+                delattr(mod, p)
+        lp.self_attn = None
+        lp.mlp = None
+    if llama.lm_head is not None:
+        w8, scale = quantize_lm_head(llama.lm_head.weight)
+        head = Int8Head(*w8.shape, device=device)
+        head.w8.copy_(w8)
+        head.scale.copy_(scale)
+        llama.lm_head = head
+    return llama
+
+
+@torch.no_grad()
+def dequantize_llama_int4(llama: Llama, cfg: LlamaConfig, dtype) -> Llama:
+    """The inverse layout change, for references: rebuild dense `dtype`
+    projections and head from the exactly dequantized int4 / int8 values
+    (one f32 rounding each, then the cast to `dtype`)."""
+    device = llama.embed_tokens.weight.device
+    for i, lp in enumerate(llama.layers):
+        lp.self_attn = LlamaAttention(cfg, device=device, dtype=dtype)
+        lp.mlp = LlamaMLP(cfg, device=device, dtype=dtype)
+        for name, (sub, parts) in _FUSED.items():
+            buf = llama.int4[name]
+            w = dequantize_tiled(buf.w4t, buf.gst, i)  # (din, dout)
+            start = 0
+            for p in parts:
+                lin = getattr(getattr(lp, sub), p)
+                lin.weight.copy_(w[:, start:start + lin.out_features].t())
+                start += lin.out_features
+    llama.int4 = None
+    if isinstance(llama.lm_head, Int8Head):
+        head = llama.lm_head
+        lin = nn.Linear(head.w8.shape[1], head.w8.shape[0], bias=False, device=device,
+                        dtype=dtype)
+        lin.weight.copy_(head.w8.float() * head.scale[:, None])
+        llama.lm_head = lin.requires_grad_(False)
+    return llama.requires_grad_(False)
+
+
+# ---------------------------------------------------------------------------
+# Decoder block
+# ---------------------------------------------------------------------------
+
+
+def _write_quant_kv(cache: QuantKVCache, layer_idx: int, kx, vx) -> None:
+    """Quantize this step's k/v rows (B, t, K, D) and write them and their
+    scales into the int8 cache in place."""
+    idx, t = cache.index, kx.shape[1]
+    k8, ksc = _quantize_kv_rows(kx)  # scales (B, t, K)
+    v8, vsc = _quantize_kv_rows(vx)
+    cache.k[layer_idx, :, idx:idx + t] = k8
+    cache.v[layer_idx, :, idx:idx + t] = v8
+    cache.ks[layer_idx, :, :, idx:idx + t] = ksc.transpose(1, 2)
+    cache.vs[layer_idx, :, :, idx:idx + t] = vsc.transpose(1, 2)
+
+
 def _layer(
+    llama: Llama,
     lp: LlamaLayer,
     cfg: LlamaConfig,
     hidden: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
     key_mask: Optional[torch.Tensor],
-    kv_cache: Optional[KVCache],
+    kv_cache,
     layer_idx: int,
     attn_impl: str,
 ) -> torch.Tensor:
-    """One decoder block (dense). With a cache, this layer's k/v rows are
-    written at `kv_cache.index` before attention reads them."""
+    """One decoder block, dense or int4. With a cache (bf16/f32 `KVCache`
+    or int8 `QuantKVCache`), this layer's k/v rows are written at
+    `kv_cache.index` before attention reads them."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
-    attn = lp.self_attn
+    int4 = llama.int4
+    plain = attn_impl == "xla"
+
+    def iproj(x, name):
+        w = int4[name]
+        return int4_matmul_stacked(x, w.w4t, w.gst, layer_idx, plain=plain)
 
     x = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-    q = apply_rope(attn.q_proj(x).view(b, t, h, hd), cos, sin)
-    kx = apply_rope(attn.k_proj(x).view(b, t, k, hd), cos, sin)
-    vx = attn.v_proj(x).view(b, t, k, hd)
+    if int4 is None:
+        attn = lp.self_attn
+        q, kx, vx = attn.q_proj(x), attn.k_proj(x), attn.v_proj(x)
+    else:
+        q, kx, vx = iproj(x, "wqkv").split([h * hd, k * hd, k * hd], dim=-1)
+    q = apply_rope(q.reshape(b, t, h, hd), cos, sin)
+    kx = apply_rope(kx.reshape(b, t, k, hd), cos, sin)
+    vx = vx.reshape(b, t, k, hd)
 
     if kv_cache is None:
         out = attention(q, kx, vx, key_mask=key_mask, causal=True, impl=attn_impl)
+    elif isinstance(kv_cache, QuantKVCache):
+        _write_quant_kv(kv_cache, layer_idx, kx, vx)
+        idx, c = kv_cache.index, kv_cache
+        if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode"):
+            out = decode_attention_stacked_q(q, c.k, c.v, c.ks, c.vs, layer_idx, idx + t,
+                                             key_mask=key_mask)
+        else:
+            # plain route, as the JAX package's: dequantize the layer and
+            # attend over all of it (keys past the written prefix masked)
+            k_l = (c.k[layer_idx].float() * c.ks[layer_idx].transpose(1, 2)[..., None])
+            v_l = (c.v[layer_idx].float() * c.vs[layer_idx].transpose(1, 2)[..., None])
+            out = attention(q, k_l.to(q.dtype), v_l.to(q.dtype), key_mask=key_mask,
+                            causal=True, q_offset=idx, impl="xla")
     else:
         idx = kv_cache.index
         kv_cache.k[layer_idx, :, idx:idx + t] = kx
@@ -181,7 +399,13 @@ def _layer(
         out = attention(
             q, kv_cache.k[layer_idx], kv_cache.v[layer_idx], key_mask=key_mask,
             causal=True, q_offset=idx, impl=attn_impl, decode_length=idx + t)
-    hidden = hidden + attn.o_proj(out.reshape(b, t, h * hd))
+    out = out.reshape(b, t, h * hd)
+    if int4 is not None:
+        hidden = hidden + iproj(out, "wo")
+        x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
+        gate, up = iproj(x, "wgu").chunk(2, dim=-1)
+        return hidden + iproj(F.silu(gate) * up, "w_down")
+    hidden = hidden + lp.self_attn.o_proj(out)
 
     x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
     gate = F.silu(lp.mlp.gate_proj(x))
@@ -201,7 +425,7 @@ def apply_llama(
     inputs_embeds: Optional[torch.Tensor] = None,
     attn_mask: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
-    kv_cache: Optional[KVCache] = None,
+    kv_cache=None,
     attn_impl: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.
@@ -210,7 +434,8 @@ def apply_llama(
     - With `kv_cache`: new keys/values are written at `kv_cache.index` (in
       place), attention spans the written prefix, and `attn_mask` covers the
       S_max cache keys (None: every written key is valid). The cache's
-      index advances by T.
+      index advances by T. A `QuantKVCache` serves windows of T <= 8 only:
+      a prefill fills a `KVCache` and then `quantize_kv_cache`.
 
     Returns the final-normed hidden states (B,T,D) and the cache (or None).
     """
@@ -220,6 +445,9 @@ def apply_llama(
     device = inputs_embeds.device
 
     start = 0
+    if isinstance(kv_cache, QuantKVCache) and t > MAX_T_WINDOW:
+        raise ValueError(f"QuantKVCache serves decode windows (t <= {MAX_T_WINDOW}), "
+                         f"got t={t}: prefill into a KVCache, then quantize_kv_cache")
     if kv_cache is not None:
         start = kv_cache.index
         if start + t > kv_cache.max_len:
@@ -238,7 +466,7 @@ def apply_llama(
 
     hidden = inputs_embeds
     for i, lp in enumerate(llama.layers):
-        hidden = _layer(lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl)
+        hidden = _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl)
     hidden = rms_norm(hidden, llama.norm.weight, cfg.rms_norm_eps)
     if kv_cache is not None:
         kv_cache.index += t
@@ -248,11 +476,22 @@ def apply_llama(
 def lm_logits(llama: Llama, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     """Project to the vocab with fp32 output: bf16 operands, fp32
     accumulation, no bf16 rounding of the logits (which would move the
-    top-p cutoff) and no fp32 copy of the head on the card."""
-    w = llama.embed_tokens.weight if cfg.tie_word_embeddings else llama.lm_head.weight
+    top-p cutoff) and no fp32 copy of the head on the card. The int8 head
+    (`Int8Head`) is cast to the activations' dtype, multiplied with fp32
+    accumulation, and its scales are applied to the fp32 logits, as the JAX
+    package does."""
+    scale = None
+    if cfg.tie_word_embeddings:
+        w = llama.embed_tokens.weight
+    elif isinstance(llama.lm_head, Int8Head):
+        w, scale = llama.lm_head.w8.to(hidden.dtype), llama.lm_head.scale
+    else:
+        w = llama.lm_head.weight
     flat = hidden.reshape(-1, hidden.shape[-1])
     if flat.is_cuda and flat.dtype != torch.float32:
         logits = torch.mm(flat, w.t(), out_dtype=torch.float32)
     else:
         logits = flat.float() @ w.float().t()
+    if scale is not None:
+        logits = logits * scale
     return logits.reshape(*hidden.shape[:-1], w.shape[0])

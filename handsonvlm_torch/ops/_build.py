@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every `handsonvlm_torch/csrc/*.cu` is compiled at first use by `nvcc` for
-Hopper (`sm_90a`) into one shared library with a plain C interface, which
-is loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
-The library lands in `build/handsonvlm_torch/` at the repository root,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the existing file.
+Hopper (`sm_90a`), one `nvcc` process per source, all started together,
+and the objects are linked into one shared library with a plain C
+interface, which is loaded with `ctypes` (no PyTorch headers, so a build
+takes seconds). The library lands in `build/handsonvlm_torch/` at the
+repository root, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the existing file.
 
 There is no fallback: a missing `nvcc` or a failed build raises
 `KernelBuildError`, and a C entry point that returns a CUDA error makes
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "handsonvlm_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
+    "-Xcompiler", "-fPIC", "--resource-usage",
 )
 
 _P = ctypes.c_void_p
@@ -38,7 +39,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "hv_decode_attention_stacked": (
         [_P] * 7 + [_I] * 9 + [_F, _P], _I),
+    "hv_decode_attention_stacked_q": (
+        [_P] * 9 + [_I] * 9 + [_F, _P], _I),
     "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "hv_int4_gemv": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "hv_int4_prefill": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "hv_error_string": ([_I], ctypes.c_char_p),
 }
@@ -76,27 +81,48 @@ def load_library() -> ctypes.CDLL:
     the build time) is written beside the library as `<name>.log`."""
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc exited {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-        path.with_suffix(".log").write_text(
-            f"build_seconds={seconds:.3f}\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+        _build(path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def _build(path: Path) -> None:
+    """Compile each source in its own nvcc process (all at once), then
+    link the objects into `path`."""
+    nvcc = _nvcc()
+    work = path.with_name(f"{path.stem}.{os.getpid()}.d")
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as out:
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
+    # wait for every nvcc before raising, so a failed source leaves none running
+    codes = [proc.wait() for *_, proc in jobs]
+    report = [f"{' '.join(cmd)}\n{log.read_text()}" for cmd, _, log, _ in jobs]
+    for code, text in zip(codes, report):
+        if code != 0:
+            raise KernelBuildError(f"nvcc exited {code}:\n{text}")
+    compiled = time.perf_counter() - t0
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc link exited {proc.returncode}: {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    shutil.rmtree(work, ignore_errors=True)
+    path.with_suffix(".log").write_text(
+        f"build_seconds={time.perf_counter() - t0:.3f} "
+        f"(compile {compiled:.3f}, {len(jobs)} sources in parallel)\n"
+        + "\n".join(report) + f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
 
 
 def check(status: int, what: str) -> None:

@@ -5,18 +5,32 @@ imports no jax, so it also runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
 
-Tolerance, kernel vs plain version (max abs): 1e-2 in bf16 (rounding of
-the output, and of p in the plain vit version), 1e-4 in fp32 (summation
-order).
+Tolerance, kernel vs plain version (max abs): attention 1e-2 in bf16
+(rounding of the output, and of p in the plain vit version), 1e-4 in fp32
+(summation order). The int4 matmuls: 2e-3 x max|y| plus one bf16 rounding
+step of the element in bf16 (both sides round f32 sums taken in another
+order to bf16, and a sum next to a rounding boundary lands one step apart),
+1e-4 x max|y| in fp32 (summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from handsonvlm_torch.models.llama import _quantize_kv_rows
 from handsonvlm_torch.ops.decode_attention import (
     decode_attention_stacked,
+    decode_attention_stacked_q,
+    decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
+)
+from handsonvlm_torch.ops.int8_matmul import (
+    int4_gemv_tiled,
+    int4_gemv_tiled_ref,
+    int4_matmul_prefill_tiled,
+    int4_matmul_prefill_tiled_ref,
+    quantize_int4,
+    tile_int4_stacked,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 
@@ -51,6 +65,41 @@ def decode_inputs(L, B, S, H, K, D, T, mask_kind, seed):
         if mask_kind == "long_pad":  # a whole 32-key tile and more
             mask[:, :40] = False
     return q, ck, cv, mask
+
+
+def quantize_cache(ck, cv):
+    """A float (L, B, S, K, D) cache -> int8 k, v and their (L, B, K, S)
+    scales, as models/llama.quantize_kv_cache lays them out."""
+    k8, ks = _quantize_kv_rows(ck)
+    v8, vs = _quantize_kv_rows(cv)
+    return k8, v8, ks.transpose(2, 3).contiguous(), vs.transpose(2, 3).contiguous()
+
+
+# (din, dout) of the tiny preset's and the 7B preset's fused projections
+INT4_SHAPES = {
+    "tiny_wqkv": (64, 192), "tiny_w_down": (128, 64),
+    "7b_wqkv": (4096, 12288), "7b_wo": (4096, 4096), "7b_wgu": (4096, 22016),
+    "7b_w_down": (11008, 4096),
+}
+
+
+def int4_weights(din, dout, layers, device, seed):
+    """Random (layers, din, dout) weights, quantized and tiled as
+    models/llama.quantize_llama_int4 does: (w4t, gst)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    packed = [quantize_int4(0.02 * torch.randn((din, dout), generator=gen, device=device))
+              for _ in range(layers)]
+    return tile_int4_stacked(torch.stack([p[0] for p in packed]),
+                             torch.stack([p[1] for p in packed]))
+
+
+def assert_int4_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    bound = (2e-3 if dtype == torch.bfloat16 else 1e-4) * want.abs().max()
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
 
 
 @pytest.fixture
@@ -91,3 +140,53 @@ def test_vit_attention_kernel(cuda, shape, dtype):
     assert vit_attention.LAUNCHES == before + 1
     torch.testing.assert_close(got.float(), vit_attention_ref(q, k, v).float(),
                                **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(DECODE_CASES), ids=list(DECODE_CASES))
+def test_decode_attention_q_kernel(cuda, case, dtype):
+    L, B, S, H, K, D, T, layer, length, mask_kind = DECODE_CASES[case]
+    q, ck, cv, mask = decode_inputs(L, B, S, H, K, D, T, mask_kind, seed=len(case))
+    k8, v8, ks, vs = (x.to(cuda) for x in quantize_cache(torch.from_numpy(ck),
+                                                         torch.from_numpy(cv)))
+    q = torch.from_numpy(q).to(cuda, dtype)
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = decode_attention_stacked_q.LAUNCHES
+    got = decode_attention_stacked_q(q, k8, v8, ks, vs, layer, length, key_mask=t_mask)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked_q.LAUNCHES == before + 1
+    want = decode_attention_stacked_q_ref(q, k8, v8, ks, vs, layer, length, key_mask=t_mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 3, 8, 127])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_gemv_kernel(cuda, shape, m, dtype):
+    w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=m)
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    x = torch.randn((m, INT4_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+    before = int4_gemv_tiled.LAUNCHES
+    got = int4_gemv_tiled(x, w4t, gst, 1)
+    torch.cuda.synchronize()
+    assert int4_gemv_tiled.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (m, INT4_SHAPES[shape][1])
+    assert_int4_close(got, int4_gemv_tiled_ref(x, w4t, gst, 1), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [128, 200, 391])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_prefill_kernel(cuda, shape, m, dtype):
+    w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=m)
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    x = torch.randn((1, m, INT4_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+    before = int4_matmul_prefill_tiled.LAUNCHES
+    got = int4_matmul_prefill_tiled(x, w4t, gst, 1)
+    torch.cuda.synchronize()
+    assert int4_matmul_prefill_tiled.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (1, m, INT4_SHAPES[shape][1])
+    assert_int4_close(got, int4_matmul_prefill_tiled_ref(x, w4t, gst, 1), dtype)

@@ -1,5 +1,7 @@
-"""The port runs without JAX: importing it loads no jax, and chip_smoke.py
-refuses to report a result on a machine without a CUDA device."""
+"""The port runs without JAX and without the JAX package: importing it,
+and running chip_smoke's phases that a CPU can run, loads no `jax` and no
+`handsonvlm_tpu` module; chip_smoke.py refuses to report a result on a
+machine without a CUDA device."""
 
 import os
 import subprocess
@@ -9,17 +11,31 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "handsonvlm_torch",
     "handsonvlm_torch.config",
+    "handsonvlm_torch.constants",
+    "handsonvlm_torch.data.conversation",
+    "handsonvlm_torch.data.mock_tokenizer",
+    "handsonvlm_torch.data.spm_model",
+    "handsonvlm_torch.data.tokenization",
+    "handsonvlm_torch.data.video_io",
     "handsonvlm_torch.ops._build",
     "handsonvlm_torch.ops.attention",
     "handsonvlm_torch.ops.decode_attention",
+    "handsonvlm_torch.ops.int8_matmul",
     "handsonvlm_torch.ops.vit_attention",
+    "handsonvlm_torch.models.llama",
     "handsonvlm_torch.models.handsonvlm",
     "handsonvlm_torch.convert.from_hf",
     "handsonvlm_torch.infer.builder",
     "handsonvlm_torch.infer.sampler",
     "handsonvlm_torch.infer.chat",
+    "handsonvlm_torch.infer.profile",
+    "handsonvlm_torch.infer.viz",
     "chip_smoke",
 ]
+# modules the port must never load: JAX and the JAX package
+FORBIDDEN = ("import sys\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'handsonvlm_tpu'))\n"
+             "assert not bad, bad\n")
 
 
 def _env():
@@ -29,10 +45,8 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    code = ("import importlib, sys\n"
-            f"for m in {MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "assert not bad, bad\n")
+    code = ("import importlib\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n" + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -46,7 +60,7 @@ def test_chip_smoke_phases_run_without_jax():
             "import chip_smoke as cs\n"
             "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu')\n"
             "model.to(torch.bfloat16)\n"
-            "video, frame_map = cs._frames(cfg)\n"
+            "video, frame_map = cs.random_video(cfg)\n"
             "conv = cs.new_conversation()\n"
             "gen = torch.Generator().manual_seed(0)\n"
             "out = cs.chat_turn(model, cfg, tok, conv, 'What is the person doing?', video,\n"
@@ -54,13 +68,53 @@ def test_chip_smoke_phases_run_without_jax():
             "assert int(out.num_tokens[0]) >= 1\n"
             "ids = cs.prompt_ids(conv, tok, 'Predict the future trajectory of the hands.')\n"
             "assert int((ids == cfg.image_token_index).sum()) == 1, ids\n"
-            "cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            "assert not bad, bad\n")
+            "h, toks = cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
+            "print('phase 4 ran', toks)\n" + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "phase 4" in proc.stdout
+    assert "phase 4 ran" in proc.stdout
+
+
+def test_chip_smoke_quantized_phases_run_without_jax():
+    """chip_smoke's int4 + int8-cache chat phase and its quantized
+    kernel-vs-plain phase run at the tiny preset (bf16 activations, CPU
+    tensors take the plain versions) and load neither jax nor the JAX
+    package on the way."""
+    code = ("import torch\n"
+            "import chip_smoke as cs\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                           quantize='int4')\n"
+            "for p in model.parameters():\n"
+            "    p.data = p.data.to(torch.bfloat16)\n"
+            "video, frame_map = cs.random_video(cfg)\n"
+            "run = cs.phase_chat(model, cfg, tok, video, frame_map, kv_quant='int8',\n"
+            "                    new_tokens=4)\n"
+            "assert run['prefills'] == 3 and run['decode_steps'] >= 3, run\n"
+            "assert not any(run['launches'].values()), run  # no kernel on the CPU\n"
+            "cs.phase_quant_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
+            "print('phase 6 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 6 ran" in proc.stdout
+
+
+def test_profile_cli_rehearses_on_cpu():
+    """The profiler's CLI runs its control flow at the tiny preset on the
+    CPU, reports no device numbers there, and loads no jax."""
+    code = ("import json, sys, runpy, io, contextlib\n"
+            "sys.argv = ['profile', '--preset', 'tiny', '--device', 'cpu', '--quantize',\n"
+            "            'int4', '--kv-int8', '--steps', '2']\n"
+            "out = io.StringIO()\n"
+            "with contextlib.redirect_stdout(out):\n"
+            "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
+            "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
+            "assert res['decode_step']['device_ms'] is None, res\n"
+            "assert res['prefill']['wall_ms'] > 0, res\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_chip_smoke_fails_without_cuda():

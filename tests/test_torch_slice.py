@@ -1,4 +1,4 @@
-"""The port's chat slice against the JAX package's, at the tiny preset.
+"""The port's chat slices against the JAX package's, at the tiny preset.
 
 JAX weights are carried over through `from_jax_params`. Greedy decode must
 give the same first 8 tokens (later tokens may drift: reassociation
@@ -6,6 +6,12 @@ differences grow through the KV cache); with a forced <hand_traj> and the
 CVAE latents JAX draws
 injected step by step, the decoded waypoints must agree. The chat CLI runs
 end to end on the CPU.
+
+The quantized slice (int4 weights, int8 head, int8 KV cache) runs the same
+checks: the port's int4 model holds the bytes of JAX's `init_llama_int4`
+tree, and JAX decodes over its int8 cache with those weights exactly
+dequantized (the tiny prompts stay under 128 rows, so every projection of
+the port takes the exact int4 GEMV).
 """
 
 import os
@@ -19,9 +25,10 @@ import jax.numpy as jnp
 
 from handsonvlm_tpu.constants import IMAGE_TOKEN_INDEX
 from handsonvlm_tpu.core.config import tiny_config as jax_tiny_config
+from handsonvlm_tpu.infer.builder import load_pretrained_model as jax_load_pretrained_model
 from handsonvlm_tpu.infer.sampler import generate_host as jax_generate_host
 from handsonvlm_tpu.models.handsonvlm import init_handsonvlm
-from handsonvlm_torch.config import tiny_config
+from handsonvlm_torch.config import get_config, tiny_config
 from handsonvlm_torch.convert.from_hf import from_jax_params, load_state_dict_into
 from handsonvlm_torch.infer import chat
 from handsonvlm_torch.infer.builder import build_model
@@ -32,8 +39,8 @@ JCFG = jax_tiny_config()
 CFG = tiny_config()
 
 
-def _port(params):
-    model = build_model(CFG, "cpu")
+def _port(params, quantize=None):
+    model = build_model(get_config("tiny") if quantize else CFG, "cpu", quantize=quantize)
     load_state_dict_into(model, from_jax_params(params))
     return model
 
@@ -99,7 +106,59 @@ def test_forced_hand_waypoints_match_jax(params):
     assert valid[0] and pred.shape == (1, 2, 4, 2)
 
 
-def test_chat_cli_end_to_end(tmp_path):
+@pytest.fixture(scope="module")
+def int4_params():
+    """JAX int4 params (`init_llama_int4` through the JAX builder) and the
+    same tree with the projections exactly dequantized (int8 head kept)."""
+    from test_torch_quant import dense_from_int4
+
+    params, jcfg, _ = jax_load_pretrained_model("random:tiny", "tiny", quantize="int4")
+    dense = dict(params, llama=dense_from_int4(params["llama"], jcfg.llama))
+    return params, dense, jcfg
+
+
+def test_int4_kv8_greedy_prefix_matches_jax(int4_params):
+    params, dense, jcfg = int4_params
+    ids, frames, frame_map = _prompt()
+    want = jax_generate_host(dense, jcfg, ids, frames, jax.random.PRNGKey(7),
+                             max_new_tokens=12, temperature=0.0, frame_map=frame_map,
+                             kv_quant="int8")
+    got = generate_host(_port(params, "int4"), get_config("tiny"), ids, frames, None,
+                        max_new_tokens=12, temperature=0.0, frame_map=frame_map,
+                        kv_quant="int8")
+    np.testing.assert_array_equal(got.sequences[0, :8], np.asarray(want.sequences)[0, :8])
+
+
+def test_int4_kv8_forced_hand_waypoints_match_jax(int4_params):
+    """As test_forced_hand_waypoints_match_jax, over the int8 cache with
+    int4 weights: the int8 head is rigged so <hand_traj> wins whenever
+    u.h > 0 (its column dequantizes to +2.0 on the first half of the
+    features and -2.0 on the second, every other column to 0; this seed
+    gives token 0 first, then hand tokens)."""
+    params, dense, jcfg = int4_params
+    d = jcfg.llama.hidden_size
+    v = params["llama"]["lm_head"]["w8"].shape[1]
+    w8 = np.zeros((d, v), np.int8)
+    w8[:, jcfg.hand_token_id] = np.where(np.arange(d) < d // 2, 127, -127)
+    scale = np.ones((v,), np.float32)
+    scale[jcfg.hand_token_id] = 2.0 / 127.0
+    head = {"w8": jnp.asarray(w8), "scale": jnp.asarray(scale)}
+    rig = {name: dict(tree, llama=dict(tree["llama"], lm_head=head))
+           for name, tree in (("int4", params), ("dense", dense))}
+    ids, frames, frame_map = _prompt()
+    key, steps = jax.random.PRNGKey(11), 8
+    want = jax_generate_host(rig["dense"], jcfg, ids, frames, key, max_new_tokens=steps,
+                             temperature=0.0, frame_map=frame_map, kv_quant="int8")
+    got = generate_host(_port(rig["int4"], "int4"), get_config("tiny"), ids, frames, None,
+                        max_new_tokens=steps, temperature=0.0, frame_map=frame_map,
+                        z_steps=_jax_step_latents(key, steps, n=2), kv_quant="int8")
+    assert int(np.asarray(want.num_hands)[0]) > 0
+    np.testing.assert_array_equal(got.sequences, np.asarray(want.sequences))
+    np.testing.assert_array_equal(got.num_hands, np.asarray(want.num_hands))
+    np.testing.assert_allclose(got.pred_hands, np.asarray(want.pred_hands), atol=1e-5)
+
+
+def _run_chat_cli(tmp_path, *flags):
     from PIL import Image
 
     img = tmp_path / "k.jpg"
@@ -109,14 +168,22 @@ def test_chat_cli_end_to_end(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "handsonvlm_torch.infer.chat", "--model-path", "random:tiny",
          "--preset", "tiny", "--device", "cpu", "--path", str(img),
-         "--max-new-tokens", "8", "--output-video", str(tmp_path / "traj.mp4")],
+         "--max-new-tokens", "8", "--output-video", str(tmp_path / "traj.mp4"), *flags],
         input="reach for the cup\n\n", capture_output=True, text=True, cwd=tmp_path,
         env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "ASSISTANT:" in proc.stdout and "exit..." in proc.stdout
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--int4", "--kv-int8", "--spec=2"])
+def test_chat_cli_end_to_end(tmp_path):
+    _run_chat_cli(tmp_path)
+
+
+def test_chat_cli_int4_kv8_end_to_end(tmp_path):
+    _run_chat_cli(tmp_path, "--int4", "--kv-int8")
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--spec=2"])
 def test_chat_flags_not_ported_raise(monkeypatch, flag):
     monkeypatch.setattr(sys, "argv", ["chat", "--model-path", "random:tiny", "--preset",
                                       "tiny", "--device", "cpu", "--path", "x.jpg", flag])
