@@ -27,7 +27,23 @@ Phases (each prints its lines; the last line is the JSON status):
 6. the quantized kernel path against the quantized plain path at 7B, fed
    phase 4's tokens. The reference is the plain path with the int4 weights
    dequantized to fp32 in an fp32 model, over the int8 cache; the bf16
-   kernel path may lie at most 1.2x as far from it as the bf16 plain path.
+   kernel path may lie at most 1.2x as far from it as the bf16 plain path;
+7. compaction at 7B (bf16, then int4 + int8 cache, kernels on): two
+   continuous-batching engines (2 slots, 1024 positions, chunks of 4) run
+   one request out behind a live one; engine A compacts its cache (kernel
+   B8) and engine B does not. The live request's tokens and waypoints must
+   be bit-equal, and every kernel's launches exact;
+8. EK100 evaluation at 7B, int4 + int8 cache: 16 in-memory clips (10 unique
+   224 px frames tiled x10, an EK-style prompt, future hands from a seed),
+   32 new tokens at temperature 0.5 / top-p 0.9. Serial evaluation of 2
+   clips, batched evaluation (8 slots, 4096 positions, chunks of 16) of
+   all 16, and a staggered burst of 24 requests through the scheduler (4
+   slots, 2048 positions) that runs the cursor out, so it compacts. Every
+   clip is scored, nothing is truncated, launches are exact; a greedy pass
+   of 2 clips gives each clip the same first token serially and batched.
+
+Phases 7 and 8 run before phases 4 and 6 (which convert the model), on the
+model each chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -39,6 +55,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -48,6 +65,8 @@ import torch.nn.functional as F
 from handsonvlm_torch.infer import sampler
 from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.config import get_config
+from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
+from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video
 from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
@@ -59,7 +78,9 @@ from handsonvlm_torch.models.llama import (
     lm_logits,
 )
 from handsonvlm_torch.ops import _build
+from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
 from handsonvlm_torch.ops.decode_attention import (
+    block_list,
     decode_attention_stacked,
     decode_attention_stacked_q,
     decode_attention_stacked_q_ref,
@@ -75,6 +96,8 @@ from handsonvlm_torch.ops.int8_matmul import (
     tile_int4_stacked,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
+from handsonvlm_torch.serve.continuous import ContinuousEngine
+from handsonvlm_torch.serve.scheduler import ContinuousScheduler
 
 # kernel vs plain version, max abs error for attention (bf16 rounds p and
 # the output; fp32 differs only in summation order)
@@ -94,13 +117,17 @@ BF16_FLOP_S = 989e12
 PREFILL_ROWS = 391
 DECODE_LEN = 450  # cache positions attended by a mid-answer decode step
 TIMING_LAYERS = 4  # weights cycled while timing, so each launch finds L2 cold
+# the 7B serving cache of batched evaluation: 8 slots of 4096 positions
+SERVE_SLOTS, SERVE_LEN = 8, 4096
+FRAG_LEN = 4000  # valid positions of the fragmented serving cache
 SPIN_CYCLES = 200_000_000  # ~0.1 s of the card's clock ahead of a timed loop
 
 # every kernel wrapper by the name chip_smoke reports it under
 WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
             "vit_attention": vit_attention, "int4_gemv_tiled": int4_gemv_tiled,
             "int4_matmul_prefill_tiled": int4_matmul_prefill_tiled,
-            "decode_attention_stacked_q": decode_attention_stacked_q}
+            "decode_attention_stacked_q": decode_attention_stacked_q,
+            "gather_cache_blocks": gather_cache_blocks}
 
 
 def log(msg: str) -> None:
@@ -228,15 +255,22 @@ def check_decode_attention() -> dict:
         want = decode_attention_stacked_ref(q4, ckg, cvg, 0, 333)
         _check("B1 T=4 GQA H=32 K=8", got, want, dtype, errs[dtype])
 
+    # a fragmented 7B serving cache (4 layers, 1.07 GB)
+    frag = [_rand(gen, (4, SERVE_SLOTS, SERVE_LEN, K, D), torch.bfloat16) for _ in range(2)]
+    _fragmented_decode("B1", decode_attention_stacked, decode_attention_stacked_ref, frag, 4,
+                       errs, 2 * D * 2)
+    del frag
+
     # time at the 7B decode shape: one query, length 450, the layers cycled
     # (16 x 8.5 MB of cache: each launch finds its layer outside L2)
     Lt, n = 16, DECODE_LEN
     ck = _rand(gen, (Lt, B, S, K, D), torch.bfloat16)
     cv = _rand(gen, (Lt, B, S, K, D), torch.bfloat16)
     q1 = _rand(gen, (B, 1, H, D), torch.bfloat16)
-    ms = cuda_time_ms(lambda i: decode_attention_stacked(q1, ck, cv, i % Lt, n))
-    plain_ms = cuda_time_ms(lambda i: decode_attention_stacked_ref(q1, ck, cv, i % Lt, n),
-                            iters=20)
+    bl = block_list(None, n, B, S, "cuda")  # built once per forward, not per layer
+    ms = cuda_time_ms(lambda i: decode_attention_stacked(q1, ck, cv, i % Lt, n, blocks=bl))
+    plain_ms = cuda_time_ms(
+        lambda i: decode_attention_stacked_ref(q1, ck, cv, i % Lt, n, blocks=bl), iters=20)
     library_ms = cuda_time_ms(
         lambda i: _sdpa(q1, ck[i % Lt, :, :n], cv[i % Lt, :, :n]))
     bound_ms, bound_by = bound(2 * n * K * D * 2 + 2 * H * D * 2, 4 * n * H * D)
@@ -287,9 +321,9 @@ def check_decode_attention_q() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     L, B, S, H, K, D = 2, 1, 520, 32, 32, 128
 
-    def cache(b, k, layers=L):
-        k8, ks = _quantize_kv_rows(_rand(gen, (layers, b, S, k, D), torch.bfloat16))
-        v8, vs = _quantize_kv_rows(_rand(gen, (layers, b, S, k, D), torch.bfloat16))
+    def cache(b, k, layers=L, s=S):
+        k8, ks = _quantize_kv_rows(_rand(gen, (layers, b, s, k, D), torch.bfloat16))
+        v8, vs = _quantize_kv_rows(_rand(gen, (layers, b, s, k, D), torch.bfloat16))
         return k8, v8, ks.transpose(2, 3).contiguous(), vs.transpose(2, 3).contiguous()
 
     errs = {torch.bfloat16: [], torch.float32: []}
@@ -318,12 +352,18 @@ def check_decode_attention_q() -> dict:
         want = decode_attention_stacked_q_ref(q4, *cg, 0, 333)
         _check("B6 T=4 GQA H=32 K=8", got, want, dtype, errs[dtype])
 
+    frag = cache(SERVE_SLOTS, K, 4, SERVE_LEN)
+    _fragmented_decode("B6", decode_attention_stacked_q, decode_attention_stacked_q_ref, frag,
+                       4, errs, 2 * (D + 4))
+    del frag
+
     Lt, n = 16, DECODE_LEN
     ct = cache(B, K, Lt)
     q1 = _rand(gen, (B, 1, H, D), torch.bfloat16)
-    ms = cuda_time_ms(lambda i: decode_attention_stacked_q(q1, *ct, i % Lt, n))
-    plain_ms = cuda_time_ms(lambda i: decode_attention_stacked_q_ref(q1, *ct, i % Lt, n),
-                            iters=20)
+    bl = block_list(None, n, B, S, "cuda")  # built once per forward, not per layer
+    ms = cuda_time_ms(lambda i: decode_attention_stacked_q(q1, *ct, i % Lt, n, blocks=bl))
+    plain_ms = cuda_time_ms(
+        lambda i: decode_attention_stacked_q_ref(q1, *ct, i % Lt, n, blocks=bl), iters=20)
     bound_ms, bound_by = bound(2 * n * K * D + 2 * n * K * 4 + 2 * H * D * 2, 4 * n * H * D)
     log(f"  B6 time (B=1 H=K=32 D=128 S=520 len={n}, int8 cache, bf16 q, {Lt} layers "
         f"cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
@@ -336,6 +376,124 @@ def check_decode_attention_q() -> dict:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def fragmented_mask(b, s, length, device="cuda"):
+    """(b, s) key masks as continuous batching leaves them: row r has a
+    leading pad of 7r keys and r % 4 + 1 interior holes of 512 keys, so the
+    rows list different counts of 256-key blocks; keys at or past `length`
+    are invalid."""
+    mask = torch.zeros((b, s), dtype=torch.bool, device=device)
+    for r in range(b):
+        mask[r, 7 * r:length] = True
+        for j in range(r % 4 + 1):
+            mask[r, 512 * (2 * j + 1):512 * (2 * j + 2)] = False
+    return mask
+
+
+def _fragmented_decode(name, attend, ref, cache, lt, tol_errs, key_bytes):
+    """The decode kernel over a fragmented 7B serving cache (SERVE_SLOTS
+    rows of SERVE_LEN positions): checked against its plain version in bf16
+    and fp32 queries, then timed (bf16, `lt` layers cycled) against the
+    plain version and the bound of the bytes its valid keys need
+    (`key_bytes` per key and kv head: k, v and their scales)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, d = SERVE_SLOTS, SERVE_LEN, 32, 128
+    kh = cache[0].shape[3]
+    mask = fragmented_mask(b, s, FRAG_LEN)
+    for dtype in (torch.bfloat16, torch.float32):
+        # a float cache takes the query's dtype; the int8 cache any
+        c = [x.to(dtype) if x.is_floating_point() and x.dim() == 5 else x for x in cache]
+        q = _rand(gen, (b, 1, h, d), dtype)
+        _check(f"{name} T=1 fragmented slots={b} S={s}", attend(q, *c, 1, FRAG_LEN,
+                                                               key_mask=mask),
+               ref(q, *c, 1, FRAG_LEN, key_mask=mask), dtype, tol_errs[dtype])
+        q4 = _rand(gen, (b, 4, h, d), dtype)
+        _check(f"{name} T=4 fragmented slots={b} S={s}", attend(q4, *c, 0, FRAG_LEN,
+                                                               key_mask=mask),
+               ref(q4, *c, 0, FRAG_LEN, key_mask=mask), dtype, tol_errs[dtype])
+        del c
+    q = _rand(gen, (b, 1, h, d), torch.bfloat16)
+    # the forward builds the block list once for all layers: timed without it
+    bl = block_list(mask, FRAG_LEN, b, s, "cuda")
+    ms = cuda_time_ms(lambda i: attend(q, *cache, i % lt, FRAG_LEN, key_mask=mask, blocks=bl))
+    plain_ms = cuda_time_ms(lambda i: ref(q, *cache, i % lt, FRAG_LEN, key_mask=mask, blocks=bl),
+                            iters=5, warmup=1)
+    list_ms = cuda_time_ms(lambda i: block_list(mask, FRAG_LEN, b, s, "cuda"))
+    keys = int(mask[:, :FRAG_LEN].sum())
+    bound_ms, bound_by = bound(keys * kh * key_bytes + 2 * b * h * d * 2, 4 * keys * h * d)
+    log(f"  {name} time fragmented (slots={b} S={s} len={FRAG_LEN}, {keys} valid keys, bf16 q, "
+        f"{lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); the block list, built once per forward, "
+        f"{list_ms:.4f} ms")
+
+
+def _plane(gen, shape, dtype):
+    c = torch.empty(shape, dtype=dtype, device="cuda")
+    if dtype == torch.int8:
+        return c.random_(-127, 128, generator=gen)
+    return c.normal_(generator=gen)
+
+
+def _index_select_rows(c, table, bk, seq_axis):
+    """The library version: each row's blocks gathered out of place by one
+    index_select (a new plane's worth of memory)."""
+    lanes = torch.arange(bk, device=c.device)
+    return [c[:, r].index_select(seq_axis - 1, (table[r].long()[:, None] * bk + lanes).reshape(-1))
+            for r in range(c.shape[1])]
+
+
+def check_gather_cache_blocks() -> dict:
+    """B8 on the 7B serving planes with a random left-moving table (as
+    compaction builds: each row keeps a random ascending subset of its
+    blocks at the front): bit-exact against its plain version, then timed
+    in place against the plain version and an out-of-place index_select
+    per row. Bound: the bytes of the moved blocks, read once and written
+    once."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rng = np.random.default_rng(8)
+    L, b, s, kh, d, bk = 32, SERVE_SLOTS, SERVE_LEN, 32, 128, 256
+    nk = s // bk
+    table = np.tile(np.arange(nk, dtype=np.int32), (b, 1))
+    for r in range(b):
+        m = int(rng.integers(nk // 2, nk + 1))
+        table[r, :m] = np.sort(rng.choice(nk, size=m, replace=False))
+    table_d = torch.as_tensor(table, device="cuda")
+    moved = int((table != np.arange(nk)).sum())
+    row = None
+    for shape, dtype, axis in (((L, b, s, kh, d), torch.int8, 2),
+                               ((L, b, kh, s), torch.float32, 3),
+                               ((L, b, s, kh, d), torch.bfloat16, 2)):
+        c = _plane(gen, shape, dtype)
+        want = gather_cache_blocks_ref(c.clone(), table_d, block_k=bk, seq_axis=axis)
+        got = gather_cache_blocks(c, table_d, block_k=bk, seq_axis=axis)
+        ok = torch.equal(got, want)
+        del want
+        name = f"B8 {tuple(shape)} {str(dtype).split('.')[-1]}"
+        log(f"  {name} seq_axis={axis}: {moved} of {b * nk} blocks moved, bit-exact "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with the plain version")
+        ms = cuda_time_ms(lambda i: gather_cache_blocks(c, table_d, block_k=bk, seq_axis=axis),
+                          iters=20)
+        plain_ms = cuda_time_ms(
+            lambda i: gather_cache_blocks_ref(c, table_d, block_k=bk, seq_axis=axis),
+            iters=3, warmup=1)
+        library_ms = cuda_time_ms(lambda i: _index_select_rows(c, table_d, bk, axis),
+                                  iters=3, warmup=1)
+        block_bytes = c[0, 0].numel() // s * bk * c.element_size()
+        bound_ms, bound_by = bound(2 * moved * L * block_bytes, 0)
+        log(f"  {name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(index_select per row, out of place) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {2 * moved * L * block_bytes / 1e9:.3f} GB)")
+        row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        del c
+        torch.cuda.empty_cache()
+    # the row reported is the bf16 plane's (the last)
+    return {"name": "gather_cache_blocks", "route": "cuda",
+            "source": "handsonvlm_torch/csrc/cache_ops.cu",
+            "replaces": "handsonvlm_tpu/ops/cache_ops.py:87", **row}
 
 
 def _int4_stack(din, dout, layers, gen):
@@ -405,7 +563,7 @@ def check_int4_prefill() -> dict:
 def phase_kernels() -> list:
     log("phase 2: kernels against their plain versions")
     return [check_decode_attention(), check_vit_attention(), check_int4_gemv(),
-            check_int4_prefill(), check_decode_attention_q()]
+            check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks()]
 
 
 def reset_launches() -> None:
@@ -495,16 +653,22 @@ def phase_chat(model, cfg, tokenizer, video, frame_map, kv_quant=None, new_token
             "clip_calls": prefills}
 
 
+def expect_launches(counts: dict, expect: dict) -> None:
+    """Every kernel's launches in a phase against `expect` (kernel ->
+    count; kernels not named must not launch). Off the card nothing
+    launches, and nothing is checked."""
+    for name in WRAPPERS:
+        want, got = expect.get(name, 0), counts[name]
+        log(f"  launches {name}: {got} (expect {want})")
+        if torch.cuda.is_available() and got != want:
+            raise AssertionError(f"{name} launched {got} times, expected {want}")
+
+
 def check_launches(run: dict, expect_per: dict) -> None:
     """Every kernel's count from a chat phase against its expectation:
     expect_per maps a kernel to (launches per unit, unit name)."""
-    for name in WRAPPERS:
-        per, unit = expect_per.get(name, (0, "decode_steps"))
-        want = per * run[unit]
-        got = run["launches"][name]
-        log(f"  launches {name}: {got} (expect {per} x {run[unit]} {unit})")
-        if got != want:
-            raise AssertionError(f"{name} launched {got} times, expected {want}")
+    expect_launches(run["launches"], {name: per * run[unit]
+                                      for name, (per, unit) in expect_per.items()})
 
 
 def _greedy_decode(model, cfg, ids, images, frame_map, max_len, impl, fed=None,
@@ -612,6 +776,269 @@ def phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=Non
                              "than the plain path")
 
 
+def serving_launches(model, cfg, kv_quant, decode_steps, prefills, compactions) -> dict:
+    """The launches a run of the serving path must make: per decode
+    forward B1 (bf16) or B6 (int8 cache) once per layer and, with int4
+    weights, B4b for the layer's four projections; per prefill B2 once per
+    CLIP layer and, with int4 weights, B5b for the four projections; per
+    compaction B8 once per cache plane."""
+    n_layers = cfg.llama.num_layers
+    n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    attn = "decode_attention_stacked_q" if kv_quant else "decode_attention_stacked"
+    want = {attn: n_layers * decode_steps, "vit_attention": n_clip * prefills,
+            "gather_cache_blocks": (4 if kv_quant else 2) * compactions}
+    if model.llama.int4 is not None:
+        want["int4_gemv_tiled"] = 4 * n_layers * decode_steps
+        want["int4_matmul_prefill_tiled"] = 4 * n_layers * prefills
+    return want
+
+
+def _capture_waypoints(eng) -> dict:
+    """Record every finished slot's per-step waypoints, by request seed."""
+    wps = {}
+    finalize = eng._finalize
+
+    def wrapped(slot):
+        wps[slot.seed] = np.stack(slot.wps)
+        return finalize(slot)
+
+    eng._finalize = wrapped
+    return wps
+
+
+def _raw_prompt(cfg, seed, n):
+    """n random prompt ids with the image sentinel, and 10 unique frames."""
+    ids = np.random.default_rng(seed).integers(3, 1000, size=(1, n))
+    ids[0, 1] = IMAGE_TOKEN_INDEX
+    video, frame_map = random_video(cfg, seed)
+    return ids, video, frame_map
+
+
+def phase_compaction(model, cfg, kv_quant=None, prompt_len=20) -> dict:
+    """test_compact_bit_equal_stream's scenario with this model: two
+    engines (2 slots, 1024 positions, chunks of 4, temperature 0.5)
+    run request 0 out while request 1, joined behind it, is mid-generation;
+    engine A then compacts (B8) and engine B does not. Request 1's tokens
+    and every waypoint must be bit-equal in A and B. The launches of both
+    runs are counted exactly. Returns per-layer times (ms): join, chunk
+    step, compaction."""
+    dev = model.llama.embed_tokens.weight.device
+    (ids0, v0, fm), (ids1, v1, _) = (_raw_prompt(cfg, 1, prompt_len),
+                                     _raw_prompt(cfg, 2, prompt_len))
+    times = {"join_ms": [], "step_ms": [], "compact_ms": []}
+
+    def timed(key, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def drive(do_compact):
+        eng = ContinuousEngine(model, cfg, slots=2, max_len=1024, chunk=4, temperature=0.5,
+                               kv_quant=kv_quant)
+        wps = _capture_waypoints(eng)
+        timed("join_ms", lambda: eng.join(ids0, v0, seed=11, max_new=6, frame_map=fm))
+        timed("step_ms", eng.step)
+        timed("join_ms", lambda: eng.join(ids1, v1, seed=22, max_new=18, frame_map=fm))
+        while eng.slots[0].busy:
+            timed("step_ms", eng.step)
+        if not eng.slots[1].busy:
+            raise AssertionError("request 1 finished before the compaction point")
+        pos = eng.pos
+        if do_compact:
+            reclaimed = timed("compact_ms", eng.compact)
+            log(f"  engine A compacted: cursor {pos} -> {eng.pos} ({reclaimed} positions "
+                f"reclaimed)")
+            if reclaimed <= 0 or eng.compactions != 1:
+                raise AssertionError("compaction reclaimed nothing")
+        outs = []
+        while not outs:
+            outs += [o for _, o in timed("step_ms", eng.step)]
+        return outs[0], wps[22], eng
+
+    _sync(dev)
+    reset_launches()
+    (a, wa, ea), (b, wb, eb) = drive(True), drive(False)
+    _sync(dev)
+    counts = read_launches()
+    n = int(a.num_tokens[0])
+    same = (np.array_equal(a.sequences, b.sequences) and np.array_equal(wa, wb)
+            and np.array_equal(a.pred_hands, b.pred_hands))
+    log(f"  request 1 after compaction: {n} tokens {a.sequences[0, :n].tolist()}, "
+        f"{int(a.num_hands[0])} hand tokens; bit-equal to the uncompacted engine: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("compaction changed a live request's stream")
+    steps, prefills = ea.decode_steps + eb.decode_steps, ea.prefills + eb.prefills
+    expect_launches(counts, serving_launches(model, cfg, kv_quant, steps, prefills,
+                                             ea.compactions + eb.compactions))
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  serving layer times, median (ms): join {out['join_ms']:.2f}, chunk of 4 steps "
+        f"{out['step_ms']:.2f}, compaction {out['compact_ms']:.2f}")
+    return out
+
+
+class EkClips:
+    """An in-memory dataset with the EK100 evaluation schema: per clip 10
+    unique frames tiled x10 to the model's frame count, an EK-style
+    instruction, and future hands (2, 5, 2) in [0, 1) from a seed."""
+
+    ACTIONS = ("open the fridge", "take the knife", "wash the cup", "cut the onion",
+               "pour the water", "close the drawer", "stir the pan", "put down the plate")
+
+    def __init__(self, cfg, n, seed=0):
+        self.cfg, self.n, self.seed = cfg, n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(self.seed * 1000 + i)
+        size = self.cfg.vision.image_size
+        n_unique = min(10, self.cfg.num_frames)
+        frames = rng.normal(size=(n_unique, 3, size, size)).astype(np.float32)
+        reps = -(-self.cfg.num_frames // n_unique)
+        template = ACTION_QUESTION_TEMPLATES[i % len(ACTION_QUESTION_TEMPLATES)]
+        return {"prompt": template.format(self.ACTIONS[i % len(self.ACTIONS)]),
+                "image": np.tile(frames, (reps, 1, 1, 1))[:self.cfg.num_frames],
+                "future_hands": rng.uniform(size=(2, 5, 2)).astype(np.float32),
+                "future_valid": np.ones(2, np.float32)}
+
+
+def _scored(name, res, n_clips) -> None:
+    finite = all(np.isfinite(res[k]) for k in ("ade", "fde", "wde"))
+    log(f"  {name}: {len(res['val_info'])} clips, n={res['n']} with a trajectory, "
+        f"ADE {res['ade']:.4f} FDE {res['fde']:.4f} WDE {res['wde']:.4f}")
+    if len(res["val_info"]) != n_clips or (res["n"] > 0 and not finite):
+        raise AssertionError(f"{name}: not every clip was scored")
+
+
+def phase_eval(model, cfg, tokenizer, n_clips=16, serial_clips=2, max_new=32, slots=8,
+               max_len=SERVE_LEN, chunk=16, burst=24, burst_slots=4, burst_len=2048,
+               burst_chunk=8, burst_gap_s=0.05) -> dict:
+    """EK100 evaluation over the int8 cache: serial on `serial_clips`,
+    batched on all clips, then a staggered burst through the scheduler
+    (max_new cycling 8 / 24 / 48) that runs the cursor out. Launches are
+    counted over the three and checked exactly; then a greedy pass checks
+    each clip's first token, serial against batched."""
+    dev = model.llama.embed_tokens.weight.device
+    data = EkClips(cfg, n_clips)
+    engine = InferenceEngine(model=model, cfg=cfg, tokenizer=tokenizer, temperature=0.5,
+                             top_p=0.9, max_new_tokens=max_new, kv_quant="int8")
+    stats = {}
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    t0 = time.perf_counter()
+    serial = evaluate_epic_kitchen_traj(engine, data, seed=0, log_every=0, limit=serial_clips)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    toks = [v["num_tokens"] for v in serial["val_info"].values()]
+    stats["serial_tok_s"] = sum(toks) / wall
+    _scored(f"serial evaluation ({serial_clips} clips, {sum(toks)} tokens, {wall:.2f} s)",
+            serial, serial_clips)
+
+    t0 = time.perf_counter()
+    batched = evaluate_epic_kitchen_traj(engine, data, seed=0, log_every=0, batched=slots,
+                                         batched_max_len=max_len, batched_chunk=chunk)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    n_tok = sum(v["num_tokens"] for v in batched["val_info"].values())
+    stats["batched_tok_s"] = n_tok / wall
+    _scored(f"batched evaluation ({slots} slots, {n_clips} clips, {n_tok} tokens, "
+            f"{wall:.2f} s)", batched, n_clips)
+    (eval_sched,) = engine._batched_scheds.values()
+
+    # the burst: requests arrive `burst_gap_s` apart on fewer slots and a
+    # shorter cache, so the cursor runs out and the scheduler compacts
+    sched = ContinuousScheduler(model, cfg, slots=burst_slots, max_len=burst_len,
+                                chunk=burst_chunk, temperature=0.5, top_p=0.9, kv_quant="int8")
+    prepared = []
+    for i in range(n_clips):
+        item = data[i]
+        images, fmap = engine.dedup_frames(item["image"][None])
+        prepared.append((engine.build_prompt_ids(item["prompt"]),
+                         torch.as_tensor(images, device=dev, dtype=engine.dtype), fmap))
+    outs, errs = {}, {}
+
+    def one(i, max_new_i):
+        ids, images, fmap = prepared[i % n_clips]
+        try:
+            outs[i] = (max_new_i, sched.submit(ids, images, seed=i, max_new=max_new_i,
+                                               frame_map=fmap, timeout=600))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs[i] = repr(e)
+
+    threads = []
+    t0 = time.perf_counter()
+    for i in range(burst):
+        threads.append(threading.Thread(target=one, args=(i, (8, 24, 48)[i % 3])))
+        threads[-1].start()
+        time.sleep(burst_gap_s)
+    for t in threads:
+        t.join()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"burst requests failed: {errs}")
+    truncated = [i for i, (mn, o) in outs.items()
+                 if int(o.num_tokens[0]) != mn
+                 and int(o.sequences[0, int(o.num_tokens[0]) - 1]) != sched.engine.eos]
+    n_tok = sum(int(o.num_tokens[0]) for _, o in outs.values())
+    ttft = np.asarray(sched.ttfts) * 1e3
+    stats.update(burst_tok_s=n_tok / wall, ttft_p50_ms=float(np.percentile(ttft, 50)),
+                 ttft_p95_ms=float(np.percentile(ttft, 95)))
+    log(f"  burst: {burst} requests {burst_gap_s * 1e3:.0f} ms apart, {n_tok} tokens in "
+        f"{wall:.2f} s, {sched.engine.compactions} compactions, {len(truncated)} truncated, "
+        f"join groups {sched.engine.join_group_sizes}")
+    _sync(dev)
+    counts = read_launches()
+
+    serial_steps = sum(t - 1 for t in toks)
+    steps = serial_steps + eval_sched.engine.decode_steps + sched.engine.decode_steps
+    prefills = serial_clips + eval_sched.engine.prefills + sched.engine.prefills
+    compactions = eval_sched.engine.compactions + sched.engine.compactions
+    expect_launches(counts, serving_launches(model, cfg, "int8", steps, prefills, compactions))
+    if sched.engine.compactions < 1 or truncated:
+        raise AssertionError(f"burst: {sched.engine.compactions} compactions (need >= 1), "
+                             f"truncated requests {truncated}")
+    log(f"  tokens/s: batched {stats['batched_tok_s']:.2f}, serial {stats['serial_tok_s']:.2f} "
+        f"(x{stats['batched_tok_s'] / stats['serial_tok_s']:.2f}), burst "
+        f"{stats['burst_tok_s']:.2f}; burst first-token latency p50 "
+        f"{stats['ttft_p50_ms']:.1f} ms, p95 {stats['ttft_p95_ms']:.1f} ms; scheduler "
+        f"estimates: step {sched._step_s} s, join {sched._join_s} s")
+    if dev.type == "cuda":
+        log(f"  peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    sched.stop()
+    eval_sched.stop()
+    del sched, eval_sched
+    engine._batched_scheds.clear()
+
+    # greedy: a clip's first token comes from its own prefill, serially or
+    # through a group join
+    greedy = InferenceEngine(model=model, cfg=cfg, tokenizer=tokenizer, temperature=0.0,
+                             max_new_tokens=4, kv_quant="int8")
+    g_serial = evaluate_epic_kitchen_traj(greedy, data, seed=0, log_every=0,
+                                          limit=serial_clips)
+    g_batched = evaluate_epic_kitchen_traj(greedy, data, seed=0, log_every=0,
+                                           limit=serial_clips, batched=serial_clips,
+                                           batched_max_len=burst_len, batched_chunk=4)
+    first = [(int(g_serial["val_info"][i]["gen_ids"][0]),
+              int(g_batched["val_info"][i]["gen_ids"][0])) for i in range(serial_clips)]
+    for s in greedy._batched_scheds.values():
+        s.stop()
+    greedy._batched_scheds.clear()
+    log(f"  greedy first token per clip (serial, batched={serial_clips}): {first}")
+    if any(a != b for a, b in first):
+        raise AssertionError("greedy first tokens differ between serial and batched")
+    stats["launches"] = counts
+    return stats
+
+
 def model_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -643,6 +1070,8 @@ def main() -> int:
                          "vit_attention": (n_clip, "clip_calls")})
     launches.update({k: run["launches"][k] for k in ("decode_attention_stacked",
                                                      "vit_attention")})
+    log("phase 7a: compaction at 7B, bf16 cache, kernels")
+    phase_compaction(model, cfg)
     log("phase 4: bf16 kernel path against plain path at 7B")
     h_dense, tok_dense = phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map)
     del model
@@ -665,6 +1094,11 @@ def main() -> int:
     launches.update({k: run["launches"][k] for k in ("int4_gemv_tiled",
                                                      "int4_matmul_prefill_tiled",
                                                      "decode_attention_stacked_q")})
+    log("phase 7b: compaction at 7B, int4 weights + int8 cache, kernels")
+    phase_compaction(model, cfg, kv_quant="int8")
+    log("phase 8: EK100 evaluation at 7B, int4 weights + int8 cache")
+    stats = phase_eval(model, cfg, tokenizer)
+    launches["gather_cache_blocks"] = stats["launches"]["gather_cache_blocks"]
     log("phase 6: int4 + kv8 kernel path against plain path at 7B")
     phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=tok_dense,
                                 h_dense=h_dense)

@@ -14,15 +14,24 @@
 // probabilities zeroed explicitly and l == 0 -> output 0 (a row with no
 // valid key gives zeros, not NaN or the block mean).
 //
-// Design: a thread block per (kv head, batch row, split of the key range)
-// carries all groups x T query rows of that head (row r = g*T + tq, as the
-// Pallas kernel lays them out) and sweeps its split of [0, length) in
-// tiles of 32 keys. Keys past `length` are never read; tiles with no valid
-// key under the mask are skipped after reading 32 mask bytes. Scores use
-// one warp per key (lanes split D); the softmax uses one warp per row (one
-// lane per key); the P.V update gives each thread (row, d) pairs against a
-// V tile staged in shared memory as fp32. Each split writes its fp32
-// (m, l, acc) to a scratch buffer, and a second kernel merges the splits
+// The sweep: as the Pallas kernel, each row walks a compacted list of its
+// cache blocks (block_k keys each, a multiple of 32): table[b, :counts[b]]
+// are the blocks with a valid key below `length`, in order (the wrapper
+// builds the list once per forward). Blocks with no valid key are never
+// read. A thread block per (kv head, batch row, split) carries all
+// groups x T query rows of that head (row r = g*T + tq, as the Pallas
+// kernel lays them out) and sweeps its split in tiles of 32 keys. Splits
+// are cut over the ordinal of the listed tiles, not over positions, and
+// sized from the row's own count (read on the device, so the host needs
+// no sync): serving compaction
+// (ops/cache_ops) deletes empty blocks and shifts the rest by whole
+// blocks, so every split sees the same tiles in the same order and a
+// live row's output is bit-equal across it. Tiles with no valid key under
+// the mask are skipped after reading 32 mask bytes. Scores use one warp
+// per key (lanes split D); the softmax uses one warp per row (one lane per
+// key); the P.V update gives each thread (row, d) pairs against a V tile
+// staged in shared memory as fp32. Each split writes its fp32 (m, l, acc)
+// to a scratch buffer, and a second kernel merges the splits in order
 // (rescaling by exp(m_s - max m), l == 0 -> output 0). The caller passes a
 // pointer to the layer (ck[layer_idx] is a free view in torch), so no copy
 // of the cache is made.
@@ -34,15 +43,15 @@
 // ((p * vs) . v8 == p . (v8 * vs)). The scales are (B, K, S) per layer,
 // contiguous in S: a tile's 32 scales are one 128-byte read.
 //
-// Bound: memory. Each call reads 2 * length * K * D * sizeof(cache type)
-// bytes of cache (B = 1, K = 32, D = 128, length ~ 450 at the 7B decode
-// shape: ~7.4 MB per layer in bf16, 2.2 us at 3.35 TB/s; 3.8 MB with the
-// int8 cache and its scales, 1.1 us). One block per (kv head,
+// Bound: memory. Each call reads 2 * (listed keys) * K * D * sizeof(cache
+// type) bytes of cache (B = 1, K = 32, D = 128, ~450 keys at the 7B chat
+// decode shape: ~7.4 MB per layer in bf16, 2.2 us at 3.35 TB/s; 3.8 MB
+// with the int8 cache and its scales, 1.1 us). One block per (kv head,
 // row) alone gives a grid of 32 blocks at B = 1, each walking ~14 tiles in
-// series (~0.29 ms per layer in context); the caller splits the key range
-// so that the grid covers every SM about twice. cp.async/TMA staging of K
-// and V, and 16-byte loads of the int8 rows (a lane reads one byte per
-// element here), are the later work toward the bandwidth bound.
+// series; the splits make the grid cover every SM about twice.
+// cp.async/TMA staging of K and V, and 16-byte loads of the int8 rows (a
+// lane reads one byte per element here), are the later work toward the
+// bandwidth bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +101,25 @@ size_t smem_bytes(int rows, int d) {
          (size_t)rows * kTile;
 }
 
+// The split plan of one row, identical in both kernels: the row's listed
+// tiles, count * (block_k / 32), cut into at most max_splits splits of
+// split_tiles each; n_split of them are used (1 when the row is empty). It
+// depends on nothing but the row's own count, so another row's list (a
+// finished request's plane, emptied by compaction) never regroups it.
+struct SplitPlan {
+  int split_tiles;
+  int n_split;
+};
+
+__device__ __forceinline__ SplitPlan split_plan(int count, int tiles_per_block,
+                                                int max_splits) {
+  const int total = count * tiles_per_block;
+  if (total == 0) return {0, 1};
+  const int want = min(max_splits, total);
+  const int st = (total + want - 1) / want;
+  return {st, (total + st - 1) / st};
+}
+
 // T: the type of q and the output; C: the cache's (T, or int8_t with
 // scales ks/vs, else nullptr)
 template <typename T, typename C>
@@ -102,15 +130,20 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ ks,    // (B, K, S), one layer
                        const float* __restrict__ vs,    // (B, K, S)
                        const uint8_t* __restrict__ mask,  // (B, S) or nullptr
-                       float* __restrict__ part_acc,  // (B, K, n_split, R, D)
-                       float* __restrict__ part_ml,   // (B, K, n_split, 2, R)
-                       int tw, int H, int K, int D, int S, int length,
-                       int split_keys, float scale) {
+                       const int* __restrict__ table,   // (B, nk) listed blocks
+                       const int* __restrict__ counts,  // (B,)
+                       float* __restrict__ part_acc,  // (B, K, max_splits, R, D)
+                       float* __restrict__ part_ml,   // (B, K, max_splits, 2, R)
+                       int tw, int H, int K, int D, int S, int length, int nk,
+                       int block_k, float scale) {
   constexpr bool kQuant = std::is_same<C, int8_t>::value;
   extern __shared__ float smem[];
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int split = blockIdx.z;
+  const int tiles_per_block = block_k / kTile;
+  const SplitPlan plan = split_plan(counts[b], tiles_per_block, gridDim.z);
+  if (split >= plan.n_split) return;  // uniform over the block
   const int G = H / K;
   const int R = G * tw;
   float* sq = smem;
@@ -142,10 +175,14 @@ __global__ void __launch_bounds__(kThreads)
   const float* ksrow = kQuant ? ks + ((size_t)b * K + kh) * S : nullptr;
   const float* vsrow = kQuant ? vs + ((size_t)b * K + kh) * S : nullptr;
   const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
-  const int start = split * split_keys;
-  const int end = min(min(length, S), start + split_keys);
+  const int* trow = table + (size_t)b * nk;
+  // this split's listed tiles of row b, and the end of the valid positions
+  const int c0 = split * plan.split_tiles;
+  const int c1 = min(counts[b] * tiles_per_block, c0 + plan.split_tiles);
+  const int end = min(length, S);
 
-  for (int t0 = start; t0 < end; t0 += kTile) {
+  for (int c = c0; c < c1; ++c) {
+    const int t0 = trow[c / tiles_per_block] * block_k + (c % tiles_per_block) * kTile;
     bool any = false;
     if (tid < kTile) {
       const int p = t0 + tid;
@@ -231,20 +268,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Merge the splits of one (kv head, batch row): out = sum_s e_s acc_s /
-// sum_s e_s l_s with e_s = exp(m_s - max_s m_s); a row with no valid key
-// (every l_s == 0) gives 0.
+// Merge the splits of one (kv head, batch row) in order: out = sum_s e_s
+// acc_s / sum_s e_s l_s with e_s = exp(m_s - max_s m_s); a row with no
+// valid key (every l_s == 0) gives 0. The split plan is recomputed from the
+// counts, as the attention kernel computed it.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_merge_kernel(const float* __restrict__ part_acc,
                              const float* __restrict__ part_ml,
+                             const int* __restrict__ counts,
                              T* __restrict__ out,  // (B, tw, H, D)
-                             int n_split, int tw, int H, int K, int D) {
+                             int max_splits, int tiles_per_block, int tw, int H,
+                             int K, int D) {
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / K;
   const int R = G * tw;
-  const size_t first = ((size_t)b * K + kh) * n_split;
+  const int n_split = split_plan(counts[b], tiles_per_block, max_splits).n_split;
+  const size_t first = ((size_t)b * K + kh) * max_splits;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D, g = r / tw, tq = r % tw;
     float m_max = kNegInf;
@@ -263,9 +304,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename C>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks,
-                   const void* vs, const void* mask, void* out, void* part_acc,
-                   void* part_ml, int B, int tw, int H, int K, int D, int S,
-                   int length, int split_keys, float scale, cudaStream_t stream) {
+                   const void* vs, const void* mask, const void* table,
+                   const void* counts, void* out, void* part_acc, void* part_ml, int B,
+                   int tw, int H, int K, int D, int S, int length, int nk, int block_k,
+                   int max_splits, float scale, cudaStream_t stream) {
   const int rows = (H / K) * tw;
   const size_t bytes = smem_bytes(rows, D);
   if (bytes > 48 * 1024) {
@@ -274,19 +316,25 @@ cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks
         (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  const int n_split = (min(length, S) + split_keys - 1) / split_keys;
-  decode_attn_kernel<T, C><<<dim3(K, B, n_split), kThreads, bytes, stream>>>(
+  decode_attn_kernel<T, C><<<dim3(K, B, max_splits), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const C*>(ck),
       static_cast<const C*>(cv), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), tw, H, K,
-      D, S, length, split_keys, scale);
+      static_cast<const int*>(table), static_cast<const int*>(counts),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), tw, H, K, D, S,
+      length, nk, block_k, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attn_merge_kernel<T><<<dim3(K, B), kThreads, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(out), n_split, tw, H, K, D);
+      static_cast<const int*>(counts), static_cast<T*>(out), max_splits,
+      block_k / kTile, tw, H, K, D);
   return cudaGetLastError();
+}
+
+bool bad_args(int nk, int block_k, int max_splits, int S) {
+  return block_k <= 0 || block_k % kTile || max_splits <= 0 ||
+         nk != (S + block_k - 1) / block_k;
 }
 
 }  // namespace
@@ -299,23 +347,25 @@ extern "C" size_t hv_decode_attention_smem_bytes(int rows, int d) {
 
 // q, out: (B, tw, H, D); ck_layer, cv_layer: (B, S, K, D) views of one layer;
 // mask: (B, S) bytes or null. All contiguous, of one dtype (bf16 or f32).
-// The key range [0, length) is cut into splits of `split_keys` keys (a
-// multiple of 32); part_acc (B, K, n_split, R, D) and part_ml
-// (B, K, n_split, 2, R) are fp32 scratch with n_split = ceil(length /
-// split_keys) and R = (H / K) * tw. Returns cudaGetLastError().
+// table (B, nk) int32 and counts (B,) int32: row b's listed blocks of
+// block_k keys (a multiple of 32), nk = ceil(S / block_k). part_acc
+// (B, K, max_splits, R, D) and part_ml (B, K, max_splits, 2, R) are fp32
+// scratch, R = (H / K) * tw. Returns cudaGetLastError().
 extern "C" int hv_decode_attention_stacked(
     const void* q, const void* ck_layer, const void* cv_layer, const void* mask,
-    void* out, void* part_acc, void* part_ml, int is_bf16, int B, int tw, int H,
-    int K, int D, int S, int length, int split_keys, float scale, void* stream) {
+    const void* table, const void* counts, void* out, void* part_acc, void* part_ml,
+    int is_bf16, int B, int tw, int H, int K, int D, int S, int length, int nk,
+    int block_k, int max_splits, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (split_keys <= 0 || split_keys % kTile) return (int)cudaErrorInvalidValue;
+  if (bad_args(nk, block_k, max_splits, S)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        q, ck_layer, cv_layer, nullptr, nullptr, mask, out, part_acc, part_ml,
-        B, tw, H, K, D, S, length, split_keys, scale, st);
-  return (int)launch<float, float>(q, ck_layer, cv_layer, nullptr, nullptr,
-                                   mask, out, part_acc, part_ml, B, tw, H, K,
-                                   D, S, length, split_keys, scale, st);
+        q, ck_layer, cv_layer, nullptr, nullptr, mask, table, counts, out, part_acc,
+        part_ml, B, tw, H, K, D, S, length, nk, block_k, max_splits, scale, st);
+  return (int)launch<float, float>(q, ck_layer, cv_layer, nullptr, nullptr, mask,
+                                   table, counts, out, part_acc, part_ml, B, tw, H,
+                                   K, D, S, length, nk, block_k, max_splits, scale,
+                                   st);
 }
 
 // The same over an int8 cache: ck_layer, cv_layer (B, S, K, D) int8 and
@@ -323,18 +373,20 @@ extern "C" int hv_decode_attention_stacked(
 // bf16 or f32. Returns cudaGetLastError().
 extern "C" int hv_decode_attention_stacked_q(
     const void* q, const void* ck_layer, const void* cv_layer, const void* ks_layer,
-    const void* vs_layer, const void* mask, void* out, void* part_acc, void* part_ml,
-    int is_bf16, int B, int tw, int H, int K, int D, int S, int length,
-    int split_keys, float scale, void* stream) {
+    const void* vs_layer, const void* mask, const void* table, const void* counts,
+    void* out, void* part_acc, void* part_ml, int is_bf16, int B, int tw, int H, int K,
+    int D, int S, int length, int nk, int block_k, int max_splits, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (split_keys <= 0 || split_keys % kTile) return (int)cudaErrorInvalidValue;
+  if (bad_args(nk, block_k, max_splits, S)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch<__nv_bfloat16, int8_t>(
-        q, ck_layer, cv_layer, ks_layer, vs_layer, mask, out, part_acc, part_ml,
-        B, tw, H, K, D, S, length, split_keys, scale, st);
-  return (int)launch<float, int8_t>(q, ck_layer, cv_layer, ks_layer, vs_layer,
-                                    mask, out, part_acc, part_ml, B, tw, H, K,
-                                    D, S, length, split_keys, scale, st);
+        q, ck_layer, cv_layer, ks_layer, vs_layer, mask, table, counts, out, part_acc,
+        part_ml, B, tw, H, K, D, S, length, nk, block_k, max_splits, scale, st);
+  return (int)launch<float, int8_t>(q, ck_layer, cv_layer, ks_layer, vs_layer, mask,
+                                    table, counts, out, part_acc, part_ml, B, tw, H,
+                                    K, D, S, length, nk, block_k, max_splits, scale,
+                                    st);
 }
 
 extern "C" const char* hv_error_string(int err) {

@@ -70,6 +70,27 @@ def _sample_token(generator, logits: torch.Tensor, temperature: float, top_p: fl
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_ps: torch.Tensor,
+                uniforms: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling with each row's own settings, held as tensors:
+    logits (B, V), temps and top_ps (B,), uniforms (B,) in [0, 1), one draw
+    per row. The warper is `_warp_logits`'s (a top_p of 1 cuts nothing),
+    and the categorical draw is the inverse CDF at the row's uniform, so a
+    row's token depends only on its own logits, settings and draw. A row
+    with temperature <= 0 takes the argmax."""
+    greedy = torch.argmax(logits, dim=-1)
+    warped = logits.float() / temps.float().clamp(min=1e-6)[:, None]
+    sorted_logits = torch.sort(warped, dim=-1).values  # ascending
+    cum_probs = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cutoff_idx = (cum_probs <= (1.0 - top_ps.float())[:, None]).sum(dim=-1, keepdim=True)
+    threshold = torch.gather(sorted_logits, -1, cutoff_idx.clamp(max=logits.shape[-1] - 1))
+    warped = torch.where(warped < threshold, -torch.inf, warped)
+    cdf = torch.cumsum(torch.softmax(warped, dim=-1), dim=-1)
+    target = (uniforms.float() * cdf[:, -1])[:, None]
+    sampled = torch.searchsorted(cdf, target, right=True)[:, 0].clamp(max=logits.shape[-1] - 1)
+    return torch.where(temps > 0, sampled, greedy)
+
+
 @torch.inference_mode()
 def prefill(
     model: HandsOnVLM,
@@ -82,9 +103,15 @@ def prefill(
     attn_impl: str = "auto",
     frame_map: Optional[torch.Tensor] = None,
     kv_quant: Optional[str] = None,
+    positions_from_mask: bool = False,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Encode the video, splice, run the prompt through the decoder once.
 
+    `positions_from_mask` derives per-row rotary positions from the
+    post-splice mask (a row's real tokens count 0..t_r-1 whatever its left
+    padding) instead of the default arange: the continuous engine's group
+    join uses it so that each row stays position-exact against its solo
+    prefill (serve/continuous.join_many).
     Returns (last_hidden (B,D), cache, cache_attn_mask (B, max_len)); with
     kv_quant="int8" the cache is a QuantKVCache."""
     if kv_quant not in (None, "int8"):
@@ -100,8 +127,12 @@ def prefill(
     cache = KVCache.create(cfg.llama, b, max_len, sp.embeds.dtype, sp.embeds.device)
     cache_mask = torch.cat([sp.attn_mask, torch.ones((b, max_len - t_out), dtype=torch.bool,
                                                      device=sp.embeds.device)], dim=1)
+    positions = None
+    if positions_from_mask:
+        positions = (torch.cumsum(sp.attn_mask.long(), dim=1) - 1).clamp(min=0)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
-                                attn_mask=cache_mask, kv_cache=cache, attn_impl=attn_impl)
+                                attn_mask=cache_mask, positions=positions, kv_cache=cache,
+                                attn_impl=attn_impl)
     if kv_quant == "int8":
         cache = quantize_kv_cache(cache)
     return hidden[:, -1, :], cache, cache_mask

@@ -32,7 +32,12 @@ from torch import nn
 
 from handsonvlm_torch.config import LlamaConfig
 from handsonvlm_torch.ops.attention import attention
-from handsonvlm_torch.ops.decode_attention import MAX_T_WINDOW, decode_attention_stacked_q
+from handsonvlm_torch.ops.decode_attention import (
+    MAX_T_WINDOW,
+    BlockList,
+    block_list,
+    decode_attention_stacked_q,
+)
 from handsonvlm_torch.ops.int8_matmul import (
     INT4_GROUP,
     dequantize_tiled,
@@ -349,10 +354,12 @@ def _layer(
     kv_cache,
     layer_idx: int,
     attn_impl: str,
+    blocks: Optional[BlockList] = None,
 ) -> torch.Tensor:
     """One decoder block, dense or int4. With a cache (bf16/f32 `KVCache`
     or int8 `QuantKVCache`), this layer's k/v rows are written at
-    `kv_cache.index` before attention reads them."""
+    `kv_cache.index` before attention reads them; a decode window attends
+    over the forward's compacted block list `blocks`."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     int4 = llama.int4
@@ -379,7 +386,7 @@ def _layer(
         idx, c = kv_cache.index, kv_cache
         if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode"):
             out = decode_attention_stacked_q(q, c.k, c.v, c.ks, c.vs, layer_idx, idx + t,
-                                             key_mask=key_mask)
+                                             key_mask=key_mask, blocks=blocks)
         else:
             # plain route, as the JAX package's: dequantize the layer and
             # attend over all of it (keys past the written prefix masked)
@@ -398,7 +405,7 @@ def _layer(
         # all S_max keys there too
         out = attention(
             q, kv_cache.k[layer_idx], kv_cache.v[layer_idx], key_mask=key_mask,
-            causal=True, q_offset=idx, impl=attn_impl, decode_length=idx + t)
+            causal=True, q_offset=idx, impl=attn_impl, decode_length=idx + t, blocks=blocks)
     out = out.reshape(b, t, h * hd)
     if int4 is not None:
         hidden = hidden + iproj(out, "wo")
@@ -463,10 +470,15 @@ def apply_llama(
     if positions is None:
         positions = (torch.arange(t, device=device) + start)[None].expand(b, t)
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+    # a decode window's compacted block list, built once for all layers
+    blocks = None
+    if kv_cache is not None and t <= MAX_T_WINDOW and attn_impl in ("auto", "decode"):
+        blocks = block_list(key_mask, start + t, b, kv_cache.max_len, device)
 
     hidden = inputs_embeds
     for i, lp in enumerate(llama.layers):
-        hidden = _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl)
+        hidden = _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl,
+                        blocks)
     hidden = rms_norm(hidden, llama.norm.weight, cfg.rms_norm_eps)
     if kv_cache is not None:
         kv_cache.index += t

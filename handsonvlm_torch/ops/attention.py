@@ -28,7 +28,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from handsonvlm_torch.ops.decode_attention import MAX_T_WINDOW, decode_attention_stacked
+from handsonvlm_torch.ops.decode_attention import (
+    MAX_T_WINDOW,
+    BlockList,
+    decode_attention_stacked,
+)
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ok
 
 NEG_INF = -1e30
@@ -88,11 +92,13 @@ def attention(
     q_offset=0,
     impl: str = "auto",
     decode_length: Optional[int] = None,
+    blocks: Optional[BlockList] = None,
 ) -> torch.Tensor:
     """Attention entry point used by the models.
 
     `decode_length` (valid cache positions, = q_offset + T) marks k/v as one
-    layer of the decode cache and enables the decode kernel."""
+    layer of the decode cache and enables the decode kernel; `blocks` is
+    the forward's compacted block list for it (built here when None)."""
     if impl == "auto":
         impl = _best_impl(q, k, v, decode_length, key_mask=key_mask, causal=causal)
     if impl == "vit":
@@ -103,7 +109,7 @@ def attention(
         # k, v (B,S,K,D) are one layer: a leading-axis view is the stacked layout
         return decode_attention_stacked(
             q, k[None], v[None], 0, decode_length,
-            key_mask=None if key_mask is None else key_mask.bool().contiguous())
+            key_mask=None if key_mask is None else key_mask.bool().contiguous(), blocks=blocks)
     if impl == "xla":
         return attention_xla(q, k, v, key_mask=key_mask, causal=causal, q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -8,6 +8,17 @@ T <= MAX_T_WINDOW rows (T = 1 for plain decode) attends over positions
 attends causally up to `length - (T-1) + tq`. `length` already counts the
 T rows written this step (cache index + T).
 
+Each row sweeps a COMPACTED list of its cache blocks (`BlockList`, as the
+Pallas kernel's scalar-prefetched table): the blocks of `block_k` keys
+that hold at least one key with key_mask true below `length`, in order.
+Leading pad, interior holes (other requests' prompt buckets in continuous
+batching) and the unfilled tail are never read. The sweep sees the same
+(content, lane mask) blocks in the same order when serving compaction
+(ops/cache_ops) deletes empty blocks, so a live row's output is
+bit-equal across a compaction event: the kernel cuts its splits over the
+ordinal of the listed blocks, sized from the row's own count, and the
+plain versions reduce each row over its own gathered list.
+
 Both wrappers launch the hand-written Hopper kernel
 (`csrc/decode_attention.cu`, one body for both caches) for CUDA tensors and
 run their plain versions (`*_ref`) for CPU tensors. There is no fallback:
@@ -17,46 +28,108 @@ on a CUDA tensor a wrapper launches the kernel or raises. Each wrapper's
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 MAX_T_WINDOW = 8
+DEFAULT_BLOCK_K = 256
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
-def _attend_ref(q, k, v, length, key_mask, ks=None, vs=None):
-    """q (B,T,H,D) over one layer's first `length` keys k, v (B,S',K,D);
-    with ks, vs (B,K,S') the int8 cache's scales, applied as the Pallas
-    kernel applies them: on the score rows and on p before P.V."""
+def pick_block_k(s: int) -> int:
+    """Keys per block of the compacted sweep for a cache of S positions:
+    the largest multiple of 128 that is <= 256 and divides S (256 where
+    256 | S, else 128; a last partial block when 128 does not divide S
+    either). The JAX package's `_pick_stacked_block` on the TPU."""
+    bk = DEFAULT_BLOCK_K
+    while bk > 128 and s % bk:
+        bk //= 2
+    return bk
+
+
+@dataclasses.dataclass
+class BlockList:
+    """Each row's listed cache blocks: `table[b, :counts[b]]` are the
+    indices of row b's blocks with a valid key, ascending; the rest of the
+    row repeats its last entry (0 for an empty row)."""
+
+    table: torch.Tensor  # (B, ceil(S / block_k)) int32
+    counts: torch.Tensor  # (B,) int32
+    block_k: int
+
+
+def block_list(key_mask: Optional[torch.Tensor], length: int, batch: int, s: int,
+               device) -> BlockList:
+    """The compacted block list of a (B, S) key mask (None: every key) for
+    keys below `length`, built on `device` without a host sync. A forward
+    builds it once and every layer's decode attention reads it."""
+    bk = pick_block_k(s)
+    nk = -(-s // bk)
+    if key_mask is None:
+        key_mask = torch.ones((batch, s), dtype=torch.bool, device=device)
+    km = F.pad(key_mask.bool(), (0, nk * bk - s))
+    ids = torch.arange(nk, device=device, dtype=torch.int32)
+    valid = km.view(batch, nk, bk).any(dim=-1) & (ids * bk < length)[None, :]
+    counts = valid.sum(dim=-1, dtype=torch.int32)
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+    last = torch.minimum(ids[None, :], (counts[:, None] - 1).clamp(min=0))
+    table = torch.gather(order, 1, last.long()).to(torch.int32)
+    return BlockList(table=table.contiguous(), counts=counts, block_k=bk)
+
+
+def _attend_ref(q, k, v, blocks: BlockList, length, key_mask, ks=None, vs=None):
+    """q (B,T,H,D) over one layer's keys k, v (B,S,K,D) listed by `blocks`;
+    with ks, vs (B,K,S) the int8 cache's scales, applied as the Pallas
+    kernel applies them: on the score rows and on p before P.V. Each row
+    gathers its own listed blocks in order and reduces over exactly those,
+    so its result depends on nothing but its own list."""
     b, tw, h, d = q.shape
-    kh = k.shape[2]
+    s, kh = k.shape[1], k.shape[2]
     g = h // kh
-    k, v = k.float(), v.float()
-    s_len = k.shape[1]
+    bk = blocks.block_k
+    dev = q.device
     scale = float(1.0 / (d ** 0.5))
-    # rows laid out (kv head, group, tq) as in the kernel
-    qg = q.float().reshape(b, tw, kh, g, d)
-    s = torch.einsum("btkgd,bskd->bkgts", qg, k)
-    if ks is not None:
-        s = s * ks[:, :, None, None, :]
-    s = s * scale
-    pos = torch.arange(s_len, device=q.device)
-    tq = torch.arange(tw, device=q.device)
-    ok = pos[None, :] < (length - (tw - 1) + tq)[:, None]  # (T, S')
-    ok = ok[None, None, None]
-    if key_mask is not None:
-        ok = ok & key_mask[:, :length].bool()[:, None, None, None, :]
-    s = torch.where(ok, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(ok, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    if vs is not None:
-        p = p * vs[:, :, None, None, :]
-    o = torch.einsum("bkgts,bskd->bkgtd", p, v) / torch.where(l == 0.0, 1.0, l)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, tw, h, d).to(q.dtype)
+    tq = torch.arange(tw, device=dev)
+    outs = []
+    for r, count in enumerate(blocks.counts.tolist()):
+        if count == 0:  # no valid key: 0, as in the kernel
+            outs.append(torch.zeros((1, tw, h, d), dtype=q.dtype, device=dev))
+            continue
+        pos = (blocks.table[r, :count].long()[:, None] * bk
+               + torch.arange(bk, device=dev)).reshape(-1)
+        valid = pos < min(length, s)
+        pos = pos.clamp(max=s - 1)
+        if key_mask is not None:
+            valid = valid & key_mask[r].bool()[pos]
+        kg, vg = k[r, pos].float(), v[r, pos].float()  # (N, K, D)
+        # rows laid out (kv head, group, tq) as in the kernel
+        qg = q[r].float().reshape(tw, kh, g, d)
+        sc = torch.einsum("tkgd,nkd->kgtn", qg, kg)
+        if ks is not None:
+            sc = sc * ks[r][:, pos][:, None, None, :]
+        sc = sc * scale
+        causal = pos[None, :] < (length - (tw - 1) + tq)[:, None]  # (T, N)
+        ok = valid[None, :] & causal
+        sc = torch.where(ok, sc, NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sc - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[r][:, pos][:, None, None, :]
+        o = torch.einsum("kgtn,nkd->kgtd", p, vg) / torch.where(l == 0.0, 1.0, l)
+        outs.append(o.permute(2, 0, 1, 3).reshape(1, tw, h, d).to(q.dtype))
+    return torch.cat(outs)
+
+
+def _blocks_for(q, ck, length, key_mask, blocks):
+    if blocks is not None:
+        return blocks
+    return block_list(key_mask, length, q.shape[0], ck.shape[2], q.device)
 
 
 def decode_attention_stacked_ref(
@@ -67,11 +140,13 @@ def decode_attention_stacked_ref(
     length: int,
     *,
     key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    blocks: Optional[BlockList] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B1: fp32 scores and softmax, masked
-    probabilities zeroed, a row with no valid key gives 0."""
-    return _attend_ref(q, ck[layer_idx, :, :length], cv[layer_idx, :, :length],
-                       length, key_mask)
+    """Plain PyTorch version of kernel B1: fp32 scores and softmax over each
+    row's listed blocks, masked probabilities zeroed, a row with no valid
+    key gives 0."""
+    blocks = _blocks_for(q, ck, length, key_mask, blocks)
+    return _attend_ref(q, ck[layer_idx], cv[layer_idx], blocks, length, key_mask)
 
 
 def decode_attention_stacked_q_ref(
@@ -84,12 +159,13 @@ def decode_attention_stacked_q_ref(
     length: int,
     *,
     key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    blocks: Optional[BlockList] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel B6: B1's over the int8 cache, scores
     times the k-scales, probabilities times the v-scales before P.V."""
-    return _attend_ref(q, ck[layer_idx, :, :length], cv[layer_idx, :, :length],
-                       length, key_mask, ks[layer_idx, :, :, :length].float(),
-                       vs[layer_idx, :, :, :length].float())
+    blocks = _blocks_for(q, ck, length, key_mask, blocks)
+    return _attend_ref(q, ck[layer_idx], cv[layer_idx], blocks, length, key_mask,
+                       ks[layer_idx].float(), vs[layer_idx].float())
 
 
 @functools.cache
@@ -97,15 +173,8 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _split_keys(length: int, blocks: int, n_sm: int, tile: int = 32) -> int:
-    """Keys per split of [0, length): a multiple of `tile`, chosen so that
-    blocks x splits covers every SM about twice."""
-    tiles = -(-length // tile)
-    want = min(max(1, -(-2 * n_sm // blocks)), tiles)
-    return tile * -(-tiles // want)
-
-
-def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, scales=None):
+def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, blocks: BlockList,
+            scales=None):
     """Launch B1, or B6 when `scales` (ks, vs) are given."""
     from handsonvlm_torch.ops._build import check, load_library
 
@@ -131,12 +200,20 @@ def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, scales=None):
                          f"range for L={L}, S={s}")
     if d > 256:
         raise ValueError(f"head size {d} > 256")
-    tensors = ([q, ck, cv] + list(scales or ())
+    bk = blocks.block_k
+    nk = -(-s // bk)
+    if (bk % 32 or blocks.table.dtype != torch.int32 or blocks.counts.dtype != torch.int32
+            or tuple(blocks.table.shape) != (b, nk) or tuple(blocks.counts.shape) != (b,)):
+        raise ValueError(f"block list must be int32 table (B, ceil(S/block_k))=({b}, {nk}) "
+                         f"and counts ({b},) with block_k a multiple of 32")
+    tensors = ([q, ck, cv, blocks.table, blocks.counts] + list(scales or ())
                + ([key_mask] if key_mask is not None else []))
     if any(t.device != q.device for t in tensors):
-        raise ValueError("q, the cache, its scales and key_mask must be on one device")
+        raise ValueError("q, the cache, its scales, the block list and key_mask must be "
+                         "on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("q, the cache, its scales and key_mask must be contiguous")
+        raise ValueError("q, the cache, its scales, the block list and key_mask must be "
+                         "contiguous")
     if key_mask is not None and (key_mask.dtype != torch.bool
                                  or tuple(key_mask.shape) != (b, s)):
         raise ValueError(f"key_mask must be bool (B, S)=({b}, {s})")
@@ -146,15 +223,16 @@ def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, scales=None):
                          "exceed one block's shared memory")
 
     rows = (h // kh) * tw
-    split_keys = _split_keys(length, kh * b, _num_sms(q.device.index))
-    n_split = -(-length // split_keys)
+    # splits per (kv head, row): enough blocks to cover every SM about twice;
+    # the kernel sizes them from the largest count it reads on the device
+    max_splits = max(1, -(-2 * _num_sms(q.device.index) // (kh * b)))
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kh, n_split, rows, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kh, n_split, 2, rows), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, kh, max_splits, rows, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, kh, max_splits, 2, rows), dtype=torch.float32, device=q.device)
     mask_ptr = key_mask.data_ptr() if key_mask is not None else None
-    tail = (mask_ptr, out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, tw, h, kh, d, s, length, split_keys,
-            float(1.0 / (d ** 0.5)))
+    tail = (mask_ptr, blocks.table.data_ptr(), blocks.counts.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), int(q.dtype == torch.bfloat16), b, tw,
+            h, kh, d, s, length, nk, bk, max_splits, float(1.0 / (d ** 0.5)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if scales is None:
@@ -183,6 +261,7 @@ def decode_attention_stacked(
     length: int,  # valid positions including the T window rows
     *,
     key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    blocks: Optional[BlockList] = None,  # block_list(key_mask, length, ...) if None
 ) -> torch.Tensor:
     """Attention of a decode window over one layer of the stacked cache.
 
@@ -191,11 +270,12 @@ def decode_attention_stacked(
     if squeeze:
         q = q[:, None]
     layer_idx, length = int(layer_idx), int(length)
+    blocks = _blocks_for(q, ck, length, key_mask, blocks)
     if q.is_cuda:
-        out = _launch(q, ck, cv, layer_idx, length, key_mask)
+        out = _launch(q, ck, cv, layer_idx, length, key_mask, blocks)
     elif q.device.type == "cpu":
         out = decode_attention_stacked_ref(
-            q, ck, cv, layer_idx, length, key_mask=key_mask)
+            q, ck, cv, layer_idx, length, key_mask=key_mask, blocks=blocks)
     else:
         raise ValueError(f"no decode attention for device {q.device}")
     return out[:, 0] if squeeze else out
@@ -211,6 +291,7 @@ def decode_attention_stacked_q(
     length: int,  # valid positions including the T window rows
     *,
     key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+    blocks: Optional[BlockList] = None,  # block_list(key_mask, length, ...) if None
 ) -> torch.Tensor:
     """decode_attention_stacked over the int8 cache, dequantized exactly.
 
@@ -219,11 +300,12 @@ def decode_attention_stacked_q(
     if squeeze:
         q = q[:, None]
     layer_idx, length = int(layer_idx), int(length)
+    blocks = _blocks_for(q, ck, length, key_mask, blocks)
     if q.is_cuda:
-        out = _launch(q, ck, cv, layer_idx, length, key_mask, scales=(ks, vs))
+        out = _launch(q, ck, cv, layer_idx, length, key_mask, blocks, scales=(ks, vs))
     elif q.device.type == "cpu":
         out = decode_attention_stacked_q_ref(
-            q, ck, cv, ks, vs, layer_idx, length, key_mask=key_mask)
+            q, ck, cv, ks, vs, layer_idx, length, key_mask=key_mask, blocks=blocks)
     else:
         raise ValueError(f"no decode attention for device {q.device}")
     return out[:, 0] if squeeze else out

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from handsonvlm_torch.models.llama import _quantize_kv_rows
+from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
 from handsonvlm_torch.ops.decode_attention import (
     decode_attention_stacked,
     decode_attention_stacked_q,
@@ -65,6 +66,40 @@ def decode_inputs(L, B, S, H, K, D, T, mask_kind, seed):
         if mask_kind == "long_pad":  # a whole 32-key tile and more
             mask[:, :40] = False
     return q, ck, cv, mask
+
+
+def fragmented_mask(B, S, length):
+    """(B, S) key masks as continuous batching leaves them, valid keys below
+    `length` only: row 3 of every 4 is dead; of the others, rows 0 mod 3
+    have a leading pad and an interior hole of 512 keys, rows 1 mod 3 a
+    40-key hole inside one block, rows 2 mod 3 two islands (the first block
+    and a quarter of the cache empty). The rows list different counts of
+    256-key blocks."""
+    mask = np.zeros((B, S), bool)
+    for r in range(B):
+        if r % 4 == 3:
+            continue
+        if r % 3 == 0:
+            mask[r, 7:length] = True
+            mask[r, 256:768] = False
+        elif r % 3 == 1:
+            mask[r, :length] = True
+            mask[r, 300:340] = False
+        else:
+            mask[r, 512:600] = True
+            mask[r, length - 90:length] = True
+    return mask
+
+
+def left_moving_table(rng, b, nk):
+    """(b, nk) int32 tables as compaction builds them: row r keeps a random
+    ascending subset of its blocks at the front (table[r, j] >= j) and
+    leaves the rest where they are."""
+    table = np.tile(np.arange(nk, dtype=np.int32), (b, 1))
+    for r in range(b):
+        m = int(rng.integers(0, nk + 1))
+        table[r, :m] = np.sort(rng.choice(nk, size=m, replace=False))
+    return table
 
 
 def quantize_cache(ck, cv):
@@ -190,3 +225,79 @@ def test_int4_prefill_kernel(cuda, shape, m, dtype):
     assert int4_matmul_prefill_tiled.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == (1, m, INT4_SHAPES[shape][1])
     assert_int4_close(got, int4_matmul_prefill_tiled_ref(x, w4t, gst, 1), dtype)
+
+
+# (shape, seq_axis, block_k): 7B-like k/v planes, scale planes, and a plane
+# whose blocks are not a multiple of 16 bytes (the byte-copy path)
+GATHER_CASES = {
+    "kv": ((2, 3, 512, 4, 32), 2, 128),
+    "scales": ((2, 3, 4, 512), 3, 128),
+    "odd_bytes": ((2, 2, 64, 1, 5), 2, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_cache_blocks_kernel(cuda, case, dtype):
+    shape, seq_axis, bk = GATHER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    c = torch.from_numpy(rng.integers(-100, 100, size=shape)).to(cuda, dtype)
+    table = left_moving_table(rng, shape[1], shape[seq_axis] // bk)
+    want = gather_cache_blocks_ref(c.clone(), table, block_k=bk, seq_axis=seq_axis)
+    ptr = c.data_ptr()
+    before = gather_cache_blocks.LAUNCHES
+    got = gather_cache_blocks(c, table, block_k=bk, seq_axis=seq_axis)
+    torch.cuda.synchronize()
+    assert gather_cache_blocks.LAUNCHES == before + 1
+    assert got.data_ptr() == ptr  # in place
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("tw", [1, 4])
+def test_decode_attention_fragmented_kernel(cuda, tw, quant, dtype):
+    L, B, S, H, K, D, length = 2, 8, 1024, 8, 2, 64, 1000
+    q, ck, cv, _ = decode_inputs(L, B, S, H, K, D, tw, None, seed=tw + quant)
+    mask = torch.from_numpy(fragmented_mask(B, S, length)).to(cuda)
+    q = torch.from_numpy(q).to(cuda, dtype)
+    if quant:
+        cache = [x.to(cuda) for x in quantize_cache(torch.from_numpy(ck), torch.from_numpy(cv))]
+        got = decode_attention_stacked_q(q, *cache, 1, length, key_mask=mask)
+        want = decode_attention_stacked_q_ref(q, *cache, 1, length, key_mask=mask)
+    else:
+        ck, cv = (torch.from_numpy(x).to(cuda, dtype) for x in (ck, cv))
+        got = decode_attention_stacked(q, ck, cv, 1, length, key_mask=mask)
+        want = decode_attention_stacked_ref(q, ck, cv, 1, length, key_mask=mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert not bool(got[3].any())  # a dead row gives 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_kernel_bit_equal_across_compaction(cuda, quant):
+    """The kernel's output for a live row is bit-equal after its blocks
+    move to lower indices (B8) and another row's plane is emptied."""
+    L, B, S, H, K, D, bk = 1, 2, 1024, 8, 2, 64, 256
+    q, ck, cv, _ = decode_inputs(L, B, S, H, K, D, 1, None, seed=7)
+    q = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    if quant:
+        cache = [x.to(cuda) for x in quantize_cache(torch.from_numpy(ck), torch.from_numpy(cv))]
+        attend = decode_attention_stacked_q
+    else:
+        cache = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (ck, cv)]
+        attend = decode_attention_stacked
+    mask = np.zeros((B, S), bool)
+    mask[0, 300:700] = True
+    mask[0, 900:990] = True
+    mask[1, :990] = True
+    out = attend(q, *cache, 0, 990, key_mask=torch.from_numpy(mask).to(cuda))
+    table = np.array([[1, 2, 3, 3], [0, 1, 2, 3]])
+    for plane, axis in zip(cache, (2, 2, 3, 3)):
+        gather_cache_blocks(plane, table, block_k=bk, seq_axis=axis)
+    moved = np.zeros_like(mask)
+    moved[0, 300 - bk:990 - bk] = mask[0, 300:990]
+    got = attend(q, *cache, 0, 990 - bk, key_mask=torch.from_numpy(moved).to(cuda))
+    assert torch.equal(got[0], out[0])

@@ -19,6 +19,7 @@ MODULES = [
     "handsonvlm_torch.data.video_io",
     "handsonvlm_torch.ops._build",
     "handsonvlm_torch.ops.attention",
+    "handsonvlm_torch.ops.cache_ops",
     "handsonvlm_torch.ops.decode_attention",
     "handsonvlm_torch.ops.int8_matmul",
     "handsonvlm_torch.ops.vit_attention",
@@ -30,6 +31,10 @@ MODULES = [
     "handsonvlm_torch.infer.chat",
     "handsonvlm_torch.infer.profile",
     "handsonvlm_torch.infer.viz",
+    "handsonvlm_torch.serve.continuous",
+    "handsonvlm_torch.serve.scheduler",
+    "handsonvlm_torch.eval.traj_metrics",
+    "handsonvlm_torch.eval.evaluator",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -98,6 +103,32 @@ def test_chip_smoke_quantized_phases_run_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "phase 6 ran" in proc.stdout
+
+
+def test_chip_smoke_serving_phases_run_without_jax():
+    """chip_smoke's compaction phase (bit-equal stream across a compaction,
+    int4 + int8 cache) and its EK100 evaluation phase (serial, batched, a
+    staggered burst that compacts, the greedy first-token check) run at the
+    tiny preset on the CPU (plain versions, no launches) and load neither
+    jax nor the JAX package."""
+    code = ("import torch\n"
+            "import chip_smoke as cs\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                           quantize='int4')\n"
+            "for p in model.parameters():\n"
+            "    p.data = p.data.to(torch.bfloat16)\n"
+            "times = cs.phase_compaction(model, cfg, kv_quant='int8', prompt_len=120)\n"
+            "assert times['compact_ms'] > 0, times\n"
+            "st = cs.phase_eval(model, cfg, tok, n_clips=4, serial_clips=2, max_new=6, slots=2,\n"
+            "                   max_len=1024, chunk=4, burst=9, burst_slots=2, burst_len=384,\n"
+            "                   burst_chunk=4, burst_gap_s=0.01)\n"
+            "assert st['batched_tok_s'] > 0 and st['ttft_p95_ms'] > 0, st\n"
+            "assert not any(st['launches'].values()), st  # no kernel on the CPU\n"
+            "print('phases 7-8 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phases 7-8 ran" in proc.stdout
 
 
 def test_profile_cli_rehearses_on_cpu():
