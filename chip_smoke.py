@@ -40,9 +40,27 @@ Phases (each prints its lines; the last line is the JSON status):
    all 16, and a staggered burst of 24 requests through the scheduler (4
    slots, 2048 positions) that runs the cursor out, so it compacts. Every
    clip is scored, nothing is truncated, launches are exact; a greedy pass
-   of 2 clips gives each clip the same first token serially and batched.
+   of 2 clips gives each clip the same first token serially and batched;
+9. a long prompt at 7B (bf16, then int4 + int8 cache): one chat turn whose
+   prompt is about 2300 rows after the splice, 16 new tokens. The prefill
+   goes through the flash kernel (one launch per layer), the decode steps
+   through the stacked decode kernel. Phases 4 and 6 then repeat their
+   comparison at that prompt: the flash prefill + 4 decode steps against
+   the plain path from the fp32 reference, and in phase 4 also 4 steps
+   with attn_impl="decode" (the per-layer decode kernel, one launch per
+   layer and step);
+10. speculative chat at 7B (bf16, then int4 + int8 cache), k = 4, greedy,
+   the gate off, 32 new tokens: run A with an empty bank (drafts come
+   from prompt n-grams at most) and run B whose bank is run A's stream.
+   Run B must take fewer forwards than tokens; in both, every verify
+   forward launches the stacked decode kernel once per layer (and the
+   int4 GEMV four times, m = 5), and after every forward the cache index
+   stands at its value before plus the tokens emitted. The hidden rows of
+   one T = 5 window are held against the same five positions decoded one
+   at a time. A sampled run (temperature 0.5, top-p 0.9, the gate on, the
+   template bank) prints its stats.
 
-Phases 7 and 8 run before phases 4 and 6 (which convert the model), on the
+Phases 7 to 10 run before phases 4 and 6 (which convert the model), on the
 model each chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -79,13 +97,17 @@ from handsonvlm_torch.models.llama import (
 )
 from handsonvlm_torch.ops import _build
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
+from handsonvlm_torch.ops.attention import attention_xla
 from handsonvlm_torch.ops.decode_attention import (
     block_list,
+    decode_attention,
+    decode_attention_ref,
     decode_attention_stacked,
     decode_attention_stacked_q,
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
 )
+from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from handsonvlm_torch.ops.int8_matmul import (
     dequantize_tiled,
     int4_gemv_tiled,
@@ -116,6 +138,8 @@ BF16_FLOP_S = 989e12
 # the 7B chat prompt after the splice (turn 1 of phase 3 in earlier runs)
 PREFILL_ROWS = 391
 DECODE_LEN = 450  # cache positions attended by a mid-answer decode step
+LONG_ROWS = 2304  # rows of the long prompt after the splice (the flash prefill)
+SPEC_K = 4  # drafted tokens per verify forward: windows of SPEC_K + 1 rows
 TIMING_LAYERS = 4  # weights cycled while timing, so each launch finds L2 cold
 # the 7B serving cache of batched evaluation: 8 slots of 4096 positions
 SERVE_SLOTS, SERVE_LEN = 8, 4096
@@ -127,7 +151,8 @@ WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
             "vit_attention": vit_attention, "int4_gemv_tiled": int4_gemv_tiled,
             "int4_matmul_prefill_tiled": int4_matmul_prefill_tiled,
             "decode_attention_stacked_q": decode_attention_stacked_q,
-            "gather_cache_blocks": gather_cache_blocks}
+            "gather_cache_blocks": gather_cache_blocks,
+            "flash_attention": flash_attention, "decode_attention": decode_attention}
 
 
 def log(msg: str) -> None:
@@ -277,6 +302,9 @@ def check_decode_attention() -> dict:
     log(f"  B1 time (B=1 H=K=32 D=128 S=520 len={n} bf16, {Lt} layers cycled): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
+    qw = _rand(gen, (B, SPEC_K + 1, H, D), torch.bfloat16)
+    w_ms = cuda_time_ms(lambda i: decode_attention_stacked(qw, ck, cv, i % Lt, n, blocks=bl))
+    log(f"  B1 time at the verify window (T={SPEC_K + 1}, same cache): kernel {w_ms:.4f} ms")
     return {
         "name": "decode_attention_stacked", "route": "cuda",
         "source": "handsonvlm_torch/csrc/decode_attention.cu",
@@ -368,6 +396,9 @@ def check_decode_attention_q() -> dict:
     log(f"  B6 time (B=1 H=K=32 D=128 S=520 len={n}, int8 cache, bf16 q, {Lt} layers "
         f"cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
+    qw = _rand(gen, (B, SPEC_K + 1, H, D), torch.bfloat16)
+    w_ms = cuda_time_ms(lambda i: decode_attention_stacked_q(qw, *ct, i % Lt, n, blocks=bl))
+    log(f"  B6 time at the verify window (T={SPEC_K + 1}, same cache): kernel {w_ms:.4f} ms")
     return {
         "name": "decode_attention_stacked_q", "route": "cuda",
         "source": "handsonvlm_torch/csrc/decode_attention.cu",
@@ -505,15 +536,16 @@ def _int4_stack(din, dout, layers, gen):
                              torch.stack([p[1] for p in packed]))
 
 
-def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed) -> dict:
+def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows=0) -> dict:
     """Check `wrapper` against `ref` at the four 7B projections for each m
     in rows_checked (bf16 and fp32), then time kernel, plain and a bf16
     torch.mm over the dequantized weight (another function: the weight is
-    not int4) at m = rows_timed, cycling over TIMING_LAYERS layers."""
+    not int4) at m = rows_timed, cycling over TIMING_LAYERS layers;
+    `window_rows` also times the kernel at that m (a verify window)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = int4_projection_shapes(get_config("7b").llama)
     errs = {torch.bfloat16: [], torch.float32: []}
-    ms = plain_ms = mm_ms = bound_bytes = flops = 0.0
+    ms = plain_ms = mm_ms = bound_bytes = flops = window_ms = 0.0
     for proj, (din, dout) in shapes.items():
         w4t, gst = _int4_stack(din, dout, TIMING_LAYERS, gen)
         for dtype in (torch.bfloat16, torch.float32):
@@ -536,17 +568,24 @@ def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed) -> dict:
         ms, plain_ms, mm_ms = ms + t_k, plain_ms + t_p, mm_ms + t_mm
         bound_bytes += nbytes
         flops += 2 * m * din * dout
+        if window_rows:
+            xw = _rand(gen, (1, window_rows, din), torch.bfloat16)
+            window_ms += cuda_time_ms(lambda i: wrapper(xw, w4t, gst, i % Lt))
         del w4t, gst, w_dense
     bound_ms, bound_by = bound(bound_bytes, flops)
     log(f"  {name}: the four projections of one layer at m={rows_timed}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by}); "
         f"bf16 torch.mm (different function) {mm_ms:.4f} ms")
+    if window_rows:
+        log(f"  {name}: the same four projections at the verify window (m={window_rows}): "
+            f"kernel {window_ms:.4f} ms")
     return {"max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def check_int4_gemv() -> dict:
-    row = _int4_kernel("B4b", int4_gemv_tiled, int4_gemv_tiled_ref, (1, 8, 127), 1, 4)
+    row = _int4_kernel("B4b", int4_gemv_tiled, int4_gemv_tiled_ref, (1, SPEC_K + 1, 8, 127), 1,
+                       4, window_rows=SPEC_K + 1)
     return {"name": "int4_gemv_tiled", "route": "cuda",
             "source": "handsonvlm_torch/csrc/int4_gemv.cu",
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:469", **row}
@@ -560,10 +599,131 @@ def check_int4_prefill() -> dict:
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:704", **row}
 
 
+def _prefill_case(gen, t, s, dtype, pad=0, layers=1):
+    """q (1, t, 32, 128), a cache (layers, 1, s, 32, 128) pair holding a
+    prefill of t rows at index 0, and its key mask: the written prefix less
+    a left pad of `pad` keys (None when there is neither pad nor tail)."""
+    q = _rand(gen, (1, t, 32, 128), dtype)
+    ck = _rand(gen, (layers, 1, s, 32, 128), dtype)
+    cv = _rand(gen, (layers, 1, s, 32, 128), dtype)
+    mask = None
+    if pad or s > t:
+        mask = torch.zeros((1, s), dtype=torch.bool, device="cuda")
+        mask[:, pad:t] = True
+    return q, ck, cv, mask
+
+
+def check_flash_attention() -> dict:
+    """B3 against its plain version at the long prompt's shapes (output and
+    logsumexp; a left-pad row gives 0 / NEG_INF in both), then timed at
+    T = S = 4096 causal against the plain version and sdpa, and the
+    crossover the dispatch rests on: kernel, the plain route (attention_xla)
+    and sdpa at T = S = 512 .. 4096."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    for t, s, pad, dtype in ((LONG_ROWS, 2560, 37, torch.bfloat16),
+                             (LONG_ROWS, 2560, 37, torch.float32),
+                             (4096, 4608, 0, torch.bfloat16)):
+        q, ck, cv, mask = _prefill_case(gen, t, s, dtype, pad)
+        got, lse = flash_attention(q, ck[0], cv[0], key_mask=mask, q_offset=0)
+        want, want_lse = flash_attention_ref(q, ck[0], cv[0], key_mask=mask, q_offset=0)
+        _check(f"B3 T={t} S={s} pad={pad}", got, want, dtype, errs[dtype])
+        lse_err = float((lse - want_lse).abs().max())
+        log(f"    logsumexp max_abs_err={lse_err:.3e} (tol 1e-3)")
+        if not lse_err <= 1e-3:
+            raise AssertionError("B3: logsumexp disagrees with the plain version")
+        if pad and (bool(got[:, :pad].any()) or float(lse[..., :pad].max()) > -1e29):
+            raise AssertionError("B3: a row with no valid key must give 0 / NEG_INF")
+        del q, ck, cv, got, want, lse, want_lse
+        torch.cuda.empty_cache()
+
+    def sdpa_causal(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True)
+
+    rows, Lt = {}, 4  # 4 layers of k, v cycled: 4 x 67 MB at T = 4096, past L2
+    log("  B3 crossover, T = S causal, (1, T, 32, 128) bf16, ms per layer: "
+        "T, kernel, plain route (attention_xla), library (sdpa)")
+    for t in (512, 1024, 2048, 4096):
+        q, ck, cv, _ = _prefill_case(gen, t, t, torch.bfloat16, layers=Lt)
+        k_ms = cuda_time_ms(lambda i: flash_attention(q, ck[i % Lt], cv[i % Lt]), iters=20)
+        x_ms = cuda_time_ms(lambda i: attention_xla(q, ck[i % Lt], cv[i % Lt]),
+                            iters=5, warmup=1)
+        l_ms = cuda_time_ms(lambda i: sdpa_causal(q, ck[i % Lt], cv[i % Lt]), iters=20)
+        log(f"    {t:5d}  {k_ms:8.4f}  {x_ms:8.4f}  {l_ms:8.4f}")
+        rows[t] = (k_ms, l_ms)
+        if t == 4096:
+            plain_ms = cuda_time_ms(lambda i: flash_attention_ref(q, ck[i % Lt], cv[i % Lt]),
+                                    iters=3, warmup=1)
+        del q, ck, cv
+        torch.cuda.empty_cache()
+    t, h, d = 4096, 32, 128
+    pairs = t * (t + 1) // 2  # (query, key) pairs under the causal mask
+    bound_ms, bound_by = bound(4 * t * h * d * 2 + 4 * h * t, 4 * pairs * h * d)
+    ms, library_ms = rows[t]
+    log(f"  B3 time (T=S={t} causal, H=K=32 D=128 bf16, {Lt} layers cycled): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library (sdpa, causal) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); {4 * pairs * h * d / ms / 1e9:.1f} TFLOP/s")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "handsonvlm_torch/csrc/flash_attention.cu",
+        "replaces": "handsonvlm_tpu/ops/flash_attention.py:143",
+        "max_abs_err": max(errs[torch.bfloat16]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def check_decode_attention_single() -> dict:
+    """B12 over one layer's own cache of 4608 positions against its plain
+    version, then timed at the long prompt's decode shape (2304 keys) and
+    at 4096 keys, the layers cycled."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    S, H, K, D, Lt = 4608, 32, 32, 128, 8
+    errs = {torch.bfloat16: [], torch.float32: []}
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v = _rand(gen, (1, S, K, D), dtype), _rand(gen, (1, S, K, D), dtype)
+        q = _rand(gen, (1, 1, H, D), dtype)
+        for length in (1, 33, 450, LONG_ROWS, 4096):
+            _check(f"B12 len={length}", decode_attention(q, k, v, length),
+                   decode_attention_ref(q, k, v, length), dtype, errs[dtype])
+        mask = torch.ones((1, S), dtype=torch.bool, device="cuda")
+        mask[:, :37] = False
+        mask[:, 1000:1300] = False
+        _check("B12 len=2304 masked (pad, a hole of whole tiles)",
+               decode_attention(q, k, v, LONG_ROWS, key_mask=mask),
+               decode_attention_ref(q, k, v, LONG_ROWS, key_mask=mask), dtype, errs[dtype])
+        kg, vg = _rand(gen, (2, 600, 8, D), dtype), _rand(gen, (2, 600, 8, D), dtype)
+        qg = _rand(gen, (2, H, D), dtype)
+        _check("B12 GQA H=32 K=8 B=2 len=555", decode_attention(qg, kg, vg, 555),
+               decode_attention_ref(qg, kg, vg, 555), dtype, errs[dtype])
+    ck = _rand(gen, (Lt, 1, S, K, D), torch.bfloat16)
+    cv = _rand(gen, (Lt, 1, S, K, D), torch.bfloat16)
+    q = _rand(gen, (1, 1, H, D), torch.bfloat16)
+    row = None
+    for n in (4096, LONG_ROWS):
+        ms = cuda_time_ms(lambda i: decode_attention(q, ck[i % Lt], cv[i % Lt], n))
+        plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, ck[i % Lt], cv[i % Lt], n),
+                                iters=10, warmup=2)
+        library_ms = cuda_time_ms(lambda i: _sdpa(q, ck[i % Lt, :, :n], cv[i % Lt, :, :n]))
+        bound_ms, bound_by = bound(2 * n * K * D * 2 + 2 * H * D * 2, 4 * n * H * D)
+        log(f"  B12 time (B=1 H=K=32 D=128 S={S} len={n} bf16, {Lt} layers cycled): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+    # the row reported is the long prompt's decode shape (the last)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "handsonvlm_torch/csrc/decode_attention.cu",
+            "replaces": "handsonvlm_tpu/ops/decode_attention.py:449",
+            "max_abs_err": max(errs[torch.bfloat16]), **row}
+
+
 def phase_kernels() -> list:
     log("phase 2: kernels against their plain versions")
     return [check_decode_attention(), check_vit_attention(), check_int4_gemv(),
-            check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks()]
+            check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks(),
+            check_flash_attention(), check_decode_attention_single()]
 
 
 def reset_launches() -> None:
@@ -672,10 +832,11 @@ def check_launches(run: dict, expect_per: dict) -> None:
 
 
 def _greedy_decode(model, cfg, ids, images, frame_map, max_len, impl, fed=None,
-                   kv_quant=None):
-    """Greedy prefill + 4 decode steps with attention `impl`; `fed` feeds
-    another run's tokens instead of this run's own argmax. Returns (final
-    hidden fp32, this run's own 5 greedy tokens)."""
+                   kv_quant=None, step_impl=None):
+    """Greedy prefill + 4 decode steps with attention `impl` (the steps
+    with `step_impl` when given); `fed` feeds another run's tokens instead
+    of this run's own argmax. Returns (final hidden fp32, this run's own 5
+    greedy tokens)."""
     hidden, cache, mask = sampler.prefill(model, cfg, ids, images, max_len,
                                           attn_impl=impl, frame_map=frame_map,
                                           kv_quant=kv_quant)
@@ -689,7 +850,7 @@ def _greedy_decode(model, cfg, ids, images, frame_map, max_len, impl, fed=None,
         feed = tok if fed is None else torch.tensor([fed[step]], device=ids.device)
         emb = embed_next_token(model, cfg, feed, no_waypoint)
         out, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=emb[:, None],
-                                 attn_mask=mask, kv_cache=cache, attn_impl=impl)
+                                 attn_mask=mask, kv_cache=cache, attn_impl=step_impl or impl)
         hidden = out[:, 0]
     return hidden.float(), greedy
 
@@ -698,52 +859,93 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def _greedy_args(model, cfg, tokenizer, video, frame_map):
+def _greedy_args(model, cfg, tokenizer, video, frame_map, text="What happens next?"):
     dev = model.llama.embed_tokens.weight.device
-    ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer, "What happens next?"),
-                          device=dev)
+    ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer, text), device=dev)
     images = torch.as_tensor(video, device=dev)
     max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + 8
     return model, cfg, ids, images, frame_map, max_len
 
 
-def phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map):
+def phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, long_text=None):
     """Greedy prefill + 4 decode steps with the kernels ("auto") and the
     plain versions ("xla") in the model's dtype, then with the same weights
     cast to fp32; every run is fed the first run's tokens. Leaves the model
-    in fp32. Returns (the kernel path's final hidden, its greedy tokens).
+    in fp32. Returns (the kernel path's final hidden, its greedy tokens, the
+    launches of the per-layer decode kernel as counted in its run).
+
+    The counts are set to 0 before each run in the model's dtype and read
+    after it: the CLIP kernel per CLIP layer, the flash kernel per layer of
+    a prefill of 2048 rows or more, and per layer and step the stacked
+    decode kernel ("auto") or the per-layer one ("decode"), nothing else.
 
     The fp32 plain path is the reference. A random-weight bf16 7B amplifies
     one rounding step many times over (on an H100 the bf16 kernel and plain
     paths end 3.6e-2 apart in relative L2), so the bf16 kernel path is held
     to the bf16 plain path's own distance from the reference, and the fp32
-    kernel path to FP32_REL_L2."""
+    kernel path to FP32_REL_L2.
+
+    `long_text` repeats the comparison at a long prompt: its "auto" prefill
+    goes through the flash kernel (one launch per layer), and a third run
+    takes the decode steps with attn_impl="decode" (the per-layer decode
+    kernel, one launch per layer and step), held to the same bounds."""
     dtype = model.llama.embed_tokens.weight.dtype
     name = str(dtype).split(".")[-1]
+    n_layers = cfg.llama.num_layers
+    scenes = {"chat prompt": _greedy_args(model, cfg, tokenizer, video, frame_map)}
+    if long_text is not None:
+        scenes["long prompt"] = _greedy_args(model, cfg, tokenizer, video, frame_map, long_text)
+    n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    low, b12 = {}, 0
     with torch.inference_mode():
-        args = _greedy_args(model, cfg, tokenizer, video, frame_map)
-        h_k, tok_k = _greedy_decode(*args, "auto")
-        h_p, tok_p = _greedy_decode(*args, "xla", fed=tok_k)
+        for scene, args in scenes.items():
+            flash = n_layers if args[2].shape[1] + cfg.num_visual_tokens - 1 >= 2048 else 0
+            prefill = {"vit_attention": n_clip, "flash_attention": flash}
+            reset_launches()
+            h_k, tok_k = _greedy_decode(*args, "auto")
+            expect_launches(read_launches(),
+                            {**prefill, "decode_attention_stacked": 4 * n_layers})
+            h_p, tok_p = _greedy_decode(*args, "xla", fed=tok_k)
+            h_d = None
+            if scene == "long prompt":
+                reset_launches()
+                h_d, _ = _greedy_decode(*args, "auto", fed=tok_k, step_impl="decode")
+                counts = read_launches()
+                expect_launches(counts, {**prefill, "decode_attention": 4 * n_layers})
+                b12 = counts["decode_attention"]
+            low[scene] = (h_k, tok_k, h_p, tok_p, h_d)
         model.float()
-        h_ref, tok_ref = _greedy_decode(*args, "xla", fed=tok_k)
-        h_k32, tok_k32 = _greedy_decode(*args, "auto", fed=tok_k)
-    d_k, d_p, d_32 = _rel(h_k, h_ref), _rel(h_p, h_ref), _rel(h_k32, h_ref)
-    log(f"  greedy tokens: {name} kernels {tok_k[:4]}, {name} plain {tok_p[:4]}, "
-        f"fp32 plain {tok_ref[:4]}, fp32 kernels {tok_k32[:4]}")
-    log(f"  {name} final hidden relative L2, kernels vs plain: {_rel(h_k, h_p):.3e}")
-    log(f"  final hidden relative L2 from the fp32 plain path: {name} kernels {d_k:.3e}, "
-        f"{name} plain {d_p:.3e} (limit {BF16_VS_PLAIN} x that), fp32 kernels "
-        f"{d_32:.3e} (limit {FP32_REL_L2:.0e})")
-    if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
-        raise AssertionError(f"{name} kernel path lies further from the fp32 reference "
-                             f"than the {name} plain path")
-    if not (np.isfinite(d_32) and d_32 <= FP32_REL_L2):
-        raise AssertionError("fp32 kernel path disagrees with the fp32 plain path")
-    return h_k, tok_k
+        for scene, args in scenes.items():
+            h_k, tok_k, h_p, tok_p, h_d = low[scene]
+            h_ref, tok_ref = _greedy_decode(*args, "xla", fed=tok_k)
+            h_k32, tok_k32 = _greedy_decode(*args, "auto", fed=tok_k)
+            d_k, d_p, d_32 = _rel(h_k, h_ref), _rel(h_p, h_ref), _rel(h_k32, h_ref)
+            log(f"  {scene} ({args[2].shape[1] + cfg.num_visual_tokens - 1} rows): greedy "
+                f"tokens: {name} kernels {tok_k[:4]}, {name} plain {tok_p[:4]}, fp32 plain "
+                f"{tok_ref[:4]}, fp32 kernels {tok_k32[:4]}")
+            log(f"  {name} final hidden relative L2, kernels vs plain: {_rel(h_k, h_p):.3e}")
+            log(f"  final hidden relative L2 from the fp32 plain path: {name} kernels "
+                f"{d_k:.3e}, {name} plain {d_p:.3e} (limit {BF16_VS_PLAIN} x that), fp32 "
+                f"kernels {d_32:.3e} (limit {FP32_REL_L2:.0e})")
+            dists = {f"{name} kernel path": (d_k, BF16_VS_PLAIN * d_p),
+                     "fp32 kernel path": (d_32, FP32_REL_L2)}
+            if h_d is not None:
+                h_d32, _ = _greedy_decode(*args, "auto", fed=tok_k, step_impl="decode")
+                dists[f"{name} per-layer decode kernel"] = (_rel(h_d, h_ref),
+                                                            BF16_VS_PLAIN * d_p)
+                dists["fp32 per-layer decode kernel"] = (_rel(h_d32, h_ref), FP32_REL_L2)
+                log(f"  steps with attn_impl='decode': {name} {_rel(h_d, h_ref):.3e}, fp32 "
+                    f"{_rel(h_d32, h_ref):.3e} from the fp32 plain path")
+            for what, (dist, limit) in dists.items():
+                if not (np.isfinite(dist) and dist <= limit):
+                    raise AssertionError(f"{scene}: the {what} lies {dist:.3e} from the fp32 "
+                                         f"reference, limit {limit:.3e}")
+    h_k, tok_k = low["chat prompt"][:2]
+    return h_k, tok_k, b12
 
 
 def phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=None,
-                                h_dense=None) -> None:
+                                h_dense=None, long_text=None) -> None:
     """The int4 + int8-cache path: greedy prefill + 4 decode steps with the
     kernels ("auto") and the plain versions ("xla") in the model's dtype,
     then with the int4 weights dequantized into an fp32 model (plain path,
@@ -751,29 +953,38 @@ def phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=Non
     (else the first run's own tokens). The kernel path may lie at most
     BF16_VS_PLAIN x as far from the reference as the plain path. `h_dense`,
     the dense model's final hidden for the same tokens, is compared for
-    information only. Leaves the model dense fp32."""
+    information only. `long_text` repeats the comparison at a long prompt
+    (the flash prefill). Leaves the model dense fp32."""
     dtype = model.llama.embed_tokens.weight.dtype
     name = str(dtype).split(".")[-1]
+    scenes = {"chat prompt": (_greedy_args(model, cfg, tokenizer, video, frame_map), fed)}
+    if long_text is not None:
+        scenes["long prompt"] = (
+            _greedy_args(model, cfg, tokenizer, video, frame_map, long_text), None)
+    low = {}
     with torch.inference_mode():
-        args = _greedy_args(model, cfg, tokenizer, video, frame_map)
-        h_k, tok_k = _greedy_decode(*args, "auto", fed=fed, kv_quant="int8")
-        fed = tok_k if fed is None else fed
-        h_p, tok_p = _greedy_decode(*args, "xla", fed=fed, kv_quant="int8")
+        for scene, (args, fed_s) in scenes.items():
+            h_k, tok_k = _greedy_decode(*args, "auto", fed=fed_s, kv_quant="int8")
+            fed_s = tok_k if fed_s is None else fed_s
+            h_p, tok_p = _greedy_decode(*args, "xla", fed=fed_s, kv_quant="int8")
+            low[scene] = (h_k, tok_k, h_p, tok_p, fed_s)
         dequantize_llama_int4(model.llama, cfg.llama, torch.float32)
         model.float()
-        h_ref, tok_ref = _greedy_decode(*args, "xla", fed=fed, kv_quant="int8")
-    d_k, d_p = _rel(h_k, h_ref), _rel(h_p, h_ref)
-    log(f"  greedy tokens: int4+kv8 {name} kernels {tok_k[:4]}, plain {tok_p[:4]}, "
-        f"dequantized fp32 plain {tok_ref[:4]}")
-    log(f"  {name} final hidden relative L2, kernels vs plain: {_rel(h_k, h_p):.3e}")
-    log(f"  final hidden relative L2 from the dequantized fp32 plain path: {name} kernels "
-        f"{d_k:.3e}, {name} plain {d_p:.3e} (limit {BF16_VS_PLAIN} x that)")
-    if h_dense is not None:
-        log(f"  int4+kv8 kernel path vs the dense {name} kernel path, final hidden "
-            f"relative L2 (information): {_rel(h_k, h_dense):.3e}")
-    if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
-        raise AssertionError("int4+kv8 kernel path lies further from the fp32 reference "
-                             "than the plain path")
+        for scene, (args, _) in scenes.items():
+            h_k, tok_k, h_p, tok_p, fed_s = low[scene]
+            h_ref, tok_ref = _greedy_decode(*args, "xla", fed=fed_s, kv_quant="int8")
+            d_k, d_p = _rel(h_k, h_ref), _rel(h_p, h_ref)
+            log(f"  {scene}: greedy tokens: int4+kv8 {name} kernels {tok_k[:4]}, plain "
+                f"{tok_p[:4]}, dequantized fp32 plain {tok_ref[:4]}")
+            log(f"  {name} final hidden relative L2, kernels vs plain: {_rel(h_k, h_p):.3e}")
+            log(f"  final hidden relative L2 from the dequantized fp32 plain path: {name} "
+                f"kernels {d_k:.3e}, {name} plain {d_p:.3e} (limit {BF16_VS_PLAIN} x that)")
+            if h_dense is not None and scene == "chat prompt":
+                log(f"  int4+kv8 kernel path vs the dense {name} kernel path, final hidden "
+                    f"relative L2 (information): {_rel(h_k, h_dense):.3e}")
+            if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
+                raise AssertionError(f"{scene}: int4+kv8 kernel path lies further from the "
+                                     "fp32 reference than the plain path")
 
 
 def serving_launches(model, cfg, kv_quant, decode_steps, prefills, compactions) -> dict:
@@ -820,8 +1031,9 @@ def phase_compaction(model, cfg, kv_quant=None, prompt_len=20) -> dict:
     run request 0 out while request 1, joined behind it, is mid-generation;
     engine A then compacts (B8) and engine B does not. Request 1's tokens
     and every waypoint must be bit-equal in A and B. The launches of both
-    runs are counted exactly. Returns per-layer times (ms): join, chunk
-    step, compaction."""
+    runs are counted exactly. A third engine then ends request 1 on an
+    EOS id (_eos_replay). Returns per-layer times (ms): join, chunk step,
+    compaction."""
     dev = model.llama.embed_tokens.weight.device
     (ids0, v0, fm), (ids1, v1, _) = (_raw_prompt(cfg, 1, prompt_len),
                                      _raw_prompt(cfg, 2, prompt_len))
@@ -836,8 +1048,11 @@ def phase_compaction(model, cfg, kv_quant=None, prompt_len=20) -> dict:
         return out
 
     def drive(do_compact):
+        # no EOS id: the scenario needs request 0 to run its 6 tokens and
+        # request 1 its 18, whatever a random model samples; _eos_replay
+        # ends request 1 on an EOS id afterwards
         eng = ContinuousEngine(model, cfg, slots=2, max_len=1024, chunk=4, temperature=0.5,
-                               kv_quant=kv_quant)
+                               kv_quant=kv_quant, eos_token_id=-1)
         wps = _capture_waypoints(eng)
         timed("join_ms", lambda: eng.join(ids0, v0, seed=11, max_new=6, frame_map=fm))
         timed("step_ms", eng.step)
@@ -871,6 +1086,7 @@ def phase_compaction(model, cfg, kv_quant=None, prompt_len=20) -> dict:
         f"{'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("compaction changed a live request's stream")
+    _eos_replay(model, cfg, kv_quant, (ids0, v0), (ids1, v1), fm, b.sequences[0, :n])
     steps, prefills = ea.decode_steps + eb.decode_steps, ea.prefills + eb.prefills
     expect_launches(counts, serving_launches(model, cfg, kv_quant, steps, prefills,
                                              ea.compactions + eb.compactions))
@@ -878,6 +1094,30 @@ def phase_compaction(model, cfg, kv_quant=None, prompt_len=20) -> dict:
     log(f"  serving layer times, median (ms): join {out['join_ms']:.2f}, chunk of 4 steps "
         f"{out['step_ms']:.2f}, compaction {out['compact_ms']:.2f}")
     return out
+
+
+def _eos_replay(model, cfg, kv_quant, req0, req1, frame_map, stream) -> None:
+    """The end of a request on EOS: the compaction scenario's two requests
+    once more, with request 1's 10th token as the engine's EOS id. Rows
+    are independent, so request 1 must come out cut after the first
+    occurrence of that token, equal to `stream` (its tokens with no EOS id)
+    up to there."""
+    eos = int(stream[9])
+    stop = int(np.flatnonzero(stream == eos)[0]) + 1
+    eng = ContinuousEngine(model, cfg, slots=2, max_len=1024, chunk=4, temperature=0.5,
+                           kv_quant=kv_quant, eos_token_id=eos)
+    eng.join(*req0, seed=11, max_new=6, frame_map=frame_map)
+    eng.step()
+    row = eng.join(*req1, seed=22, max_new=18, frame_map=frame_map)
+    out = None
+    while out is None:
+        out = next((o for r, o in eng.step() if r == row), None)
+    got = out.sequences[0, :int(out.num_tokens[0])]
+    same = np.array_equal(got, stream[:stop])
+    log(f"  request 1 with EOS id {eos}: {len(got)} tokens, ends on EOS, equal to the first "
+        f"{stop} of its stream without: {'ok' if same else 'FAIL'}")
+    if not same or (out.sequences[0, stop:] != sampler.PAD_TOKEN_ID).any():
+        raise AssertionError(f"request 1 did not end on its EOS id {eos}: {got.tolist()}")
 
 
 class EkClips:
@@ -1039,6 +1279,168 @@ def phase_eval(model, cfg, tokenizer, n_clips=16, serial_clips=2, max_new=32, sl
     return stats
 
 
+def long_instruction(cfg, tokenizer, rows=LONG_ROWS) -> str:
+    """An instruction whose chat prompt has at least `rows` rows after the
+    splice: EK-style requests, one after another."""
+    n_visual = cfg.num_visual_tokens - 1
+    parts, i = [], 0
+    while True:
+        action = EkClips.ACTIONS[i % len(EkClips.ACTIONS)]
+        parts.append(f"Step {i + 1}: " + ACTION_QUESTION_TEMPLATES[
+            i % len(ACTION_QUESTION_TEMPLATES)].format(action))
+        i += 1
+        if i % 8 == 0 or rows < 200:
+            text = " ".join(parts)
+            if prompt_ids(new_conversation(), tokenizer, text).shape[1] + n_visual >= rows:
+                return text
+
+
+def phase_long_prompt(model, cfg, tokenizer, video, frame_map, kv_quant=None, rows=LONG_ROWS,
+                      new_tokens=16):
+    """One chat turn whose prompt is `rows` rows or a little more: on the
+    card the prefill goes through the flash kernel, once per layer, and
+    every decode step through the stacked decode kernel. Returns (the
+    instruction, the launch counts)."""
+    dev = model.llama.embed_tokens.weight.device
+    text = long_instruction(cfg, tokenizer, rows)
+    conv = new_conversation()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stamps = []
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = chat_turn(model, cfg, tokenizer, conv, text, video, frame_map, gen,
+                    max_new_tokens=new_tokens, temperature=0.5, top_p=0.9,
+                    on_token=lambda _tok: stamps.append(time.perf_counter()),
+                    kv_quant=kv_quant)
+    _sync(dev)
+    counts = read_launches()
+    n = int(out.num_tokens[0])
+    toks = out.sequences[0, :n]
+    if n < 1 or toks.min() < 0 or toks.max() >= cfg.llama.vocab_size:
+        raise AssertionError(f"the long turn produced bad tokens {toks}")
+    n_rows = prompt_ids(new_conversation(), tokenizer, text).shape[1] + cfg.num_visual_tokens - 1
+    rate = (len(stamps) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else float("nan")
+    log(f"  prompt {n_rows} rows after the splice, {n} tokens, first-token "
+        f"{(stamps[0] - t0) * 1e3:.1f} ms, decode {rate:.2f} tok/s")
+    if dev.type == "cuda":
+        log(f"  peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if n_rows < rows:
+        raise AssertionError(f"the long prompt has {n_rows} rows, need {rows}")
+    want = serving_launches(model, cfg, kv_quant, n - 1, 1, 0)
+    if n_rows >= 2048:
+        want["flash_attention"] = cfg.llama.num_layers
+    expect_launches(counts, want)
+    return text, counts
+
+
+def _window_vs_steps(model, cfg, ids, images, frame_map, tokens, kv_quant):
+    """Teacher-forced: the hidden rows of one window of len(tokens)
+    positions (the kernels) against the same positions decoded one at a
+    time with the kernels and with the plain versions, from one prefill
+    each. Returns the largest relative L2 over the rows of (window vs
+    single steps, plain single steps vs single steps)."""
+    max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + len(tokens) + 2
+    no_waypoint = torch.zeros((1, 2, 2), device=ids.device)
+    feed = torch.as_tensor(tokens, device=ids.device).long()
+    embs = torch.cat([embed_next_token(model, cfg, feed[i:i + 1], no_waypoint)
+                      for i in range(len(tokens))])[None]
+
+    def run(impl, window):
+        _, cache, mask = sampler.prefill(model, cfg, ids, images, max_len, attn_impl=impl,
+                                         frame_map=frame_map, kv_quant=kv_quant)
+        chunks = [embs] if window else [embs[:, i:i + 1] for i in range(len(tokens))]
+        rows = [apply_llama(model.llama, cfg.llama, inputs_embeds=c, attn_mask=mask,
+                            kv_cache=cache, attn_impl=impl)[0][0] for c in chunks]
+        return torch.cat(rows).float()
+
+    win, steps, plain = run("auto", True), run("auto", False), run("xla", False)
+    per_row = lambda a, b: float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())  # noqa: E731
+    return per_row(win, steps), per_row(plain, steps)
+
+
+def phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant=None, new_tokens=32,
+               k=SPEC_K) -> dict:
+    """Speculative chat, greedy, the gate off: run A with an empty bank,
+    run B with run A's stream as its bank; each through the chat CLI's turn
+    function on a fresh conversation. Checks the forwards saved, every
+    kernel's launches per forward, the cache index after every forward and
+    the rows of one verify window against single steps; prints how far run
+    A agrees with sequential greedy decode, and a sampled run with the gate
+    on. Returns run A's launch counts."""
+    dev = model.llama.embed_tokens.weight.device
+    question = "What is the person doing in this video?"
+    n_layers = cfg.llama.num_layers
+    ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer, question), device=dev)
+    t_prompt = ids.shape[1] + cfg.num_visual_tokens - 1
+
+    def turn(bank, temperature=0.0, gate=0.0, spec_k=k):
+        stats = {}
+        _sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = chat_turn(model, cfg, tokenizer, new_conversation(), question, video, frame_map,
+                        torch.Generator(device=dev).manual_seed(0), max_new_tokens=new_tokens,
+                        temperature=temperature, top_p=0.9, kv_quant=kv_quant, spec_k=spec_k,
+                        bank_ids=bank, gate_tok_per_fwd=gate, spec_stats=stats)
+        _sync(dev)
+        stats["wall_s"] = time.perf_counter() - t0
+        return out, stats, read_launches()
+
+    def check(name, out, stats, counts):
+        n = int(out.num_tokens[0])
+        log(f"  {name}: {n} tokens in {stats['iters']} forwards "
+            f"({(n - 1) / max(stats['iters'], 1):.2f} tok/fwd after the first), drafts found "
+            f"{stats['drafts_found']}, accept_hist {stats['accept_hist']}, {stats['wall_s']:.2f} s")
+        expect_launches(counts, serving_launches(model, cfg, kv_quant, stats["iters"], 1, 0))
+        index = t_prompt
+        for before, n_emit, after in stats["trace"]:
+            if before != index or after != before + n_emit or not 1 <= n_emit <= k + 1:
+                raise AssertionError(f"{name}: cache index {before} -> {after} after a forward "
+                                     f"that emitted {n_emit}, expected to start at {index}")
+            index = after
+        if sum(e for _, e, _ in stats["trace"]) + 1 < n:
+            raise AssertionError(f"{name}: {n} tokens from {stats['trace']}")
+        return n
+
+    out_a, stats_a, counts_a = turn(np.zeros((0,), np.int32))
+    n_a = check("run A (empty bank)", out_a, stats_a, counts_a)
+    bank = np.concatenate([[int(ids[0, -1])], out_a.sequences[0, :n_a]]).astype(np.int32)
+    out_b, stats_b, counts_b = turn(bank)
+    n_b = check("run B (bank = run A's stream)", out_b, stats_b, counts_b)
+    same = int(np.cumprod(out_a.sequences[0, :n_a] == out_b.sequences[0, :n_a]).sum())
+    log(f"  run B repeats run A on {same} of {n_a} tokens")
+    if not stats_b["iters"] < n_b - 1:
+        raise AssertionError(f"run B took {stats_b['iters']} forwards for {n_b} tokens: the "
+                             "bank's drafts were not accepted")
+
+    # printed, not asserted: a random bf16 7B has near-tied logits, and a
+    # window's rows round elsewhere than single steps
+    seq = chat_turn(model, cfg, tokenizer, new_conversation(), question, video, frame_map,
+                    None, max_new_tokens=new_tokens, temperature=0.0, top_p=0.9,
+                    kv_quant=kv_quant)
+    prefix = int(np.cumprod(out_a.sequences[0, :n_a] == seq.sequences[0, :n_a]).sum())
+    log(f"  run A equals sequential greedy decode on the first {prefix} of {n_a} tokens")
+
+    with torch.inference_mode():
+        d_win, d_plain = _window_vs_steps(model, cfg, ids, torch.as_tensor(video, device=dev),
+                                          frame_map, out_a.sequences[0, :k + 1], kv_quant)
+    log(f"  one T={k + 1} window against the same positions decoded one at a time, largest "
+        f"relative L2 over the rows: {d_win:.3e}; the plain path's single steps against the "
+        f"kernels': {d_plain:.3e} (limit {BF16_VS_PLAIN} x that, at least {FP32_REL_L2:.0e})")
+    if not (np.isfinite(d_win) and d_win <= max(BF16_VS_PLAIN * d_plain, FP32_REL_L2)):
+        raise AssertionError("a verify window's rows lie further from single-step rows than "
+                             "the plain path does")
+
+    out_s, stats_s, _ = turn(None, temperature=0.5, gate=1.2)
+    log(f"  sampled run (temperature 0.5, top-p 0.9, template bank, gate 1.2 tok/fwd): "
+        f"{int(out_s.num_tokens[0])} tokens in {stats_s['iters']} forwards, gated "
+        f"{stats_s['gated']}, accept_hist {stats_s['accept_hist']}, {stats_s['wall_s']:.2f} s")
+    return counts_a
+
+
 def model_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -1072,8 +1474,14 @@ def main() -> int:
                                                      "vit_attention")})
     log("phase 7a: compaction at 7B, bf16 cache, kernels")
     phase_compaction(model, cfg)
-    log("phase 4: bf16 kernel path against plain path at 7B")
-    h_dense, tok_dense = phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map)
+    log("phase 9a: a long prompt at 7B, bf16")
+    long_text, counts = phase_long_prompt(model, cfg, tokenizer, video, frame_map)
+    launches["flash_attention"] = counts["flash_attention"]
+    log("phase 10a: speculative chat at 7B, bf16")
+    phase_spec(model, cfg, tokenizer, video, frame_map)
+    log("phase 4: bf16 kernel path against plain path at 7B, chat and long prompt")
+    h_dense, tok_dense, launches["decode_attention"] = phase_kernel_vs_plain(
+        model, cfg, tokenizer, video, frame_map, long_text=long_text)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1099,9 +1507,14 @@ def main() -> int:
     log("phase 8: EK100 evaluation at 7B, int4 weights + int8 cache")
     stats = phase_eval(model, cfg, tokenizer)
     launches["gather_cache_blocks"] = stats["launches"]["gather_cache_blocks"]
-    log("phase 6: int4 + kv8 kernel path against plain path at 7B")
+    log("phase 9b: a long prompt at 7B, int4 weights + int8 cache")
+    _, counts = phase_long_prompt(model, cfg, tokenizer, video, frame_map, kv_quant="int8")
+    launches["flash_attention"] += counts["flash_attention"]
+    log("phase 10b: speculative chat at 7B, int4 weights + int8 cache")
+    phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant="int8")
+    log("phase 6: int4 + kv8 kernel path against plain path at 7B, chat and long prompt")
     phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=tok_dense,
-                                h_dense=h_dense)
+                                h_dense=h_dense, long_text=long_text)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -5,7 +5,19 @@
 // decode_attention_stacked: kernel B1) and the int8 cache with per-(token,
 // kv head) f32 scales (quant=True, reached through
 // decode_attention_stacked_q: kernel B6). One kernel body, templated on the
-// cache's element type, serves both entry points.
+// cache's element type, serves both entry points, and a third: kernel B12,
+// which replaces handsonvlm_tpu/ops/decode_attention.py::_decode_kernel
+// (reached through decode_attention): one query row per head over one
+// layer's (B, S, K, D) cache with a scalar `length` and a (B, S) key mask,
+// no per-row block table. There the body sweeps every 32-key tile below
+// `length` in order (table == nullptr: the listed tiles are 0, 1, 2, ...),
+// skips a tile with no valid key after reading its 32 mask bytes, zeroes
+// masked probabilities (a fully masked tile adds nothing, as the Pallas
+// kernel's explicit zeroing) and cuts the key range into splits merged in
+// f32, so that one query over 4k keys still fills the card. B12's bound
+// is B1's: the bytes of the keys and values below `length` (2 * length *
+// K * D * sizeof(element); 4096 keys at K = 32, D = 128 in bf16: 67 MB,
+// 20 us at 3.35 TB/s).
 // It computes the same thing, not the same blocks: a query window of T <= 8
 // rows (T = 1 for plain decode, T > 1 for a speculative verify window)
 // attends over positions [0, length) of one layer of the (L, B, S, K, D)
@@ -132,6 +144,7 @@ __global__ void __launch_bounds__(kThreads)
                        const uint8_t* __restrict__ mask,  // (B, S) or nullptr
                        const int* __restrict__ table,   // (B, nk) listed blocks
                        const int* __restrict__ counts,  // (B,)
+                       int dense_count,  // table == nullptr: blocks 0..dense_count-1
                        float* __restrict__ part_acc,  // (B, K, max_splits, R, D)
                        float* __restrict__ part_ml,   // (B, K, max_splits, 2, R)
                        int tw, int H, int K, int D, int S, int length, int nk,
@@ -142,7 +155,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int tiles_per_block = block_k / kTile;
-  const SplitPlan plan = split_plan(counts[b], tiles_per_block, gridDim.z);
+  const int count = table ? counts[b] : dense_count;
+  const SplitPlan plan = split_plan(count, tiles_per_block, gridDim.z);
   if (split >= plan.n_split) return;  // uniform over the block
   const int G = H / K;
   const int R = G * tw;
@@ -175,14 +189,15 @@ __global__ void __launch_bounds__(kThreads)
   const float* ksrow = kQuant ? ks + ((size_t)b * K + kh) * S : nullptr;
   const float* vsrow = kQuant ? vs + ((size_t)b * K + kh) * S : nullptr;
   const uint8_t* mrow = mask ? mask + (size_t)b * S : nullptr;
-  const int* trow = table + (size_t)b * nk;
+  const int* trow = table ? table + (size_t)b * nk : nullptr;
   // this split's listed tiles of row b, and the end of the valid positions
   const int c0 = split * plan.split_tiles;
-  const int c1 = min(counts[b] * tiles_per_block, c0 + plan.split_tiles);
+  const int c1 = min(count * tiles_per_block, c0 + plan.split_tiles);
   const int end = min(length, S);
 
   for (int c = c0; c < c1; ++c) {
-    const int t0 = trow[c / tiles_per_block] * block_k + (c % tiles_per_block) * kTile;
+    const int blk = trow ? trow[c / tiles_per_block] : c / tiles_per_block;
+    const int t0 = blk * block_k + (c % tiles_per_block) * kTile;
     bool any = false;
     if (tid < kTile) {
       const int p = t0 + tid;
@@ -276,7 +291,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_merge_kernel(const float* __restrict__ part_acc,
                              const float* __restrict__ part_ml,
-                             const int* __restrict__ counts,
+                             const int* __restrict__ counts,  // or nullptr:
+                             int dense_count,                 // every row's count
                              T* __restrict__ out,  // (B, tw, H, D)
                              int max_splits, int tiles_per_block, int tw, int H,
                              int K, int D) {
@@ -284,7 +300,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int G = H / K;
   const int R = G * tw;
-  const int n_split = split_plan(counts[b], tiles_per_block, max_splits).n_split;
+  const int n_split =
+      split_plan(counts ? counts[b] : dense_count, tiles_per_block, max_splits).n_split;
   const size_t first = ((size_t)b * K + kh) * max_splits;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D, g = r / tw, tq = r % tw;
@@ -305,9 +322,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename C>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks,
                    const void* vs, const void* mask, const void* table,
-                   const void* counts, void* out, void* part_acc, void* part_ml, int B,
-                   int tw, int H, int K, int D, int S, int length, int nk, int block_k,
-                   int max_splits, float scale, cudaStream_t stream) {
+                   const void* counts, int dense_count, void* out, void* part_acc,
+                   void* part_ml, int B, int tw, int H, int K, int D, int S, int length,
+                   int nk, int block_k, int max_splits, float scale, cudaStream_t stream) {
   const int rows = (H / K) * tw;
   const size_t bytes = smem_bytes(rows, D);
   if (bytes > 48 * 1024) {
@@ -320,14 +337,14 @@ cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks
       static_cast<const T*>(q), static_cast<const C*>(ck),
       static_cast<const C*>(cv), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const uint8_t*>(mask),
-      static_cast<const int*>(table), static_cast<const int*>(counts),
+      static_cast<const int*>(table), static_cast<const int*>(counts), dense_count,
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), tw, H, K, D, S,
       length, nk, block_k, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attn_merge_kernel<T><<<dim3(K, B), kThreads, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(counts), static_cast<T*>(out), max_splits,
+      static_cast<const int*>(counts), dense_count, static_cast<T*>(out), max_splits,
       block_k / kTile, tw, H, K, D);
   return cudaGetLastError();
 }
@@ -360,12 +377,12 @@ extern "C" int hv_decode_attention_stacked(
   if (bad_args(nk, block_k, max_splits, S)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        q, ck_layer, cv_layer, nullptr, nullptr, mask, table, counts, out, part_acc,
+        q, ck_layer, cv_layer, nullptr, nullptr, mask, table, counts, 0, out, part_acc,
         part_ml, B, tw, H, K, D, S, length, nk, block_k, max_splits, scale, st);
   return (int)launch<float, float>(q, ck_layer, cv_layer, nullptr, nullptr, mask,
-                                   table, counts, out, part_acc, part_ml, B, tw, H,
-                                   K, D, S, length, nk, block_k, max_splits, scale,
-                                   st);
+                                   table, counts, 0, out, part_acc, part_ml, B, tw,
+                                   H, K, D, S, length, nk, block_k, max_splits,
+                                   scale, st);
 }
 
 // The same over an int8 cache: ck_layer, cv_layer (B, S, K, D) int8 and
@@ -381,12 +398,36 @@ extern "C" int hv_decode_attention_stacked_q(
   if (bad_args(nk, block_k, max_splits, S)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch<__nv_bfloat16, int8_t>(
-        q, ck_layer, cv_layer, ks_layer, vs_layer, mask, table, counts, out, part_acc,
+        q, ck_layer, cv_layer, ks_layer, vs_layer, mask, table, counts, 0, out, part_acc,
         part_ml, B, tw, H, K, D, S, length, nk, block_k, max_splits, scale, st);
   return (int)launch<float, int8_t>(q, ck_layer, cv_layer, ks_layer, vs_layer, mask,
-                                    table, counts, out, part_acc, part_ml, B, tw, H,
-                                    K, D, S, length, nk, block_k, max_splits, scale,
-                                    st);
+                                    table, counts, 0, out, part_acc, part_ml, B, tw,
+                                    H, K, D, S, length, nk, block_k, max_splits,
+                                    scale, st);
+}
+
+// Kernel B12: q and out (B, H, D), k and v (B, S, K, D) one layer's cache, all
+// contiguous and of one dtype (bf16 or f32); mask (B, S) bytes or null; the
+// keys below `length` (1..S) are attended. part_acc (B, K, max_splits, R, D)
+// and part_ml (B, K, max_splits, 2, R) are fp32 scratch, R = H / K. Returns
+// cudaGetLastError().
+extern "C" int hv_decode_attention(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, void* part_acc,
+                                   void* part_ml, int is_bf16, int B, int H, int K, int D,
+                                   int S, int length, int max_splits, float scale,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (max_splits <= 0 || length < 1 || length > S) return (int)cudaErrorInvalidValue;
+  // the listed tiles are all those below `length`, 32 keys each
+  const int tiles = (length + kTile - 1) / kTile;
+  const int nk = (S + kTile - 1) / kTile;
+  if (is_bf16)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, mask, nullptr, nullptr, tiles, out, part_acc, part_ml,
+        B, 1, H, K, D, S, length, nk, kTile, max_splits, scale, st);
+  return (int)launch<float, float>(q, k, v, nullptr, nullptr, mask, nullptr, nullptr,
+                                   tiles, out, part_acc, part_ml, B, 1, H, K, D, S,
+                                   length, nk, kTile, max_splits, scale, st);
 }
 
 extern "C" const char* hv_error_string(int err) {

@@ -19,9 +19,11 @@
 // MB of weights and scales (3.44 GB per step, 1.03 ms at 3.35 TB/s); x and
 // y are a few KB. One block per BN tile would give only 8-43 blocks for
 // 132 SMs, so the grid is (tile, split of the G groups, row): the caller
-// picks the splits so that the grid covers every SM about twice. Each
-// thread owns 16 columns and reads them with one 16-byte load per tile
-// row (a warp reads 512 contiguous bytes), so the stream is coalesced.
+// picks the splits so that one row's blocks cover every SM about twice,
+// whatever the row count, so that a row's sum is cut the same way alone
+// and inside a window. Each thread owns 16 columns and reads them with one
+// 16-byte load per tile row (a warp reads 512 contiguous bytes), so the
+// stream is coalesced.
 // Nibbles become floats by a byte permute into the mantissa of 2^23 and
 // one subtraction (no int-to-float conversions, which run at a quarter of
 // the FMA rate). Each split writes its f32 partial sums; a second kernel

@@ -8,7 +8,10 @@ conversation dataset (items with "prompt", "image" (T, 3, H, W) frames,
 reference's name swap (eval/traj_metrics).
 
 Two modes:
-- serial: the cached sampler (`generate_host`) once per (clip, sample);
+- serial: the cached sampler (`generate_host`) once per (clip, sample), or
+  with `spec_k` > 0 the speculative sampler (`generate_spec`) with the
+  answer-template bank as its draft source (exact in distribution, so the
+  metrics keep their sampling semantics);
 - `batched=SLOTS`: every decode goes through the continuous-batching
   scheduler (serve/scheduler.py), SLOTS requests sharing one decode batch.
   Each request's draws and rotary positions do not depend on the batch;
@@ -32,6 +35,7 @@ from handsonvlm_torch.data.conversation import conv_templates
 from handsonvlm_torch.data.tokenization import tokenizer_image_token
 from handsonvlm_torch.eval.traj_metrics import evaluate_traj_stochastic
 from handsonvlm_torch.infer.sampler import clip_pred_hands, generate_host
+from handsonvlm_torch.infer.speculative import build_template_bank, generate_spec
 
 
 @dataclasses.dataclass
@@ -46,13 +50,8 @@ class InferenceEngine:
     top_p: float = 0.9
     max_new_tokens: int = 100
     pad_prompt_multiple: int = 32  # bucket prompt lengths
-    spec_k: int = 0  # speculative decode: not ported
+    spec_k: int = 0  # > 0: B = 1 requests decode speculatively, K-token drafts
     kv_quant: Optional[str] = None  # "int8": decode over the int8 cache
-
-    def __post_init__(self):
-        if self.spec_k > 0:
-            raise NotImplementedError(
-                "spec_k > 0: speculative decode is not ported (ROADMAP A7)")
 
     @property
     def device(self):
@@ -148,15 +147,34 @@ class InferenceEngine:
         rows = [self.build_prompt_ids(q, h)[0] for q, h in zip(questions, histories)]
         ids, attn = self._pad_to_bucket(rows)
         images, frame_map = self.dedup_frames(np.asarray(images))
-        out = generate_host(
-            self.model if model is None else model, self.cfg, ids,
-            torch.as_tensor(images, device=self.device, dtype=self.dtype), generator,
-            max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-            attn_mask=attn, frame_map=frame_map, kv_quant=self.kv_quant)
+        images = torch.as_tensor(images, device=self.device, dtype=self.dtype)
+        model = self.model if model is None else model
+        if self.spec_k > 0 and len(rows) == 1:
+            out = self._infer_spec(model, ids, attn, images, frame_map, generator,
+                                   temperature=temperature, top_p=top_p,
+                                   max_new_tokens=max_new_tokens)
+        else:
+            out = generate_host(
+                model, self.cfg, ids, images, generator, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_p=top_p, attn_mask=attn, frame_map=frame_map,
+                kv_quant=self.kv_quant)
         pred, valid = clip_pred_hands(out.pred_hands, out.num_hands)
         gen_ids = [np.asarray(out.sequences[i, : int(out.num_tokens[i])])
                    for i in range(len(rows))]
         return pred, valid, gen_ids
+
+    def _infer_spec(self, model, ids, attn, images, frame_map, generator, *, temperature,
+                    top_p, max_new_tokens):
+        """The B = 1 latency path: speculative decode with the template
+        bank, tokenized once per engine."""
+        if not hasattr(self, "_spec_bank"):
+            self._spec_bank = build_template_bank(self.tokenizer, self.cfg)
+        out, stats = generate_spec(
+            model, self.cfg, ids, images, generator, max_new_tokens=max_new_tokens,
+            k=self.spec_k, temperature=temperature, top_p=top_p, attn_mask=attn,
+            frame_map=frame_map, bank_ids=self._spec_bank, kv_quant=self.kv_quant)
+        self.spec_stats = stats  # the last request's, for callers that report yield
+        return out
 
     def scheduler(self, slots: int, max_len: int, chunk: int):
         """The continuous-batching scheduler of this engine for (slots,

@@ -5,10 +5,12 @@ the model emits <hand_traj> tokens, then render the predicted trajectory.
 
 Usage:
   python -m handsonvlm_torch.infer.chat --model-path random:7b --preset 7b \
-      --path frame.jpg --device cuda [--int4] [--kv-int8]
+      --path frame.jpg --device cuda [--int4] [--kv-int8] [--spec K]
 
 `--int4` runs the decoder with int4 weights and an int8 head; `--kv-int8`
-decodes over the int8 cache.
+decodes over the int8 cache; `--spec K` decodes speculatively with K-token
+n-gram drafts from the answer-template bank (infer/speculative.py), alone
+or with the two quantized modes.
 """
 
 from __future__ import annotations
@@ -24,12 +26,12 @@ from handsonvlm_torch.data.tokenization import tokenizer_image_token
 from handsonvlm_torch.data.video_io import load_image, load_video
 from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.infer.sampler import SampleOutput, clip_pred_hands, generate_host
+from handsonvlm_torch.infer.speculative import build_template_bank, generate_spec
 from handsonvlm_torch.infer.viz import create_trajectory_video
 
 # flags the JAX CLI has whose modes the port does not have yet
 _NOT_PORTED = {
     "int8": "ROADMAP A6 (int8 weight-only decoder, kernel B9)",
-    "spec": "ROADMAP A7 (speculative decode)",
 }
 
 
@@ -78,16 +80,31 @@ def prompt_ids(conv, tokenizer, user_input: str) -> np.ndarray:
 
 def chat_turn(model, cfg, tokenizer, conv, user_input: str, video, frame_map,
               generator, *, max_new_tokens: int, temperature: float, top_p: float,
-              on_token=None, kv_quant=None) -> SampleOutput:
-    """One user turn: append it, generate the reply and record it in `conv`."""
+              on_token=None, kv_quant=None, spec_k: int = 0, bank_ids=None,
+              gate_tok_per_fwd: float = 1.2, spec_stats=None) -> SampleOutput:
+    """One user turn: append it, generate the reply and record it in `conv`.
+
+    `spec_k` > 0 decodes speculatively with `spec_k`-token drafts; the
+    draft bank is `bank_ids`, or when None the answer templates filled with
+    this turn's text. `spec_stats`, a dict, receives that run's stats."""
     ids = prompt_ids(conv, tokenizer, user_input)
-    # stop on the conv separator like the reference cli's KeywordsStoppingCriteria
-    stop_str = conv.sep2 if conv.sep2 else conv.sep
-    out = generate_host(
-        model, cfg, ids, video, generator, max_new_tokens=max_new_tokens,
-        temperature=temperature, top_p=top_p, frame_map=frame_map,
-        on_token=on_token, stop_strs=[stop_str] if stop_str else None,
-        tokenizer=tokenizer, kv_quant=kv_quant)
+    if spec_k > 0:
+        if bank_ids is None:
+            bank_ids = build_template_bank(tokenizer, cfg, (user_input,))
+        out, stats = generate_spec(
+            model, cfg, ids, video, generator, max_new_tokens=max_new_tokens, k=spec_k,
+            temperature=temperature, top_p=top_p, frame_map=frame_map, bank_ids=bank_ids,
+            on_token=on_token, kv_quant=kv_quant, gate_tok_per_fwd=gate_tok_per_fwd)
+        if spec_stats is not None:
+            spec_stats.update(stats)
+    else:
+        # stop on the conv separator like the reference cli's KeywordsStoppingCriteria
+        stop_str = conv.sep2 if conv.sep2 else conv.sep
+        out = generate_host(
+            model, cfg, ids, video, generator, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_p=top_p, frame_map=frame_map,
+            on_token=on_token, stop_strs=[stop_str] if stop_str else None,
+            tokenizer=tokenizer, kv_quant=kv_quant)
     n = int(out.num_tokens[0])
     conv.messages[-1][1] = tokenizer.decode(out.sequences[0, :n])
     return out
@@ -133,10 +150,15 @@ def main():
         def stream(tok_id):
             print(tokenizer.decode([tok_id]), end=" ", flush=True)
 
+        stats = {}
         out = chat_turn(model, cfg, tokenizer, conv, user_input, video, frame_map,
                         generator, max_new_tokens=args.max_new_tokens,
-                        temperature=args.temperature, top_p=args.top_p, on_token=stream,
-                        kv_quant=kv_quant)
+                        temperature=args.temperature, top_p=args.top_p,
+                        on_token=None if args.spec else stream, kv_quant=kv_quant,
+                        spec_k=args.spec, spec_stats=stats)
+        if args.spec:  # the speculative reply is printed whole, with its yield
+            print(conv.messages[-1][1], f"  [{stats['tokens']} tok / {stats['iters']} fwd]",
+                  end="")
         print()
         pred, valid = clip_pred_hands(out.pred_hands, out.num_hands)
         if valid[0]:

@@ -2,7 +2,7 @@
 window of decode steps, after a warm-up turn.
 
     python -m handsonvlm_torch.infer.profile [--quantize int4] [--kv-int8] \
-        [--preset 7b] [--device cuda] [--steps 16]
+        [--preset 7b] [--device cuda] [--steps 16] [--spec K] [--prompt-rows N]
 
 For each part it prints the host (wall) ms of a run without the profiler,
 the device ms of a traced run (the sum of the kernels' own device time, so
@@ -10,8 +10,14 @@ no work is counted twice as an op and as its kernel), the device's busy
 share (device over the untraced wall), the launches, and the kernels that
 take the most device time; then one JSON line with the same numbers.
 Random weights from the builder's seed, 10 distinct frames tiled into the
-clip, the chat CLI's prompt. `--device cpu` runs the same control flow on
-the CPU (no device numbers) to rehearse it.
+clip, the chat CLI's prompt. `--prompt-rows N` profiles a prompt of N rows
+after the splice instead (random token ids around the image sentinel), so a
+prefill of 2048 rows or more, which goes through the flash kernel, can be
+traced. `--spec K` adds a third part: speculative verify forwards of K + 1
+positions (every draft rejected, one token kept per forward, the cache
+index set back each time), beside the one-token decode step they replace.
+`--device cpu` runs the same control flow on the CPU (no device numbers)
+to rehearse it.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from torch.profiler import ProfilerActivity, profile
 from handsonvlm_torch.infer import sampler
 from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.infer.chat import frame_map_for, new_conversation, prompt_ids
+from handsonvlm_torch.infer.speculative import spec_verify
+from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
+from handsonvlm_torch.models.llama import apply_llama, lm_logits
 
 TOP = 8  # kernels listed per part
 
@@ -79,6 +88,10 @@ def main() -> None:
     ap.add_argument("--quantize", choices=["int4"], default=None)
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--steps", type=int, default=16, help="decode steps traced")
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="also trace verify forwards of K + 1 positions")
+    ap.add_argument("--prompt-rows", type=int, default=0, metavar="N",
+                    help="rows of the prompt after the splice (0: the chat prompt)")
     args = ap.parse_args()
     device = torch.device(args.device)
     kv_quant = "int8" if args.kv_int8 else None
@@ -87,9 +100,18 @@ def main() -> None:
                                                   device, quantize=args.quantize)
     video, frame_map = random_video(cfg)
     images = torch.as_tensor(video, device=device)
-    ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer,
-                                     "What is the person doing in this video?"), device=device)
-    max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + 2 * args.steps + 4
+    if args.prompt_rows:
+        n_text = args.prompt_rows - cfg.num_visual_tokens + 1
+        if n_text < 2:
+            raise ValueError(f"--prompt-rows must be at least {cfg.num_visual_tokens + 1}")
+        ids_np = np.random.default_rng(0).integers(3, 1000, size=(1, n_text))
+        ids_np[0, 1] = cfg.image_token_index
+        ids = torch.as_tensor(ids_np, device=device)
+    else:
+        ids = torch.as_tensor(prompt_ids(new_conversation(), tokenizer,
+                                         "What is the person doing in this video?"),
+                              device=device)
+    max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + 2 * args.steps + 4 + args.spec
     gen = torch.Generator(device=device).manual_seed(0)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if device.type == "cuda" else [])
@@ -113,24 +135,56 @@ def main() -> None:
                     top_p=0.9)
         return steps_fn
 
+    def run_verify(steps):
+        """As run_decode, for verify forwards of --spec + 1 positions whose
+        drafts are all rejected: what generate_spec runs per forward."""
+        _, cache, mask = run_prefill()
+        token = torch.zeros((1,), dtype=torch.long, device=device)
+        waypoint = torch.zeros((1, 2, 2), device=device)
+        draft = torch.zeros((args.spec,), dtype=torch.long, device=device)
+
+        def steps_fn():
+            nonlocal token, waypoint, cache
+            for _ in range(steps):
+                e0 = embed_next_token(model, cfg, token, waypoint)
+                embs = torch.cat([e0, model.llama.embed_tokens(draft)])[None]
+                index = cache.index
+                hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=embs,
+                                            attn_mask=mask, kv_cache=cache)
+                logits = lm_logits(model.llama, cfg.llama, hidden)[0]
+                emitted, _ = spec_verify(logits, draft, 0.5, 0.9, cfg.hand_token_id,
+                                         sampler.EOS_TOKEN_ID, generator=gen)
+                cache.index = index + 1
+                waypoint = decode_hand_waypoint(model, cfg, hidden[0, :1], generator=gen)
+                token = torch.as_tensor(emitted[:1], device=device).long()
+        return steps_fn
+
     with torch.inference_mode():
         run_decode(4)()  # warm-up: the first use of every kernel and library call
         prefill = _measure(run_prefill, device, activities, 1)
         # two windows of steps from one prefill: untraced, then traced
         decode = _measure(run_decode(args.steps), device, activities, args.steps)
+        verify = None
+        if args.spec:
+            run_verify(2)()
+            verify = _measure(run_verify(args.steps), device, activities, args.steps)
 
     on_card = device.type == "cuda"
     name = torch.cuda.get_device_name(0) if on_card else "cpu"
     print(f"{args.preset} quantize={args.quantize} kv_quant={kv_quant} on {name}, "
           f"prompt {ids.shape[1] + cfg.num_visual_tokens - 1} rows after the splice")
-    for part, s in (("prefill (CLIP + decoder)", prefill), ("decode step", decode)):
+    parts = [("prefill (CLIP + decoder)", prefill), ("decode step", decode)]
+    if verify is not None:
+        parts.append((f"verify forward (k={args.spec})", verify))
+    for part, s in parts:
         dev = (f"device {s['device_ms']:.3f} ms, busy {100 * s['busy']:.1f}%, "
                f"{s['launches']:.0f} launches" if on_card else "device not measured")
         print(f"{part}: wall {s['wall_ms']:.3f} ms, {dev}")
         for key, count, ms in s["top"]:
             print(f"    {ms:9.4f} ms  x{count:g}  {key}")
     print(json.dumps({"device": name, "preset": args.preset, "quantize": args.quantize,
-                      "kv_quant": kv_quant, "prefill": prefill, "decode_step": decode}))
+                      "kv_quant": kv_quant, "prefill": prefill, "decode_step": decode,
+                      "verify_forward": verify}))
 
 
 if __name__ == "__main__":

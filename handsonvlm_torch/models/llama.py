@@ -8,8 +8,15 @@ MLP, fp32 softmax, fp32 logits.
 
 Cached decode writes each step's k/v rows into the (L, B, S, K, D) cache in
 place (the JAX package returns a new cache) and attends through
-`ops.attention.attention`, which serves windows of T <= 8 with the decode
-kernel over a view of the layer (no copy).
+`ops.attention.attention`, which serves windows of T <= 8 with the stacked
+decode kernel over a view of the layer (no copy) and, on the card, a
+prefill of 2048 rows or more with the flash kernel over the same view
+(`q_offset` = the cache index). `attn_impl="decode"` sends a one-token step
+over a `KVCache` through the per-layer decode kernel instead (the JAX
+package reaches that kernel from its per-layer cache-scan modes, which a
+Python layer loop does not have); `attn_impl="flash"` asks for the flash
+kernel at any prefill length and leaves windows of T <= 8 on the plain
+route, as the JAX package's decoder layer does.
 
 The int4 mode (`quantize_llama_int4`, the JAX package's
 `quantize_llama_int4` tree) keeps the four fused projections of every
@@ -384,7 +391,7 @@ def _layer(
     elif isinstance(kv_cache, QuantKVCache):
         _write_quant_kv(kv_cache, layer_idx, kx, vx)
         idx, c = kv_cache.index, kv_cache
-        if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode"):
+        if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode", "stacked"):
             out = decode_attention_stacked_q(q, c.k, c.v, c.ks, c.vs, layer_idx, idx + t,
                                              key_mask=key_mask, blocks=blocks)
         else:
@@ -398,14 +405,16 @@ def _layer(
         idx = kv_cache.index
         kv_cache.k[layer_idx, :, idx:idx + t] = kx
         kv_cache.v[layer_idx, :, idx:idx + t] = vx
-        # "auto" serves windows of T <= MAX_T_WINDOW with the decode kernel
-        # over this layer's view of the cache; "xla" attends over the whole
-        # layer, as the JAX package does: keys past the written prefix are
-        # masked, and a fully masked (left-pad) query row then averages over
-        # all S_max keys there too
+        # "auto" serves windows of T <= MAX_T_WINDOW with the stacked decode
+        # kernel and long prefills with the flash kernel, both over this
+        # layer's view of the cache; "xla" attends over the whole layer, as
+        # the JAX package does: keys past the written prefix are masked, and
+        # a fully masked (left-pad) query row then averages over all S_max
+        # keys there (the flash kernel gives such a row 0; it is never read)
+        impl = "xla" if attn_impl == "flash" and t <= MAX_T_WINDOW else attn_impl
         out = attention(
             q, kv_cache.k[layer_idx], kv_cache.v[layer_idx], key_mask=key_mask,
-            causal=True, q_offset=idx, impl=attn_impl, decode_length=idx + t, blocks=blocks)
+            causal=True, q_offset=idx, impl=impl, decode_length=idx + t, blocks=blocks)
     out = out.reshape(b, t, h * hd)
     if int4 is not None:
         hidden = hidden + iproj(out, "wo")
@@ -471,8 +480,11 @@ def apply_llama(
         positions = (torch.arange(t, device=device) + start)[None].expand(b, t)
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
     # a decode window's compacted block list, built once for all layers
+    # (the per-layer decode kernel of attn_impl="decode" at t == 1 needs none)
     blocks = None
-    if kv_cache is not None and t <= MAX_T_WINDOW and attn_impl in ("auto", "decode"):
+    stacked = attn_impl in ("auto", "stacked") or (
+        attn_impl == "decode" and (t > 1 or isinstance(kv_cache, QuantKVCache)))
+    if kv_cache is not None and t <= MAX_T_WINDOW and stacked:
         blocks = block_list(key_mask, start + t, b, kv_cache.max_len, device)
 
     hidden = inputs_embeds

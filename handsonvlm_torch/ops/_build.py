@@ -41,6 +41,9 @@ SIGNATURES = {
         [_P] * 9 + [_I] * 11 + [_F, _P], _I),
     "hv_decode_attention_stacked_q": (
         [_P] * 11 + [_I] * 11 + [_F, _P], _I),
+    "hv_decode_attention": ([_P] * 7 + [_I] * 8 + [_F, _P], _I),
+    "hv_flash_attention_fwd": (
+        [_P] * 6 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
     "hv_gather_cache_blocks": ([_P, _P] + [_I] * 4 + [ctypes.c_int64] * 3 + [_I, _I, _P], _I),
     "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hv_int4_gemv": ([_P] * 5 + [_I] * 8 + [_P], _I),

@@ -7,18 +7,26 @@ return (B,T,H,D).
 - ``xla``    plain PyTorch transcription of the JAX `attention_xla`: fp32
              scores, NEG_INF bias, fp32 softmax, probabilities cast to
              q's dtype before the P.V product.
-- ``decode`` cached attention of a window of T <= MAX_T_WINDOW rows over
+- ``flash``  blockwise attention without the (T, S) score tensor
+             (ops/flash_attention, kernel B3), for prefill-sized queries;
+             k/v may be a view of a cache layer, read in place.
+- ``stacked`` cached attention of a window of T <= MAX_T_WINDOW rows over
              one layer of the decode cache (`decode_length` given), served
-             by the stacked decode kernel over a one-layer view.
+             by the stacked decode kernel (B1) over a one-layer view.
+- ``decode`` the JAX package's single-query `decode_attention` over one
+             layer's own (B, S, K, D) cache (kernel B12) for T == 1; a
+             window of 2..MAX_T_WINDOW rows, which that function does not
+             take, goes the ``stacked`` way.
 - ``vit``    non-causal unmasked CLIP attention (ops/vit_attention).
-- ``auto``   cached windows go to ``decode`` on every device, as the JAX
-             package's decoder layer routes them (the decode wrapper runs
-             its plain version on a CPU tensor). Otherwise the tensor's
-             device decides: on a CUDA tensor ``vit`` wherever
-             `vit_attention_ok` holds (no batch-size crossover), else
+- ``auto``   cached windows go to ``stacked`` on every device, as the JAX
+             package's decoder layer routes them to its stacked kernel
+             (the wrapper runs its plain version on a CPU tensor).
+             Otherwise the tensor's device decides: on a CUDA tensor
+             ``vit`` wherever `vit_attention_ok` holds (no batch-size
+             crossover), ``flash`` under the JAX package's rule
+             (T >= FLASH_MIN_T and a head size of 128 or 256), else
              ``xla``; on a CPU tensor ``xla``, as the JAX package does off
-             the TPU. Prefill at T >= 2048 stays ``xla`` until the flash
-             kernel is ported.
+             the TPU.
 """
 
 from __future__ import annotations
@@ -31,11 +39,14 @@ import torch
 from handsonvlm_torch.ops.decode_attention import (
     MAX_T_WINDOW,
     BlockList,
+    decode_attention,
     decode_attention_stacked,
 )
+from handsonvlm_torch.ops.flash_attention import flash_attention
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ok
 
 NEG_INF = -1e30
+FLASH_MIN_T = 2048  # query rows from which `auto` takes the flash kernel
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -97,19 +108,25 @@ def attention(
     """Attention entry point used by the models.
 
     `decode_length` (valid cache positions, = q_offset + T) marks k/v as one
-    layer of the decode cache and enables the decode kernel; `blocks` is
-    the forward's compacted block list for it (built here when None)."""
+    layer of the decode cache and enables the decode kernels; `blocks` is
+    the forward's compacted block list for the stacked one (built there
+    when None)."""
     if impl == "auto":
         impl = _best_impl(q, k, v, decode_length, key_mask=key_mask, causal=causal)
     if impl == "vit":
         return vit_attention(q, k, v)
-    if impl == "decode":
+    if impl in ("decode", "stacked"):
         if decode_length is None:
-            raise ValueError("impl='decode' needs decode_length")
+            raise ValueError(f"impl={impl!r} needs decode_length")
+        mask = None if key_mask is None else key_mask.bool().contiguous()
+        if impl == "decode" and q.shape[1] == 1:
+            return decode_attention(q, k, v, decode_length, key_mask=mask)
         # k, v (B,S,K,D) are one layer: a leading-axis view is the stacked layout
-        return decode_attention_stacked(
-            q, k[None], v[None], 0, decode_length,
-            key_mask=None if key_mask is None else key_mask.bool().contiguous(), blocks=blocks)
+        return decode_attention_stacked(q, k[None], v[None], 0, decode_length,
+                                        key_mask=mask, blocks=blocks)
+    if impl == "flash":
+        mask = None if key_mask is None else key_mask.bool().contiguous()
+        return flash_attention(q, k, v, key_mask=mask, causal=causal, q_offset=q_offset)[0]
     if impl == "xla":
         return attention_xla(q, k, v, key_mask=key_mask, causal=causal, q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")
@@ -117,7 +134,13 @@ def attention(
 
 def _best_impl(q, k, v, decode_length=None, *, key_mask=None, causal=True) -> str:
     if decode_length is not None and q.shape[1] <= MAX_T_WINDOW:
-        return "decode"
-    if q.is_cuda and vit_attention_ok(q, k, v, key_mask, causal):
+        return "stacked"
+    if not q.is_cuda:
+        return "xla"
+    if vit_attention_ok(q, k, v, key_mask, causal):
         return "vit"
+    # the flash kernel has no backward yet: its wrapper raises on an input
+    # that needs a gradient, and such a caller passes impl="xla" itself
+    if q.shape[1] >= FLASH_MIN_T and q.shape[3] in (128, 256):
+        return "flash"
     return "xla"

@@ -19,11 +19,17 @@ bit-equal across a compaction event: the kernel cuts its splits over the
 ordinal of the listed blocks, sized from the row's own count, and the
 plain versions reduce each row over its own gathered list.
 
-Both wrappers launch the hand-written Hopper kernel
-(`csrc/decode_attention.cu`, one body for both caches) for CUDA tensors and
-run their plain versions (`*_ref`) for CPU tensors. There is no fallback:
-on a CUDA tensor a wrapper launches the kernel or raises. Each wrapper's
-`LAUNCHES` counts its kernel launches.
+`decode_attention` (kernel B12, the JAX package's `decode_attention`) is
+the single-query form over one layer's own (B, S, K, D) cache: a scalar
+`length` and a key mask, no block list. Its kernel entry point sweeps
+every 32-key tile below `length`, skips the tiles with no valid key, and
+splits the key range over the card.
+
+The wrappers launch the hand-written Hopper kernel
+(`csrc/decode_attention.cu`, one templated body for the three entry
+points) for CUDA tensors and run their plain versions (`*_ref`) for CPU
+tensors. There is no fallback: on a CUDA tensor a wrapper launches the
+kernel or raises. Each wrapper's `LAUNCHES` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -311,5 +317,110 @@ def decode_attention_stacked_q(
     return out[:, 0] if squeeze else out
 
 
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, 1, H, D) or (B, H, D)
+    k: torch.Tensor,  # (B, S, K, D) one layer's cache
+    v: torch.Tensor,
+    length: int,
+    *,
+    key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel B12: fp32 scores of one query per
+    head over the keys with pos < length and key_mask, fp32 softmax with
+    masked probabilities zeroed, a row with no valid key gives 0."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    b, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kh, h // kh, d)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * float(1.0 / (d ** 0.5))
+    ok = (torch.arange(s, device=q.device) < int(length))[None, :]
+    if key_mask is not None:
+        ok = ok & key_mask.bool()
+    ok = ok[:, None, None, :]
+    sc = torch.where(ok, sc, NEG_INF)
+    p = torch.where(ok, torch.exp(sc - sc.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / torch.where(l == 0.0, 1.0, l)
+    out = o.reshape(b, h, d).to(q.dtype)
+    return out[:, None] if squeeze else out
+
+
+def _launch_single(q, k, v, length: int, key_mask):
+    """Launch B12: q (B, H, D) over one layer's k, v (B, S, K, D)."""
+    from handsonvlm_torch.ops._build import check, load_library
+
+    b, h, d = q.shape
+    kb, s, kh, kd = k.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"decode attention takes bf16 or f32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"cache dtypes k {k.dtype} v {v.dtype}, want {q.dtype}")
+    if v.shape != k.shape or kb != b or kd != d or h % kh:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not fit")
+    if not 1 <= length <= s:
+        raise ValueError(f"length {length} out of range for S={s}")
+    if d > 256:
+        raise ValueError(f"head size {d} > 256")
+    tensors = [q, k, v] + ([key_mask] if key_mask is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, the cache and key_mask must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, the cache and key_mask must be contiguous")
+    if key_mask is not None and (key_mask.dtype != torch.bool
+                                 or tuple(key_mask.shape) != (b, s)):
+        raise ValueError(f"key_mask must be bool (B, S)=({b}, {s})")
+    lib = load_library()
+    rows = h // kh
+    if lib.hv_decode_attention_smem_bytes(rows, d) > _SMEM_LIMIT:
+        raise ValueError(f"{rows} query heads per kv head at D={d} exceed one block's "
+                         "shared memory")
+    # splits per (kv head, row): enough blocks to cover every SM about twice
+    max_splits = max(1, -(-2 * _num_sms(q.device.index) // (kh * b)))
+    out = torch.empty_like(q)
+    part_acc = torch.empty((b, kh, max_splits, rows, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, kh, max_splits, 2, rows), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = lib.hv_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), int(q.dtype == torch.bfloat16), b, h,
+            kh, d, s, length, max_splits, float(1.0 / (d ** 0.5)),
+            torch.cuda.current_stream().cuda_stream)
+    check(status, "decode_attention")
+    decode_attention.LAUNCHES += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D) or (B, H, D)
+    k: torch.Tensor,  # (B, S, K, D) one layer's cache (a view of the stack)
+    v: torch.Tensor,
+    length: int,  # valid cache positions (cache index + 1)
+    *,
+    key_mask: Optional[torch.Tensor] = None,  # (B, S) bool
+) -> torch.Tensor:
+    """Single-position cached attention over one layer's cache; returns the
+    rank of q. Keys at or past `length` are never read.
+
+    CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        if q.shape[1] != 1:
+            raise ValueError(f"decode_attention takes one query position, got T={q.shape[1]}")
+        q = q[:, 0]
+    length = int(length)
+    if q.is_cuda:
+        out = _launch_single(q.contiguous(), k, v, length, key_mask)
+    elif q.device.type == "cpu":
+        out = decode_attention_ref(q, k, v, length, key_mask=key_mask)
+    else:
+        raise ValueError(f"no decode attention for device {q.device}")
+    return out[:, None] if squeeze else out
+
+
 decode_attention_stacked.LAUNCHES = 0
 decode_attention_stacked_q.LAUNCHES = 0
+decode_attention.LAUNCHES = 0

@@ -190,10 +190,13 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def gemv_split(nb: int, groups: int, m: int, n_sm: int) -> Tuple[int, int]:
+def gemv_split(nb: int, groups: int, n_sm: int) -> Tuple[int, int]:
     """(splits, groups per split) of the contraction: enough blocks of
-    (tile, split, row) to cover every SM about twice."""
-    want = min(groups, max(1, -(-2 * n_sm // (nb * m))))
+    (tile, split) to cover every SM about twice with one row. The row count
+    does not enter: a row reduces over the same splits in the same order
+    whether it comes alone or as row i of a verify window or a slot batch,
+    so greedy speculative decode sees the logits of sequential decode."""
+    want = min(groups, max(1, -(-2 * n_sm // nb)))
     per = -(-groups // want)
     return -(-groups // per), per
 
@@ -229,7 +232,7 @@ def _launch_gemv(x, w4t, gst, layer_idx):
     m, n = x2.shape[0], nb * bn
     if not 1 <= m < 65536:
         raise ValueError(f"int4 gemv takes 1..65535 rows, got {m}")
-    splits, per = gemv_split(nb, G, m, _num_sms(x.device.index))
+    splits, per = gemv_split(nb, G, _num_sms(x.device.index))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     lib = load_library()

@@ -114,9 +114,38 @@ def test_engine_prompt_bucketing(tiny):
     assert attn[:, -1].all()  # left padding: the last position is real
 
 
-def test_spec_k_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        _engine(tiny, spec_k=2)
+def test_spec_k_scores_b1_requests(tiny):
+    """spec_k > 0: every B = 1 request goes through the speculative sampler
+    with the engine's template bank (tokenized once), greedy clips give the
+    tokens of the sequential engine, and a batch of two stays sequential."""
+    data = StubDataset(tiny[1])
+    seq = evaluate_epic_kitchen_traj(_engine(tiny, max_new_tokens=6, temperature=0.0), data,
+                                     log_every=0)
+    engine = _engine(tiny, max_new_tokens=6, temperature=0.0, spec_k=2)
+    res = evaluate_epic_kitchen_traj(engine, data, log_every=0)
+    assert len(res["val_info"]) == len(data)
+    for i in range(len(data)):
+        np.testing.assert_array_equal(res["val_info"][i]["gen_ids"],
+                                      seq["val_info"][i]["gen_ids"])
+    bank = engine._spec_bank
+    assert bank.ndim == 1 and bank.size > 20 and engine.spec_stats["iters"] >= 1
+    gen = torch.Generator().manual_seed(0)
+    images = np.stack([data[0]["image"], data[1]["image"]])
+    del engine.spec_stats
+    pred, valid, ids = engine.infer_batch([data[0]["prompt"], data[1]["prompt"]], images, gen)
+    assert pred.shape == (2, 2, 4, 2) and len(ids) == 2
+    assert not hasattr(engine, "spec_stats") and engine._spec_bank is bank
+
+
+def test_spec_k_sampled_eval_runs(tiny):
+    """The sampled protocol (temperature 0.5, top-p 0.9) with spec_k and the
+    int8 cache scores every clip."""
+    data = StubDataset(tiny[1])
+    engine = _engine(tiny, max_new_tokens=6, spec_k=3, kv_quant="int8")
+    res = evaluate_epic_kitchen_traj(engine, data, seed=1, log_every=0)
+    assert len(res["val_info"]) == len(data)
+    assert all(1 <= v["num_tokens"] <= 6 for v in res["val_info"].values())
+    assert sum(engine.spec_stats["accept_hist"]) == engine.spec_stats["iters"]
 
 
 @pytest.mark.parametrize("num_samples", [1, 2])

@@ -20,11 +20,14 @@ import torch
 from handsonvlm_torch.models.llama import _quantize_kv_rows
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
 from handsonvlm_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
     decode_attention_stacked,
     decode_attention_stacked_q,
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
 )
+from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from handsonvlm_torch.ops.int8_matmul import (
     int4_gemv_tiled,
     int4_gemv_tiled_ref,
@@ -301,3 +304,149 @@ def test_decode_attention_kernel_bit_equal_across_compaction(cuda, quant):
     moved[0, 300 - bk:990 - bk] = mask[0, 300:990]
     got = attend(q, *cache, 0, 990 - bk, key_mask=torch.from_numpy(moved).to(cuda))
     assert torch.equal(got[0], out[0])
+
+
+# (B, T, S, H, K, D, causal, q_offset, mask): tiny shapes on the f32-FMA path
+# (D = 16) and the tensor-core path (bf16 at D = 64 / 128 / 256), ragged
+# lengths, GQA, a prefill at a cache index, and the 7B long-prompt shape
+FLASH_CASES = {
+    "tiny_d16_offset": (2, 37, 50, 4, 4, 16, True, 13, "left_pad"),
+    "gqa_d64": (2, 70, 70, 8, 2, 64, True, 0, None),
+    "noncausal_hole_d64": (1, 65, 130, 4, 4, 64, False, 0, "hole"),
+    "d128_at_index": (1, 300, 512, 4, 4, 128, True, 100, "left_pad"),
+    "d256_gqa": (1, 100, 100, 2, 1, 256, True, 0, None),
+    "7b_2304_over_2560": (1, 2304, 2560, 32, 32, 128, True, 0, "left_pad"),
+}
+
+
+def flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed):
+    """q (B, T, H, D), k/v (B, S, K, D) and a key mask (B, S): the keys a
+    prefill of T rows at cache index `q_offset` has written, less a left
+    pad ("left_pad") or an interior hole ("hole")."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, K, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, K, D)).astype(np.float32)
+    mask = None
+    if mask_kind is not None:
+        mask = np.zeros((B, S), bool)
+        mask[:, :min(S, q_offset + T)] = True
+        if mask_kind == "left_pad":
+            mask[:, :5] = False
+        else:
+            mask[:, 40:110] = False  # a whole 64-key tile and more
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(FLASH_CASES), ids=list(FLASH_CASES))
+def test_flash_attention_kernel(cuda, case, dtype):
+    """Output and logsumexp against the plain version. Rows with no valid
+    key (the left pad under causal masking) give 0 / NEG_INF in both."""
+    B, T, S, H, K, D, causal, q_offset, mask_kind = FLASH_CASES[case]
+    q, k, v, mask = flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed=len(case))
+    q = torch.from_numpy(q).to(cuda, dtype)
+    # k, v as views of one layer of a stacked cache: read in place
+    ck, cv = (torch.from_numpy(np.stack([x, x + 1.0])).to(cuda, dtype)[0] for x in (k, v))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = flash_attention.LAUNCHES
+    got, lse = flash_attention(q, ck, cv, key_mask=t_mask, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    want, want_lse = flash_attention_ref(q, ck, cv, key_mask=t_mask, causal=causal,
+                                         q_offset=q_offset)
+    assert got.shape == (B, T, H, D) and lse.shape == (B, H, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    # logsumexp is fp32 in both; bf16 inputs only round q and k
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """The first n positions of a cache layer, as a view, give what a
+    contiguous copy gives."""
+    q, k, v, _ = flash_inputs(2, 90, 200, 4, 4, 128, 0, None, seed=1)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v))
+    got, lse = flash_attention(q, k[:, :96], v[:, :96], q_offset=6)
+    want, want_lse = flash_attention(q, k[:, :96].contiguous(), v[:, :96].contiguous(),
+                                     q_offset=6)
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_grad(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        flash_attention(q, q, q)
+
+
+SINGLE_CASES = {name: c for name, c in DECODE_CASES.items() if c[6] == 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(SINGLE_CASES), ids=list(SINGLE_CASES))
+def test_decode_attention_single_kernel(cuda, case, dtype):
+    """Kernel B12 over one layer's own cache, the stacked kernel's cases."""
+    L, B, S, H, K, D, T, layer, length, mask_kind = SINGLE_CASES[case]
+    q, ck, cv, mask = decode_inputs(L, B, S, H, K, D, T, mask_kind, seed=len(case))
+    q, ck, cv = (torch.from_numpy(x).to(cuda, dtype) for x in (q, ck, cv))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = decode_attention.LAUNCHES
+    got = decode_attention(q, ck[layer], cv[layer], length, key_mask=t_mask)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES == before + 1 and got.shape == q.shape
+    want = decode_attention_ref(q, ck[layer], cv[layer], length, key_mask=t_mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    if mask_kind == "dead_row":
+        assert not bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 33, 450, 2304, 4096])
+def test_decode_attention_single_kernel_7b(cuda, length, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(length)
+    q = torch.randn((1, 32, 128), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((1, 4608, 32, 128), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    got = decode_attention(q, k, v, length)
+    want = decode_attention_ref(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["7b_wqkv", "7b_wo", "7b_w_down", "tiny_wqkv"])
+def test_int4_gemv_kernel_row_is_the_same_alone_and_in_a_window(cuda, shape, dtype):
+    """Row i of a 5-row call is bit-equal to that row alone: the splits of
+    the contraction do not depend on the row count, so a verify window's
+    rows see what sequential decode steps see."""
+    w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((5, INT4_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+    window = int4_gemv_tiled(x, w4t, gst, 1)
+    for i in range(5):
+        assert torch.equal(int4_gemv_tiled(x[i:i + 1], w4t, gst, 1)[0], window[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["kv", "kv8"])
+def test_decode_attention_kernel_row_is_the_same_alone_and_in_a_window(cuda, quant):
+    """Row tq of a T = 5 window at cache length n is bit-equal to a single
+    query at length n - 4 + tq (what a sequential step at that position
+    attends), when both list the same blocks."""
+    L, B, S, H, K, D, T, n = 2, 1, 1024, 8, 2, 64, 5, 700
+    q, ck, cv, _ = decode_inputs(L, B, S, H, K, D, T, None, seed=11)
+    q = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    if quant:
+        cache = [x.to(cuda) for x in quantize_cache(torch.from_numpy(ck), torch.from_numpy(cv))]
+        attend = decode_attention_stacked_q
+    else:
+        cache = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (ck, cv)]
+        attend = decode_attention_stacked
+    window = attend(q, *cache, 1, n)
+    for tq in range(T):
+        alone = attend(q[:, tq:tq + 1], *cache, 1, n - (T - 1) + tq)
+        assert torch.equal(alone[:, 0], window[:, tq])

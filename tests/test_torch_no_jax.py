@@ -21,6 +21,7 @@ MODULES = [
     "handsonvlm_torch.ops.attention",
     "handsonvlm_torch.ops.cache_ops",
     "handsonvlm_torch.ops.decode_attention",
+    "handsonvlm_torch.ops.flash_attention",
     "handsonvlm_torch.ops.int8_matmul",
     "handsonvlm_torch.ops.vit_attention",
     "handsonvlm_torch.models.llama",
@@ -28,6 +29,7 @@ MODULES = [
     "handsonvlm_torch.convert.from_hf",
     "handsonvlm_torch.infer.builder",
     "handsonvlm_torch.infer.sampler",
+    "handsonvlm_torch.infer.speculative",
     "handsonvlm_torch.infer.chat",
     "handsonvlm_torch.infer.profile",
     "handsonvlm_torch.infer.viz",
@@ -73,7 +75,7 @@ def test_chip_smoke_phases_run_without_jax():
             "assert int(out.num_tokens[0]) >= 1\n"
             "ids = cs.prompt_ids(conv, tok, 'Predict the future trajectory of the hands.')\n"
             "assert int((ids == cfg.image_token_index).sum()) == 1, ids\n"
-            "h, toks = cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
+            "h, toks, _ = cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
             "print('phase 4 ran', toks)\n" + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
@@ -131,18 +133,53 @@ def test_chip_smoke_serving_phases_run_without_jax():
     assert "phases 7-8 ran" in proc.stdout
 
 
+def test_chip_smoke_long_prompt_and_spec_phases_run_without_jax():
+    """chip_smoke's long-prompt phase, its speculative phase (run A, run B
+    with run A's stream as the bank, the cache-index trace, a verify window
+    against single steps, the sampled run with the gate on) and the
+    kernel-vs-plain phases at the long prompt (with the steps under
+    attn_impl="decode") run at the tiny preset on the CPU, dense bf16 and
+    int4 + int8 cache, and load neither jax nor the JAX package."""
+    code = ("import torch\n"
+            "import chip_smoke as cs\n"
+            "for quantize, kvq in ((None, None), ('int4', 'int8')):\n"
+            "    model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                               quantize=quantize)\n"
+            "    for p in model.parameters():\n"
+            "        p.data = p.data.to(torch.bfloat16)\n"
+            "    video, frame_map = cs.random_video(cfg)\n"
+            "    text, counts = cs.phase_long_prompt(model, cfg, tok, video, frame_map,\n"
+            "                                        kv_quant=kvq, rows=120, new_tokens=4)\n"
+            "    assert not any(counts.values()), counts  # no kernel on the CPU\n"
+            "    cs.phase_spec(model, cfg, tok, video, frame_map, kv_quant=kvq, new_tokens=8)\n"
+            "    if quantize:\n"
+            "        cs.phase_quant_kernel_vs_plain(model, cfg, tok, video, frame_map,\n"
+            "                                       long_text=text)\n"
+            "    else:\n"
+            "        h, toks, b12 = cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map,\n"
+            "                                                long_text=text)\n"
+            "        assert b12 == 0  # the count read in the run: no kernel on the CPU\n"
+            "print('phases 9-10 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phases 9-10 ran" in proc.stdout and "run B (bank" in proc.stdout
+
+
 def test_profile_cli_rehearses_on_cpu():
     """The profiler's CLI runs its control flow at the tiny preset on the
     CPU, reports no device numbers there, and loads no jax."""
     code = ("import json, sys, runpy, io, contextlib\n"
             "sys.argv = ['profile', '--preset', 'tiny', '--device', 'cpu', '--quantize',\n"
-            "            'int4', '--kv-int8', '--steps', '2']\n"
+            "            'int4', '--kv-int8', '--steps', '2', '--spec', '3',\n"
+            "            '--prompt-rows', '70']\n"
             "out = io.StringIO()\n"
             "with contextlib.redirect_stdout(out):\n"
             "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
             "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
             "assert res['decode_step']['device_ms'] is None, res\n"
-            "assert res['prefill']['wall_ms'] > 0, res\n" + FORBIDDEN)
+            "assert res['prefill']['wall_ms'] > 0, res\n"
+            "assert res['verify_forward']['wall_ms'] > 0, res\n" + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

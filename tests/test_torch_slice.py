@@ -173,6 +173,7 @@ def _run_chat_cli(tmp_path, *flags):
         env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "ASSISTANT:" in proc.stdout and "exit..." in proc.stdout
+    return proc.stdout
 
 
 def test_chat_cli_end_to_end(tmp_path):
@@ -183,9 +184,16 @@ def test_chat_cli_int4_kv8_end_to_end(tmp_path):
     _run_chat_cli(tmp_path, "--int4", "--kv-int8")
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--spec=2"])
+@pytest.mark.parametrize("flags", [("--spec", "2"), ("--spec", "3", "--int4", "--kv-int8")],
+                         ids=["spec", "spec_int4_kv8"])
+def test_chat_cli_spec_end_to_end(tmp_path, flags):
+    out = _run_chat_cli(tmp_path, *flags)
+    assert " tok / " in out and " fwd]" in out  # the speculative reply's yield
+
+
+@pytest.mark.parametrize("flag", ["--int8"])
 def test_chat_flags_not_ported_raise(monkeypatch, flag):
     monkeypatch.setattr(sys, "argv", ["chat", "--model-path", "random:tiny", "--preset",
                                       "tiny", "--device", "cpu", "--path", "x.jpg", flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A[67]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         chat.main()
