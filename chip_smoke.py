@@ -8,7 +8,11 @@ Phases (each prints its lines; the last line is the JSON status):
    every `handsonvlm_torch/csrc/*.cu` compiled by nvcc for sm_90a;
 2. each hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with kernel, plain and library times from CUDA events
-   after warm-up, and the least time the card could take (`bound_ms`);
+   after warm-up, and the least time the card could take (`bound_ms`); B9
+   (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2379,
+   its window rows bit-equal to single rows and its GEMV / tensor-core
+   crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
+   on the same weights, B4a (one flat matrix) at m = 1 and 391;
 3. the bf16 chat path: the 7B bf16 model from `random:7b` on the card, three
    chat requests through the chat CLI's own turn function (prefill +
    generate_host, 32 new tokens each; one turn forces a `<hand_traj>`
@@ -60,8 +64,24 @@ Phases (each prints its lines; the last line is the JSON status):
    at a time. A sampled run (temperature 0.5, top-p 0.9, the gate on, the
    template bank) prints its stats.
 
-Phases 7 to 10 run before phases 4 and 6 (which convert the model), on the
-model each chat phase loaded.
+11. the int8 decoder at 7B (`random:7b`, quantize="int8", kernel B9 on
+   every projection): (a) three chat turns over the bf16 cache, B9's
+   launches exact (7 per layer and forward); (b) speculative chat over the
+   int8 cache, phase 10's checks, and a T = 5 window's rows bit-equal to
+   single steps; (c) batched evaluation of 8 in-memory clips on 8 slots,
+   chunks of 8: every clip scored, none truncated, launches exact;
+12. the int8 kernel path against the plain path, phase 4's rule (the fp32
+   plain path on the same int8 weights is the reference);
+13. the flat int4 layouts from the int4 model: (a) the fused projections
+   in the flat stacked layout (B4c decode, B5a prefill): a greedy prefill
+   and 4 steps give tokens and final hidden states bit-equal to the tiled
+   model's (B4b, B5b); (b) the seven per-projection flat leaves, sliced by
+   columns from the fused flat buffers (B4a on every projection): exact
+   launches and phase 6's rule, run inside phase 6 against the same fp32
+   reference.
+
+Phases 7 to 10 and 13a run before phases 4 and 6 (which convert the
+model), on the model each chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -89,11 +109,14 @@ from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video
 from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
 from handsonvlm_torch.models.llama import (
+    Int4Weight,
+    Int8Weight,
     _quantize_kv_rows,
     apply_llama,
-    dequantize_llama_int4,
+    dequantize_llama,
     int4_projection_shapes,
     lm_logits,
+    projection_shapes,
 )
 from handsonvlm_torch.ops import _build
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
@@ -109,13 +132,25 @@ from handsonvlm_torch.ops.decode_attention import (
 )
 from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from handsonvlm_torch.ops.int8_matmul import (
+    INT8_TC_MIN_M,
+    _launch_int8,
     dequantize_tiled,
+    int4_gemv_flat,
+    int4_gemv_flat_ref,
     int4_gemv_tiled,
     int4_gemv_tiled_ref,
+    int4_matmul,
+    int4_matmul_prefill,
+    int4_matmul_prefill_ref,
     int4_matmul_prefill_tiled,
     int4_matmul_prefill_tiled_ref,
+    int4_matmul_ref,
+    int8_matmul,
+    int8_matmul_ref,
     quantize_int4,
+    quantize_stacked_int8,
     tile_int4_stacked,
+    untile_int4_stacked,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 from handsonvlm_torch.serve.continuous import ContinuousEngine
@@ -139,6 +174,7 @@ BF16_FLOP_S = 989e12
 PREFILL_ROWS = 391
 DECODE_LEN = 450  # cache positions attended by a mid-answer decode step
 LONG_ROWS = 2304  # rows of the long prompt after the splice (the flash prefill)
+LONG_PROMPT_ROWS = 2379  # the long chat prompt phase 9 builds, after the splice
 SPEC_K = 4  # drafted tokens per verify forward: windows of SPEC_K + 1 rows
 TIMING_LAYERS = 4  # weights cycled while timing, so each launch finds L2 cold
 # the 7B serving cache of batched evaluation: 8 slots of 4096 positions
@@ -152,7 +188,9 @@ WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
             "int4_matmul_prefill_tiled": int4_matmul_prefill_tiled,
             "decode_attention_stacked_q": decode_attention_stacked_q,
             "gather_cache_blocks": gather_cache_blocks,
-            "flash_attention": flash_attention, "decode_attention": decode_attention}
+            "flash_attention": flash_attention, "decode_attention": decode_attention,
+            "int8_matmul": int8_matmul, "int4_gemv_flat": int4_gemv_flat,
+            "int4_matmul_prefill": int4_matmul_prefill, "int4_matmul": int4_matmul}
 
 
 def log(msg: str) -> None:
@@ -599,6 +637,171 @@ def check_int4_prefill() -> dict:
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:704", **row}
 
 
+def _mm_bytes(m, din, dout, weight_bytes):
+    """Bytes a matmul of m rows must move: the weight, x and y (bf16)."""
+    return weight_bytes + m * (din + dout) * 2
+
+
+def check_int8_matmul() -> dict:
+    """B9 against its plain version at the seven 7B projections (f32 out
+    for bf16 and f32 x, the JAX package's output; x's dtype out, the
+    decoder's call), the rows of a T = 5 window bit-equal to each row alone,
+    then timed at each m against the plain version and torch.mm over the
+    weight upcast to bf16 (outside the timed loop) with f32 output times the
+    scale, TIMING_LAYERS layers cycled; and both of its paths, the GEMV and
+    the tensor cores, forced at the m around the crossover that
+    INT8_TC_MIN_M sets."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shapes = projection_shapes(get_config("7b").llama)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    Lt, rows = TIMING_LAYERS, (1, SPEC_K + 1, SERVE_SLOTS, PREFILL_ROWS, LONG_PROMPT_ROWS)
+    crossover = (8, 16, 24, 32, 48, 64, 96, 128)
+    times = {m: [0.0] * 5 for m in rows}  # kernel, plain, library, bytes, flops
+    paths = {(m, tc): 0.0 for m in crossover for tc in (False, True)}
+    for proj, (din, dout) in shapes.items():
+        w8, sc = quantize_stacked_int8(0.02 * torch.randn((Lt, din, dout), generator=gen,
+                                                          device="cuda"))
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in rows:
+                x, i = _rand(gen, (m, din), dtype), m % Lt
+                _check_int4(f"B9 {proj} {din}->{dout} m={m} out f32",
+                            int8_matmul(x, w8[i], sc[i]), int8_matmul_ref(x, w8[i], sc[i]),
+                            torch.float32, errs[dtype])
+                if dtype == torch.bfloat16 and m in (1, PREFILL_ROWS):
+                    _check_int4(f"B9 {proj} {din}->{dout} m={m} out bf16",
+                                int8_matmul(x, w8[i], sc[i], dtype),
+                                int8_matmul_ref(x, w8[i], sc[i], dtype), dtype, errs[dtype])
+            xw = _rand(gen, (SPEC_K + 1, din), dtype)
+            window = int8_matmul(xw, w8[1], sc[1], dtype)
+            same = all(torch.equal(int8_matmul(xw[r:r + 1], w8[1], sc[1], dtype)[0], window[r])
+                       for r in range(SPEC_K + 1))
+            log(f"  B9 {proj} {str(dtype).split('.')[-1]}: the {SPEC_K + 1} rows of a window "
+                f"bit-equal to each row alone: {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError("B9: a window's row differs from the same row alone")
+        w_bf16 = [w8[i].to(torch.bfloat16) for i in range(Lt)]
+        for m in rows:
+            x = _rand(gen, (m, din), torch.bfloat16)
+            few = m >= PREFILL_ROWS
+            t = times[m]
+            t[0] += cuda_time_ms(lambda i: int8_matmul(x, w8[i % Lt], sc[i % Lt], x.dtype),
+                                 iters=10 if few else 50)
+            t[1] += cuda_time_ms(lambda i: int8_matmul_ref(x, w8[i % Lt], sc[i % Lt], x.dtype),
+                                 iters=3 if few else 10, warmup=1)
+            t[2] += cuda_time_ms(
+                lambda i: torch.mm(x, w_bf16[i % Lt], out_dtype=torch.float32) * sc[i % Lt],
+                iters=10 if few else 50)
+            t[3] += _mm_bytes(m, din, dout, w8[0].numel() + sc[0].numel() * 4)
+            t[4] += 2 * m * din * dout
+        for m, tc in paths:
+            x = _rand(gen, (m, din), torch.bfloat16)
+            paths[m, tc] += cuda_time_ms(
+                lambda i: _launch_int8(x, w8[i % Lt], sc[i % Lt], x.dtype, tensor_cores=tc),
+                iters=10)
+        del w8, sc, w_bf16
+        torch.cuda.empty_cache()
+    for m in rows:
+        ms, plain_ms, library_ms, nbytes, flops = times[m]
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"  B9 time, the seven projections of one layer at m={m} (bf16 x and out, "
+            f"{Lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch.mm over the upcast weight, f32 out, x scale) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); {100 * bound_ms / ms:.1f}% of the bound")
+    log(f"  B9 crossover, the seven projections of one layer, bf16, ms: m, GEMV, tensor cores "
+        f"(the dispatch takes the tensor cores from m = {INT8_TC_MIN_M})")
+    for m in crossover:
+        log(f"    {m:4d}  {paths[m, False]:8.4f}  {paths[m, True]:8.4f}")
+    ms, plain_ms, library_ms, nbytes, flops = times[1]
+    bound_ms, bound_by = bound(nbytes, flops)
+    # the row reported is the decode step's (m = 1)
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "handsonvlm_torch/csrc/int8_matmul.cu",
+            "replaces": "handsonvlm_tpu/ops/int8_matmul.py:89",
+            "max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_int4_flat() -> list:
+    """B4c and B5a on the four fused 7B projections, the flat layout made
+    from the tiled one by the inverse permute: bit-equal to B4b and B5b on
+    the same weight and held against their plain versions, then timed (m =
+    1 and m = PREFILL_ROWS); B4a on the seven per-projection 7B matrices in
+    the flat layout at m = 1 and m = PREFILL_ROWS (the JAX package runs it
+    at every m), checked and timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    Lt = TIMING_LAYERS
+    errs = {k: {torch.bfloat16: [], torch.float32: []} for k in ("B4c", "B5a", "B4a")}
+    times = {k: [0.0] * 4 for k in errs}  # kernel, plain, bytes, flops
+    for proj, (din, dout) in int4_projection_shapes(get_config("7b").llama).items():
+        w4t, gst = _int4_stack(din, dout, Lt, gen)
+        w4, gs = untile_int4_stacked(w4t, gst)
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, flat, tiled, ref, ms_ in (
+                    ("B4c", int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref,
+                     (1, SPEC_K + 1, 8, 127)),
+                    ("B5a", int4_matmul_prefill, int4_matmul_prefill_tiled,
+                     int4_matmul_prefill_ref, (128, PREFILL_ROWS))):
+                for m in ms_:
+                    x, i = _rand(gen, (1, m, din), dtype), m % Lt
+                    got = flat(x, w4, gs, i)
+                    same = torch.equal(got, tiled(x, w4t, gst, i))
+                    _check_int4(f"{name} {proj} {din}->{dout} m={m}", got, ref(x, w4, gs, i),
+                                dtype, errs[name][dtype])
+                    log(f"    bit-equal to the tiled kernel: {'ok' if same else 'FAIL'}")
+                    if not same:
+                        raise AssertionError(f"{name} differs from the tiled kernel")
+        nbytes = w4t[0].numel() + gst[0].numel() * 4
+        for name, fn, ref, m in (("B4c", int4_gemv_flat, int4_gemv_flat_ref, 1),
+                                 ("B5a", int4_matmul_prefill, int4_matmul_prefill_ref,
+                                  PREFILL_ROWS)):
+            x = _rand(gen, (1, m, din), torch.bfloat16)
+            t = times[name]
+            t[0] += cuda_time_ms(lambda i: fn(x, w4, gs, i % Lt))
+            t[1] += cuda_time_ms(lambda i: ref(x, w4, gs, i % Lt), iters=5, warmup=1)
+            t[2] += _mm_bytes(m, din, dout, nbytes)
+            t[3] += 2 * m * din * dout
+        del w4t, gst, w4, gs
+    b4a_prefill = 0.0
+    for proj, (din, dout) in projection_shapes(get_config("7b").llama).items():
+        packed = [quantize_int4(0.02 * torch.randn((din, dout), generator=gen, device="cuda"))
+                  for _ in range(Lt)]
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in (1, PREFILL_ROWS):
+                x = _rand(gen, (m, din), dtype)
+                _check_int4(f"B4a {proj} {din}->{dout} m={m}", int4_matmul(x, *packed[m % Lt]),
+                            int4_matmul_ref(x, *packed[m % Lt]), dtype, errs["B4a"][dtype])
+        x = _rand(gen, (1, din), torch.bfloat16)
+        t = times["B4a"]
+        t[0] += cuda_time_ms(lambda i: int4_matmul(x, *packed[i % Lt]))
+        t[1] += cuda_time_ms(lambda i: int4_matmul_ref(x, *packed[i % Lt]), iters=5, warmup=1)
+        t[2] += _mm_bytes(1, din, dout, packed[0][0].numel() + packed[0][1].numel() * 4)
+        t[3] += 2 * din * dout
+        xp = _rand(gen, (PREFILL_ROWS, din), torch.bfloat16)
+        b4a_prefill += cuda_time_ms(lambda i: int4_matmul(xp, *packed[i % Lt]), iters=5, warmup=1)
+        del packed
+    out = []
+    for name, what, site, fn in (
+            ("B4c", "the four fused projections at m=1", "int8_matmul.py:931", "int4_gemv_flat"),
+            ("B5a", f"the four fused projections at m={PREFILL_ROWS}", "int8_matmul.py:637",
+             "int4_matmul_prefill"),
+            ("B4a", "the seven per-projection matrices at m=1", "int8_matmul.py:413",
+             "int4_matmul")):
+        ms, plain_ms, nbytes, flops = times[name]
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"  {name} time, {what} (bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
+        out.append({"name": fn, "route": "cuda",
+                    "source": "handsonvlm_torch/csrc/" + (
+                        "int4_prefill.cu" if name == "B5a" else "int4_gemv.cu"),
+                    "replaces": "handsonvlm_tpu/ops/" + site,
+                    "max_abs_err": max(errs[name][torch.bfloat16]),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None})
+    log(f"  B4a at a prefill (m={PREFILL_ROWS}, the seven projections, one row per block): "
+        f"{b4a_prefill:.4f} ms a layer")
+    return out
+
+
 def _prefill_case(gen, t, s, dtype, pad=0, layers=1):
     """q (1, t, 32, 128), a cache (layers, 1, s, 32, 128) pair holding a
     prefill of t rows at index 0, and its key mask: the written prefix less
@@ -723,7 +926,8 @@ def phase_kernels() -> list:
     log("phase 2: kernels against their plain versions")
     return [check_decode_attention(), check_vit_attention(), check_int4_gemv(),
             check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks(),
-            check_flash_attention(), check_decode_attention_single()]
+            check_flash_attention(), check_decode_attention_single(), check_int8_matmul(),
+            *check_int4_flat()]
 
 
 def reset_launches() -> None:
@@ -870,14 +1074,16 @@ def _greedy_args(model, cfg, tokenizer, video, frame_map, text="What happens nex
 def phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, long_text=None):
     """Greedy prefill + 4 decode steps with the kernels ("auto") and the
     plain versions ("xla") in the model's dtype, then with the same weights
-    cast to fp32; every run is fed the first run's tokens. Leaves the model
-    in fp32. Returns (the kernel path's final hidden, its greedy tokens, the
+    cast to fp32 (an int8 model keeps its int8 weights: the fp32 plain path
+    is their exact product); every run is fed the first run's tokens.
+    Leaves the model in fp32. Returns (the kernel path's final hidden, its greedy tokens, the
     launches of the per-layer decode kernel as counted in its run).
 
     The counts are set to 0 before each run in the model's dtype and read
     after it: the CLIP kernel per CLIP layer, the flash kernel per layer of
-    a prefill of 2048 rows or more, and per layer and step the stacked
-    decode kernel ("auto") or the per-layer one ("decode"), nothing else.
+    a prefill of 2048 rows or more, per layer and step the stacked decode
+    kernel ("auto") or the per-layer one ("decode"), with int8 weights B9
+    seven times per layer and forward, nothing else.
 
     The fp32 plain path is the reference. A random-weight bf16 7B amplifies
     one rounding step many times over (on an H100 the bf16 kernel and plain
@@ -895,23 +1101,23 @@ def phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, long_text=Non
     scenes = {"chat prompt": _greedy_args(model, cfg, tokenizer, video, frame_map)}
     if long_text is not None:
         scenes["long prompt"] = _greedy_args(model, cfg, tokenizer, video, frame_map, long_text)
-    n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
     low, b12 = {}, 0
     with torch.inference_mode():
         for scene, args in scenes.items():
-            flash = n_layers if args[2].shape[1] + cfg.num_visual_tokens - 1 >= 2048 else 0
-            prefill = {"vit_attention": n_clip, "flash_attention": flash}
+            want = serving_launches(model, cfg, None, 4, 1, 0)
+            if args[2].shape[1] + cfg.num_visual_tokens - 1 >= 2048:
+                want["flash_attention"] = n_layers
             reset_launches()
             h_k, tok_k = _greedy_decode(*args, "auto")
-            expect_launches(read_launches(),
-                            {**prefill, "decode_attention_stacked": 4 * n_layers})
+            expect_launches(read_launches(), want)
             h_p, tok_p = _greedy_decode(*args, "xla", fed=tok_k)
             h_d = None
             if scene == "long prompt":
                 reset_launches()
                 h_d, _ = _greedy_decode(*args, "auto", fed=tok_k, step_impl="decode")
                 counts = read_launches()
-                expect_launches(counts, {**prefill, "decode_attention": 4 * n_layers})
+                want["decode_attention"] = want.pop("decode_attention_stacked")
+                expect_launches(counts, want)
                 b12 = counts["decode_attention"]
             low[scene] = (h_k, tok_k, h_p, tok_p, h_d)
         model.float()
@@ -945,62 +1151,89 @@ def phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, long_text=Non
 
 
 def phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=None,
-                                h_dense=None, long_text=None) -> None:
-    """The int4 + int8-cache path: greedy prefill + 4 decode steps with the
-    kernels ("auto") and the plain versions ("xla") in the model's dtype,
-    then with the int4 weights dequantized into an fp32 model (plain path,
-    the reference). All runs decode over the int8 cache and are fed `fed`
-    (else the first run's own tokens). The kernel path may lie at most
-    BF16_VS_PLAIN x as far from the reference as the plain path. `h_dense`,
-    the dense model's final hidden for the same tokens, is compared for
-    information only. `long_text` repeats the comparison at a long prompt
-    (the flash prefill). Leaves the model dense fp32."""
+                                h_dense=None, long_text=None, layouts=None) -> dict:
+    """The quantized + int8-cache path: greedy prefill + 4 decode steps with
+    the kernels ("auto") and the plain versions ("xla") in the model's
+    dtype, then with the quantized weights dequantized into an fp32 model
+    (plain path, the reference). All runs decode over the int8 cache and
+    are fed `fed` (else the first run's own tokens). The kernel path may
+    lie at most BF16_VS_PLAIN x as far from the reference as the plain
+    path. `layouts` (name -> (Llama.int4, Llama.proj)) repeats the chat
+    prompt's runs with each weight layout installed in turn: layouts of one
+    quantization share the fp32 reference. The launches of each kernel run
+    are counted exactly. `h_dense`, the dense model's final hidden for the
+    same tokens, is compared for information only. `long_text` repeats the
+    comparison at a long prompt (the flash prefill) with the first layout.
+    Leaves the model dense fp32. Returns each layout's launches."""
     dtype = model.llama.embed_tokens.weight.dtype
     name = str(dtype).split(".")[-1]
-    scenes = {"chat prompt": (_greedy_args(model, cfg, tokenizer, video, frame_map), fed)}
+    llama, n_layers = model.llama, cfg.llama.num_layers
+    layouts = layouts or {"": (llama.int4, llama.proj)}
+    first = next(iter(layouts))
+    chat = _greedy_args(model, cfg, tokenizer, video, frame_map)
+    scenes = [("chat prompt", layout, chat, fed) for layout in layouts]
     if long_text is not None:
-        scenes["long prompt"] = (
-            _greedy_args(model, cfg, tokenizer, video, frame_map, long_text), None)
-    low = {}
+        scenes.append(("long prompt", first,
+                       _greedy_args(model, cfg, tokenizer, video, frame_map, long_text), None))
+    low, counts = [], {}
     with torch.inference_mode():
-        for scene, (args, fed_s) in scenes.items():
+        for scene, layout, args, fed_s in scenes:
+            llama.int4, llama.proj = layouts[layout]
+            want = serving_launches(model, cfg, "int8", 4, 1, 0)
+            if args[2].shape[1] + cfg.num_visual_tokens - 1 >= 2048:
+                want["flash_attention"] = n_layers
+            reset_launches()
             h_k, tok_k = _greedy_decode(*args, "auto", fed=fed_s, kv_quant="int8")
+            counts[layout] = read_launches()
+            expect_launches(counts[layout], want)
             fed_s = tok_k if fed_s is None else fed_s
             h_p, tok_p = _greedy_decode(*args, "xla", fed=fed_s, kv_quant="int8")
-            low[scene] = (h_k, tok_k, h_p, tok_p, fed_s)
-        dequantize_llama_int4(model.llama, cfg.llama, torch.float32)
+            low.append((h_k, tok_k, h_p, tok_p, fed_s))
+        llama.int4, llama.proj = layouts[first]
+        dequantize_llama(llama, cfg.llama, torch.float32)
         model.float()
-        for scene, (args, _) in scenes.items():
-            h_k, tok_k, h_p, tok_p, fed_s = low[scene]
-            h_ref, tok_ref = _greedy_decode(*args, "xla", fed=fed_s, kv_quant="int8")
+        refs = {}
+        for (scene, layout, args, _), (h_k, tok_k, h_p, tok_p, fed_s) in zip(scenes, low):
+            if scene not in refs:
+                refs[scene] = _greedy_decode(*args, "xla", fed=fed_s, kv_quant="int8")
+            h_ref, tok_ref = refs[scene]
             d_k, d_p = _rel(h_k, h_ref), _rel(h_p, h_ref)
-            log(f"  {scene}: greedy tokens: int4+kv8 {name} kernels {tok_k[:4]}, plain "
-                f"{tok_p[:4]}, dequantized fp32 plain {tok_ref[:4]}")
+            what = f"{scene}{f', {layout}' if layout else ''}"
+            log(f"  {what}: greedy tokens: {name} kernels {tok_k[:4]}, plain {tok_p[:4]}, "
+                f"dequantized fp32 plain {tok_ref[:4]}")
             log(f"  {name} final hidden relative L2, kernels vs plain: {_rel(h_k, h_p):.3e}")
             log(f"  final hidden relative L2 from the dequantized fp32 plain path: {name} "
                 f"kernels {d_k:.3e}, {name} plain {d_p:.3e} (limit {BF16_VS_PLAIN} x that)")
             if h_dense is not None and scene == "chat prompt":
-                log(f"  int4+kv8 kernel path vs the dense {name} kernel path, final hidden "
-                    f"relative L2 (information): {_rel(h_k, h_dense):.3e}")
+                log(f"  quantized + kv8 kernel path vs the dense {name} kernel path, final "
+                    f"hidden relative L2 (information): {_rel(h_k, h_dense):.3e}")
             if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
-                raise AssertionError(f"{scene}: int4+kv8 kernel path lies further from the "
-                                     "fp32 reference than the plain path")
+                raise AssertionError(f"{what}: the kernel path lies further from the fp32 "
+                                     "reference than the plain path")
+    return counts
 
 
 def serving_launches(model, cfg, kv_quant, decode_steps, prefills, compactions) -> dict:
     """The launches a run of the serving path must make: per decode
-    forward B1 (bf16) or B6 (int8 cache) once per layer and, with int4
-    weights, B4b for the layer's four projections; per prefill B2 once per
-    CLIP layer and, with int4 weights, B5b for the four projections; per
-    compaction B8 once per cache plane."""
-    n_layers = cfg.llama.num_layers
+    forward B1 (bf16) or B6 (int8 cache) once per layer; per prefill B2
+    once per CLIP layer; per compaction B8 once per cache plane; and by the
+    weights: fused int4, per layer B4b (tiled) or B4c (flat) for the four
+    projections of a decode forward and B5b or B5a for those of a prefill;
+    per projection, B9 (int8) or B4a (flat int4) for the seven projections
+    of every forward."""
+    n_layers, llama = cfg.llama.num_layers, model.llama
     n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
     attn = "decode_attention_stacked_q" if kv_quant else "decode_attention_stacked"
     want = {attn: n_layers * decode_steps, "vit_attention": n_clip * prefills,
             "gather_cache_blocks": (4 if kv_quant else 2) * compactions}
-    if model.llama.int4 is not None:
-        want["int4_gemv_tiled"] = 4 * n_layers * decode_steps
-        want["int4_matmul_prefill_tiled"] = 4 * n_layers * prefills
+    if llama.int4 is not None:
+        tiled = hasattr(llama.int4["wo"], "w4t")
+        want["int4_gemv_tiled" if tiled else "int4_gemv_flat"] = 4 * n_layers * decode_steps
+        want["int4_matmul_prefill_tiled" if tiled else "int4_matmul_prefill"] = (
+            4 * n_layers * prefills)
+    if llama.proj is not None:
+        kernel = "int8_matmul" if isinstance(llama.proj["wo"], Int8Weight) else "int4_matmul"
+        want[kernel] = 7 * n_layers * (decode_steps + prefills)
     return want
 
 
@@ -1362,14 +1595,15 @@ def _window_vs_steps(model, cfg, ids, images, frame_map, tokens, kv_quant):
 
 
 def phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant=None, new_tokens=32,
-               k=SPEC_K) -> dict:
+               k=SPEC_K, window_exact=False) -> dict:
     """Speculative chat, greedy, the gate off: run A with an empty bank,
     run B with run A's stream as its bank; each through the chat CLI's turn
     function on a fresh conversation. Checks the forwards saved, every
     kernel's launches per forward, the cache index after every forward and
-    the rows of one verify window against single steps; prints how far run
-    A agrees with sequential greedy decode, and a sampled run with the gate
-    on. Returns run A's launch counts."""
+    the rows of one verify window against single steps (with
+    `window_exact`, on the card, bit-equal: every op of the forward reduces
+    a row alone); prints how far run A agrees with sequential greedy decode,
+    and a sampled run with the gate on. Returns run A's launch counts."""
     dev = model.llama.embed_tokens.weight.device
     question = "What is the person doing in this video?"
     n_layers = cfg.llama.num_layers
@@ -1427,18 +1661,126 @@ def phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant=None, new_token
     with torch.inference_mode():
         d_win, d_plain = _window_vs_steps(model, cfg, ids, torch.as_tensor(video, device=dev),
                                           frame_map, out_a.sequences[0, :k + 1], kv_quant)
+    exact = window_exact and torch.cuda.is_available()
+    limit = 0.0 if exact else max(BF16_VS_PLAIN * d_plain, FP32_REL_L2)
     log(f"  one T={k + 1} window against the same positions decoded one at a time, largest "
         f"relative L2 over the rows: {d_win:.3e}; the plain path's single steps against the "
-        f"kernels': {d_plain:.3e} (limit {BF16_VS_PLAIN} x that, at least {FP32_REL_L2:.0e})")
-    if not (np.isfinite(d_win) and d_win <= max(BF16_VS_PLAIN * d_plain, FP32_REL_L2)):
+        f"kernels': {d_plain:.3e} (limit {'0, bit-equal' if exact else f'{limit:.3e}'})")
+    if not (np.isfinite(d_win) and d_win <= limit):
         raise AssertionError("a verify window's rows lie further from single-step rows than "
-                             "the plain path does")
+                             "allowed")
 
     out_s, stats_s, _ = turn(None, temperature=0.5, gate=1.2)
     log(f"  sampled run (temperature 0.5, top-p 0.9, template bank, gate 1.2 tok/fwd): "
         f"{int(out_s.num_tokens[0])} tokens in {stats_s['iters']} forwards, gated "
         f"{stats_s['gated']}, accept_hist {stats_s['accept_hist']}, {stats_s['wall_s']:.2f} s")
     return counts_a
+
+
+def phase_eval_batched(model, cfg, tokenizer, n_clips=8, slots=8, chunk=8, max_new=32,
+                       max_len=SERVE_LEN, kv_quant=None) -> dict:
+    """Batched EK100 evaluation (`evaluate --batched` with the model's
+    weights, the cache `kv_quant`): n_clips in-memory clips on `slots`
+    slots, chunks of `chunk` steps, temperature 0.5 / top-p 0.9. Every clip
+    is scored, none is truncated (each runs to max_new tokens or EOS), and
+    the launches are exact. Returns the aggregate tok/s and the counts."""
+    dev = model.llama.embed_tokens.weight.device
+    engine = InferenceEngine(model=model, cfg=cfg, tokenizer=tokenizer, temperature=0.5,
+                             top_p=0.9, max_new_tokens=max_new, kv_quant=kv_quant)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_epic_kitchen_traj(engine, EkClips(cfg, n_clips, seed=1), seed=0, log_every=0,
+                                     batched=slots, batched_max_len=max_len,
+                                     batched_chunk=chunk)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    (sched,) = engine._batched_scheds.values()
+    eng = sched.engine
+    n_tok = sum(v["num_tokens"] for v in res["val_info"].values())
+    _scored(f"batched evaluation ({slots} slots, {n_clips} clips, {n_tok} tokens, {wall:.2f} s)",
+            res, n_clips)
+    truncated = [i for i, v in res["val_info"].items()
+                 if v["num_tokens"] != max_new and int(v["gen_ids"][-1]) != eng.eos]
+    stats = {"batched_tok_s": n_tok / wall, "launches": counts}
+    log(f"  aggregate {stats['batched_tok_s']:.2f} tok/s; {eng.prefills} prefills, "
+        f"{eng.decode_steps} decode forwards, {eng.compactions} compactions, "
+        f"{len(truncated)} truncated")
+    if dev.type == "cuda":
+        log(f"  peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    sched.stop()
+    engine._batched_scheds.clear()
+    if truncated:
+        raise AssertionError(f"batched evaluation truncated clips {truncated}")
+    expect_launches(counts, serving_launches(model, cfg, kv_quant, eng.decode_steps,
+                                             eng.prefills, eng.compactions))
+    return stats
+
+
+def flat_int4(llama, cfg) -> torch.nn.ModuleDict:
+    """The fused int4 projections of `llama` (tiled) in the flat stacked
+    layout: new buffers, the bytes by the inverse permute of the tiled
+    ones."""
+    out = torch.nn.ModuleDict()
+    for name, (din, dout) in int4_projection_shapes(cfg).items():
+        w = Int4Weight(din, dout, cfg.num_layers, device=llama.norm.weight.device, flat=True)
+        w4, gs = untile_int4_stacked(*llama.int4[name].packed())
+        w.w4.copy_(w4)
+        w.gscale.copy_(gs)
+        out[name] = w
+    return out
+
+
+def per_projection_int4(fused, cfg) -> torch.nn.ModuleDict:
+    """The seven per-projection flat int4 leaves, sliced by columns from the
+    fused flat buffers `fused`: the scales are per (group, column), so each
+    slice is the quantization of its own projection."""
+    qh, kh = cfg.num_heads * cfg.head_dim_, cfg.kv_heads * cfg.head_dim_
+    f, d = cfg.intermediate_size, cfg.hidden_size
+    cols = {"wq": ("wqkv", 0, qh), "wk": ("wqkv", qh, qh + kh),
+            "wv": ("wqkv", qh + kh, qh + 2 * kh), "wo": ("wo", 0, d),
+            "w_gate": ("wgu", 0, f), "w_up": ("wgu", f, 2 * f), "w_down": ("w_down", 0, d)}
+    out = torch.nn.ModuleDict()
+    for name, (din, dout) in projection_shapes(cfg).items():
+        src, a, b = cols[name]
+        w = Int4Weight(din, dout, cfg.num_layers, device=fused[src].w4.device, flat=True)
+        w.w4.copy_(fused[src].w4[..., a:b])
+        w.gscale.copy_(fused[src].gscale[..., a:b])
+        out[name] = w
+    return out
+
+
+def phase_flat_int4(model, cfg, tokenizer, video, frame_map):
+    """A greedy prefill and 4 decode steps over the int8 cache with the
+    fused int4 projections tiled (B5b, B4b) and then in the flat layout
+    (B5a, B4c), the launches of both counted exactly: the flat run's tokens
+    and final hidden states must be bit-equal to the tiled run's. Leaves the
+    tiled layout installed. Returns (the flat run's counts, the seven
+    per-projection flat leaves sliced from the flat buffers)."""
+    llama = model.llama
+    tiled = llama.int4
+    flat = flat_int4(llama, cfg.llama)
+    args = _greedy_args(model, cfg, tokenizer, video, frame_map)
+    runs = []
+    with torch.inference_mode():
+        for layout in (tiled, flat):
+            llama.int4 = layout
+            reset_launches()
+            runs.append((*_greedy_decode(*args, "auto", kv_quant="int8"), read_launches()))
+            expect_launches(runs[-1][2], serving_launches(model, cfg, "int8", 4, 1, 0))
+    llama.int4 = tiled
+    (h_t, tok_t, _), (h_f, tok_f, counts) = runs
+    same = torch.equal(h_t, h_f) and tok_t == tok_f
+    log(f"  greedy tokens tiled {tok_t}, flat {tok_f}; final hidden bit-equal: "
+        f"{'ok' if same else 'FAIL'} (relative L2 {_rel(h_f, h_t):.3e})")
+    if not same:
+        raise AssertionError("the flat int4 layout does not give the tiled layout's bits")
+    proj = per_projection_int4(flat, cfg.llama)
+    del flat
+    return counts, proj
 
 
 def model_bytes(model) -> int:
@@ -1512,9 +1854,38 @@ def main() -> int:
     launches["flash_attention"] += counts["flash_attention"]
     log("phase 10b: speculative chat at 7B, int4 weights + int8 cache")
     phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant="int8")
-    log("phase 6: int4 + kv8 kernel path against plain path at 7B, chat and long prompt")
-    phase_quant_kernel_vs_plain(model, cfg, tokenizer, video, frame_map, fed=tok_dense,
-                                h_dense=h_dense, long_text=long_text)
+    log("phase 13a: the fused int4 projections in the flat layout (B4c, B5a) against the tiled")
+    counts, proj = phase_flat_int4(model, cfg, tokenizer, video, frame_map)
+    launches.update({k: counts[k] for k in ("int4_gemv_flat", "int4_matmul_prefill")})
+    log("phase 6 and 13b: int4 + kv8 kernel path against plain path at 7B, chat and long "
+        "prompt, tiled; chat prompt, per-projection flat leaves (B4a)")
+    counts = phase_quant_kernel_vs_plain(
+        model, cfg, tokenizer, video, frame_map, fed=tok_dense, h_dense=h_dense,
+        long_text=long_text, layouts={"tiled": (model.llama.int4, None),
+                                      "per-projection flat": (None, proj)})
+    launches["int4_matmul"] = counts["per-projection flat"]["int4_matmul"]
+    del model, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, cfg, tokenizer = load_pretrained_model("random:7b", "7b", "cuda", quantize="int8")
+    torch.cuda.synchronize()
+    log(f"7B int8 model (random:7b, seed 0, quantized on the card) built in "
+        f"{time.perf_counter() - t0:.2f} s: {model_bytes(model) / 2**30:.3f} GiB on the card "
+        f"(decoder int8 projections {model_bytes(model.llama.proj) / 2**30:.3f} GiB, "
+        f"int8 head {model_bytes(model.llama.lm_head) / 2**30:.3f} GiB)")
+    log("phase 11a: 7B int8 chat on the card, bf16 cache")
+    run = phase_chat(model, cfg, tokenizer, video, frame_map)
+    expect_launches(run["launches"], serving_launches(model, cfg, None, run["decode_steps"],
+                                                      run["prefills"], 0))
+    launches["int8_matmul"] = run["launches"]["int8_matmul"]
+    log("phase 11b: speculative chat at 7B, int8 weights + int8 cache")
+    phase_spec(model, cfg, tokenizer, video, frame_map, kv_quant="int8", window_exact=True)
+    log("phase 11c: batched EK100 evaluation at 7B, int8 weights, 8 clips on 8 slots")
+    phase_eval_batched(model, cfg, tokenizer)
+    log("phase 12: int8 kernel path against plain path at 7B")
+    phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

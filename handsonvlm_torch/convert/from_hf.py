@@ -7,17 +7,27 @@ prefix rename and a copy.
 
 `from_jax_params` maps a JAX parameter tree (a nested dict of arrays) to
 that naming itself, with the JAX exporter's mapping: the bridge that lets
-both packages compute the same thing in tests. An int4 tree (the JAX
-package's `quantize_llama_int4` / `init_llama_int4`: fused stacked `w4t`/
-`gst` tiles under `layers["int4"]`, an int8 head `w8`/`scale`) maps to the
-port's int4 layout: `model.int4.<name>.{w4t,gst}` (stacked over layers,
-bytes unchanged) and `lm_head.{w8,scale}` (transposed to (V, d), the vocab
-cut to `vocab_size`), which load into a model built with quantize="int4".
+both packages compute the same thing in tests. It takes every decoder
+layout the JAX package's `apply_llama` takes; the quantized ones keep their
+bytes, stacked over layers, and load into a model built with the
+`quantize` mode `quantize_mode` names:
+- dense projections -> `model.layers.<i>.*_proj.weight` (None);
+- fused int4 under `layers["int4"]` (`quantize_llama_int4`,
+  `init_llama_int4`): tiled `w4t`/`gst` -> `model.int4.<name>.{w4t,gst}`
+  ("int4"), flat `w4`/`gscale` -> `model.int4.<name>.{w4,gscale}`
+  ("int4_flat");
+- per-projection leaves under `layers["attn"]` / `layers["mlp"]`: int8
+  `w8`/`scale` (`quantize_llama`, `init_llama_int8`) ->
+  `model.proj.<name>.{w8,scale}` ("int8"), flat int4 `w4`/`gscale` ->
+  `model.proj.<name>.{w4,gscale}` ("int4_proj");
+- an int8 head `w8`/`scale` -> `lm_head.{w8,scale}` (transposed to (V, d),
+  the vocab cut to `vocab_size`).
+Any other decoder leaf (the fused-QLoRA `layers["int8"]` stack) is refused.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -95,25 +105,39 @@ def _np(x) -> np.ndarray:
     return a if a.dtype.kind in "iub" else a.astype(np.float32)
 
 
+# the buffers of each quantized leaf, by the leaf's keys
+_QUANT_LEAVES = ({"w4t", "gst"}, {"w4", "gscale"}, {"w8", "scale"})
+
+
+def _quant_leaf(where: str, leaf) -> Dict[str, np.ndarray]:
+    if not isinstance(leaf, Mapping) or set(leaf) not in _QUANT_LEAVES:
+        keys = sorted(leaf) if isinstance(leaf, Mapping) else type(leaf).__name__
+        raise ValueError(f"{where}: no known weight layout (keys {keys}); the port takes "
+                         f"dense arrays or the leaves {[sorted(k) for k in _QUANT_LEAVES]}")
+    return {f"{where}.{key}": _np(value) for key, value in leaf.items()}
+
+
 def _llama_names(p, vocab_size: int, prefix: str = "model.") -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
     # the JAX package may pad the vocab for its sharding layout: cut it
     sd[prefix + "embed_tokens.weight"] = _np(p["embed"]["weight"])[:vocab_size]
     layers = p["layers"]
+    unknown = sorted(set(layers) - {"attn", "mlp", "int4", "attn_norm", "mlp_norm"})
+    if unknown:
+        raise ValueError(f"decoder layers {unknown}: no known weight layout")
     L = layers["attn_norm"]["scale"].shape[0]
     for i in range(L):
         lp = prefix + f"layers.{i}."
-        if "int4" not in layers:
-            for hf, (grp, key) in _LLAMA_NAMES.items():
+        for hf, (grp, key) in _LLAMA_NAMES.items():
+            if grp in layers and not isinstance(layers[grp][key], Mapping):
                 sd[lp + hf + ".weight"] = _np(layers[grp][key][i]).T
         sd[lp + "input_layernorm.weight"] = _np(layers["attn_norm"]["scale"][i])
         sd[lp + "post_attention_layernorm.weight"] = _np(layers["mlp_norm"]["scale"][i])
+    for grp, key in _LLAMA_NAMES.values():
+        if grp in layers and isinstance(layers[grp][key], Mapping):
+            sd.update(_quant_leaf(prefix + f"proj.{key}", layers[grp][key]))
     for name, leaf in layers.get("int4", {}).items():
-        if "w4t" not in leaf:
-            raise ValueError(f"int4 leaf {name} is in the flat layout; the port "
-                             "takes the tiled one (tile_int4_stacked)")
-        sd[prefix + f"int4.{name}.w4t"] = _np(leaf["w4t"])
-        sd[prefix + f"int4.{name}.gst"] = _np(leaf["gst"])
+        sd.update(_quant_leaf(prefix + f"int4.{name}", leaf))
     sd[prefix + "norm.weight"] = _np(p["final_norm"]["scale"])
     head = p.get("lm_head")
     if head is not None and "w8" in head:
@@ -144,10 +168,21 @@ def _clip_names(p, prefix: str) -> Dict[str, np.ndarray]:
     return sd
 
 
+def quantize_mode(sd: Mapping[str, object]) -> Optional[str]:
+    """The `quantize` mode of the model that state dict `sd` (names as
+    `from_jax_params` gives them) loads into."""
+    for key, mode in (("model.int4.wqkv.w4t", "int4"), ("model.int4.wqkv.w4", "int4_flat"),
+                      ("model.proj.wq.w8", "int8"), ("model.proj.wq.w4", "int4_proj")):
+        if key in sd:
+            return mode
+    return None
+
+
 def from_jax_params(params, vocab_size: int = 32101) -> Dict[str, np.ndarray]:
-    """JAX HandsOnVLM parameters (dense or int4) -> a state dict of
-    contiguous numpy arrays under the checkpoint's names (the JAX
-    exporter's `export_handsonvlm` mapping, extended to the int4 tree)."""
+    """JAX HandsOnVLM parameters (dense or any quantized decoder layout) ->
+    a state dict of contiguous numpy arrays under the checkpoint's names
+    (the JAX exporter's `export_handsonvlm` mapping, extended to the
+    quantized trees)."""
     sd = _llama_names(params["llama"], vocab_size)
     sd["model.mm_projector.weight"] = _np(params["projector"]["kernel"]).T
     sd["model.mm_projector.bias"] = _np(params["projector"]["bias"])

@@ -1,10 +1,16 @@
-// Int4 weight-only matmul for prefill-sized inputs over the tiled layout,
-// for Hopper (sm_90a), on the tensor cores.
+// Int4 weight-only matmul for prefill-sized inputs over the tiled and the
+// flat layout, for Hopper (sm_90a), on the tensor cores.
 //
-// Replaces handsonvlm_tpu/ops/int8_matmul.py::int4_matmul_prefill_tiled
-// (the _prefill4_tiled_kernel pallas_call that int4_matmul_stacked reaches
-// for 128 rows or more over the tiled layout): y = x @ dequant(w4t[layer])
-// with the Pallas kernel's numerics: x rounded to bf16, each weight
+// Replaces two pallas_calls of handsonvlm_tpu/ops/int8_matmul.py:
+// int4_matmul_prefill_tiled (B5b, the _prefill4_tiled_kernel call that
+// int4_matmul_stacked reaches for 128 rows or more over the tiled layout)
+// and int4_matmul_prefill (B5a, the _prefill4_kernel call over the flat
+// stack (L, G, g/2, n)). The flat layout is the tiled one with a single
+// tile (NB = 1, BN = n): byte (g, r, c) sits at (g*g/2 + r)*n + c either
+// way, its scale at g*n + c, so the wrapper passes it as such and one
+// kernel serves both; with the same 64-column output tiles and the same
+// group order, B5a gives B5b's bits on the same weight. y = x @
+// dequant(w4[layer]) with the Pallas kernels' numerics: x rounded to bf16, each weight
 // dequantized as bf16(bf16(nibble) * bf16(scale)), f32 accumulation, the
 // f32 result cast to x's dtype. Rows within a group are ordered [low-nibble
 // half, high-nibble half], the order of x's features.

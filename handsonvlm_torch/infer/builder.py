@@ -7,11 +7,14 @@ Port of `handsonvlm_tpu/infer/builder.py` for two sources:
 - an HF HandsOnVLM checkpoint directory (`*.safetensors` or
   `pytorch_model*.bin`), the reference's names.
 
-`quantize="int4"` quantizes the decoder (models/llama.quantize_llama_int4):
-a random model is initialised in its dtype on the device and quantized
-there layer by layer, each dense projection freed as soon as it is
-quantized; a checkpoint is loaded and quantized on the CPU, and only the
-quantized model moves to the device.
+`quantize="int4"` (models/llama.quantize_llama_int4) or `"int8"`
+(models/llama.quantize_llama) quantizes the decoder: a random model is
+initialised in its dtype on the device and quantized there layer by layer,
+each dense projection freed as soon as it is quantized; a checkpoint is
+loaded and quantized on the CPU, and only the quantized model moves to the
+device. (The JAX package draws a random int8 or int4 model directly,
+`init_llama_int8`, for its TPU allocator, which never returns freed device
+memory; the card's allocator does.)
 
 Orbax and adapter directories are read by the JAX package only.
 """
@@ -28,9 +31,10 @@ import torch
 from handsonvlm_torch.config import HandsOnVLMConfig, get_config
 from handsonvlm_torch.convert.from_hf import load_state_dict_into
 from handsonvlm_torch.models.handsonvlm import HandsOnVLM
-from handsonvlm_torch.models.llama import quantize_llama_int4
+from handsonvlm_torch.models.llama import quantize_llama, quantize_llama_int4
 
 RANDOM_SEED = 0
+QUANTIZERS = {"int4": quantize_llama_int4, "int8": quantize_llama}
 
 
 def load_tokenizer(model_path: Optional[str], model_max_length: int = 2048):
@@ -62,8 +66,8 @@ def load_hf_state_dict(path: str) -> dict:
 
 
 def build_model(cfg: HandsOnVLMConfig, device, quantize: Optional[str] = None) -> HandsOnVLM:
-    """Allocate the model on `device` in cfg.pdtype, uninitialised
-    (`quantize="int4"`: in the int4 layout, to load a quantized state dict)."""
+    """Allocate the model on `device` in cfg.pdtype, uninitialised (with a
+    `quantize` mode: in its layout, to load a quantized state dict)."""
     with torch.device("meta"):
         model = HandsOnVLM(cfg, quantize=quantize)
     return model.to_empty(device=device).requires_grad_(False).eval()
@@ -73,9 +77,10 @@ def load_pretrained_model(
     model_path: str, preset: str = "7b", device="cuda", quantize: Optional[str] = None,
 ) -> Tuple[HandsOnVLM, HandsOnVLMConfig, object]:
     """Returns (model, cfg, tokenizer) with the model on `device`;
-    `quantize="int4"` gives the decoder int4 weights and an int8 head."""
-    if quantize not in (None, "int4"):
-        raise ValueError(f"unknown quantize mode {quantize!r} (the port has int4)")
+    `quantize="int4"` or `"int8"` gives the decoder int4 or int8 weights
+    and an int8 head."""
+    if quantize not in (None, *QUANTIZERS):
+        raise ValueError(f"unknown quantize mode {quantize!r} (int4 or int8)")
     cfg = get_config(preset)
     # the released checkpoints always ship the CVAE head
     cfg = dataclasses.replace(cfg, traj=dataclasses.replace(cfg.traj, kind="CVAE"))
@@ -84,8 +89,8 @@ def load_pretrained_model(
         model = build_model(cfg, device)
         generator = torch.Generator(device=device).manual_seed(RANDOM_SEED)
         model.init_weights(generator)
-        if quantize == "int4":
-            quantize_llama_int4(model.llama, cfg.llama)
+        if quantize:
+            QUANTIZERS[quantize](model.llama, cfg.llama)
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         return model, cfg, load_tokenizer(None)
@@ -94,7 +99,7 @@ def load_pretrained_model(
             f"{model_path}: expected random:<preset> or an HF checkpoint directory")
     model = build_model(cfg, "cpu" if quantize else device)
     load_state_dict_into(model, load_hf_state_dict(model_path))
-    if quantize == "int4":
-        quantize_llama_int4(model.llama, cfg.llama)
+    if quantize:
+        QUANTIZERS[quantize](model.llama, cfg.llama)
         model = model.to(device)
     return model, cfg, load_tokenizer(model_path)

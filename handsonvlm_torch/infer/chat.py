@@ -5,12 +5,14 @@ the model emits <hand_traj> tokens, then render the predicted trajectory.
 
 Usage:
   python -m handsonvlm_torch.infer.chat --model-path random:7b --preset 7b \
-      --path frame.jpg --device cuda [--int4] [--kv-int8] [--spec K]
+      --path frame.jpg --device cuda [--int8 | --int4] [--kv-int8] [--spec K]
 
-`--int4` runs the decoder with int4 weights and an int8 head; `--kv-int8`
-decodes over the int8 cache; `--spec K` decodes speculatively with K-token
-n-gram drafts from the answer-template bank (infer/speculative.py), alone
-or with the two quantized modes.
+`--int8` runs the decoder with int8 weights (one scale per output column)
+and `--int4` with int4 weights (group 128), both with an int8 head; `--int8`
+wins when both are given, as in the JAX package. `--kv-int8` decodes over
+the int8 cache; `--spec K` decodes speculatively with K-token n-gram drafts
+from the answer-template bank (infer/speculative.py), alone or with the
+quantized modes.
 """
 
 from __future__ import annotations
@@ -28,12 +30,6 @@ from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.infer.sampler import SampleOutput, clip_pred_hands, generate_host
 from handsonvlm_torch.infer.speculative import build_template_bank, generate_spec
 from handsonvlm_torch.infer.viz import create_trajectory_video
-
-# flags the JAX CLI has whose modes the port does not have yet
-_NOT_PORTED = {
-    "int8": "ROADMAP A6 (int8 weight-only decoder, kernel B9)",
-}
-
 
 def load_frames(path: str, cfg):
     """Image or mp4 -> (video (1, U, 3, S, S) float32, frame_map, frame_paths).
@@ -126,13 +122,10 @@ def main():
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="speculative decode with K-token n-gram drafts")
     args = p.parse_args()
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not in the "
-                                      f"PyTorch port yet: {item}")
 
     model, cfg, tokenizer = load_pretrained_model(
-        args.model_path, args.preset, args.device, quantize="int4" if args.int4 else None)
+        args.model_path, args.preset, args.device,
+        quantize="int8" if args.int8 else ("int4" if args.int4 else None))
     kv_quant = "int8" if args.kv_int8 else None
     video, frame_map, frame_paths = load_frames(args.path, cfg)
     conv = new_conversation()

@@ -1,7 +1,7 @@
 """Where a chat turn's time goes: torch.profiler over one prefill and a
 window of decode steps, after a warm-up turn.
 
-    python -m handsonvlm_torch.infer.profile [--quantize int4] [--kv-int8] \
+    python -m handsonvlm_torch.infer.profile [--quantize int4|int8] [--kv-int8] \
         [--preset 7b] [--device cuda] [--steps 16] [--spec K] [--prompt-rows N]
 
 For each part it prints the host (wall) ms of a run without the profiler,
@@ -85,7 +85,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="7b")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--quantize", choices=["int4"], default=None)
+    ap.add_argument("--quantize", choices=["int4", "int8"], default=None)
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--steps", type=int, default=16, help="decode steps traced")
     ap.add_argument("--spec", type=int, default=0, metavar="K",

@@ -41,7 +41,8 @@ NUM_HAND_TOKENS = 4  # waypoints per answer (4 future steps)
 
 class HandsOnVLM(nn.Module):
     """llama (decoder + head), vision (CLIP), projector, traj (CVAE).
-    `quantize="int4"` gives the decoder the int4 layout (models/llama.py)."""
+    `quantize` gives the decoder a quantized layout ("int4", "int8", or a
+    flat int4 one: `models.llama.QUANTIZE_MODES`)."""
 
     def __init__(self, cfg: HandsOnVLMConfig, device=None, quantize=None):
         super().__init__()

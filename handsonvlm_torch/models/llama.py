@@ -18,14 +18,23 @@ Python layer loop does not have); `attn_impl="flash"` asks for the flash
 kernel at any prefill length and leaves windows of T <= 8 on the plain
 route, as the JAX package's decoder layer does.
 
-The int4 mode (`quantize_llama_int4`, the JAX package's
-`quantize_llama_int4` tree) keeps the four fused projections of every
-layer (wqkv, wo, wgu, w_down) as stacked tiled int4 buffers under
-`Llama.int4`, read per layer through `ops.int8_matmul.int4_matmul_stacked`
-(a view, never a copy), and the head as int8 (`Int8Head`). The int8 decode
-cache (`QuantKVCache`) holds int8 k/v with per-(token, kv head) f32 scales;
-decode quantizes each step's rows in place and attends through kernel B6.
-`attn_impl="xla"` runs every op's plain version instead of its kernel.
+The quantized modes hold the JAX package's weight trees, bytes unchanged,
+and the head as int8 (`Int8Head`):
+- `quantize="int4"` (`quantize_llama_int4`, the JAX package's tree): the
+  four fused projections of every layer (wqkv, wo, wgu, w_down) as stacked
+  tiled int4 buffers under `Llama.int4`; `"int4_flat"` the same in the flat
+  stacked layout. Both are read per layer through
+  `ops.int8_matmul.int4_matmul_stacked` (a view, never a copy);
+- `quantize="int8"` (`quantize_llama`, the JAX package's `quantize_llama`
+  tree): the seven projections per layer (wq, wk, wv, wo, w_gate, w_up,
+  w_down) as stacked int8 w8 (L, din, dout) with f32 scales (L, dout) under
+  `Llama.proj`; `"int4_proj"` the same seven as flat int4 leaves. Both are
+  read per layer through `ops.int8_matmul.maybe_int8_matmul` (kernels B9
+  and B4a), as the JAX package's per-projection branch does.
+The int8 decode cache (`QuantKVCache`) holds int8 k/v with per-(token, kv
+head) f32 scales; decode quantizes each step's rows in place and attends
+through kernel B6. `attn_impl="xla"` runs every op's plain version instead
+of its kernel.
 """
 
 from __future__ import annotations
@@ -47,9 +56,13 @@ from handsonvlm_torch.ops.decode_attention import (
 )
 from handsonvlm_torch.ops.int8_matmul import (
     INT4_GROUP,
+    dequantize_int4,
     dequantize_tiled,
+    int4_group,
     int4_matmul_stacked,
+    maybe_int8_matmul,
     quantize_int4,
+    quantize_int8,
     quantize_lm_head,
     tile_int4_stacked,
     tiled_shapes,
@@ -150,8 +163,8 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaLayer(nn.Module):
-    """One block's weights; `dense=False` (the int4 mode) keeps only the
-    norms, the projections living in `Llama.int4`."""
+    """One block's weights; `dense=False` (the quantized modes) keeps only
+    the norms, the projections living in `Llama.int4` or `Llama.proj`."""
 
     def __init__(self, cfg: LlamaConfig, dense: bool = True, **factory):
         super().__init__()
@@ -168,16 +181,54 @@ def int4_projection_shapes(cfg: LlamaConfig):
             "wo": (cfg.num_heads * hd, d), "wgu": (d, 2 * f), "w_down": (f, d)}
 
 
+def projection_shapes(cfg: LlamaConfig):
+    """(din, dout) of the seven projections of a layer, JAX names."""
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    qh, kh = cfg.num_heads * hd, cfg.kv_heads * hd
+    return {"wq": (d, qh), "wk": (d, kh), "wv": (d, kh), "wo": (qh, d),
+            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
 class Int4Weight(nn.Module):
-    """One fused projection of every layer in the tiled int4 layout:
-    w4t (L, NB, G, g/2, BN) int8 and gst (L, NB, G, BN) f32."""
+    """One projection of every layer in int4: the tiled layout w4t (L, NB,
+    G, g/2, BN) int8 and gst (L, NB, G, BN) f32, or (`flat`) the flat one
+    w4 (L, G, g/2, n) int8 and gscale (L, G, n) f32."""
 
     def __init__(self, din: int, dout: int, num_layers: int, group: int = INT4_GROUP,
-                 device=None):
+                 device=None, flat: bool = False):
         super().__init__()
-        w_shape, s_shape = tiled_shapes(din, dout, num_layers, group)
-        self.register_buffer("w4t", torch.empty(w_shape, dtype=torch.int8, device=device))
-        self.register_buffer("gst", torch.empty(s_shape, dtype=torch.float32, device=device))
+        if flat:
+            g = int4_group(din, group)
+            shapes = {"w4": (num_layers, din // g, g // 2, dout),
+                      "gscale": (num_layers, din // g, dout)}
+        else:
+            shapes = dict(zip(("w4t", "gst"), tiled_shapes(din, dout, num_layers, group)))
+        for (name, shape), dtype in zip(shapes.items(), (torch.int8, torch.float32)):
+            self.register_buffer(name, torch.empty(shape, dtype=dtype, device=device))
+
+    def packed(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weights, scales): (w4t, gst) or (w4, gscale)."""
+        return tuple(self.buffers())
+
+    def leaf(self, layer_idx: int) -> dict:
+        """Layer `layer_idx` as views, a JAX-style {"w4", "gscale"} leaf."""
+        return {"w4": self.w4[layer_idx], "gscale": self.gscale[layer_idx]}
+
+
+class Int8Weight(nn.Module):
+    """One projection of every layer in int8: w8 (L, din, dout) int8 and one
+    f32 scale per output column, scale (L, dout)."""
+
+    def __init__(self, din: int, dout: int, num_layers: int, device=None):
+        super().__init__()
+        self.register_buffer("w8", torch.empty((num_layers, din, dout), dtype=torch.int8,
+                                               device=device))
+        self.register_buffer("scale", torch.empty((num_layers, dout), dtype=torch.float32,
+                                                  device=device))
+
+    def leaf(self, layer_idx: int) -> dict:
+        """Layer `layer_idx` as views, a JAX-style {"w8", "scale"} leaf."""
+        return {"w8": self.w8[layer_idx], "scale": self.scale[layer_idx]}
 
 
 class Int8Head(nn.Module):
@@ -190,25 +241,34 @@ class Int8Head(nn.Module):
                                                   device=device))
 
 
+QUANTIZE_MODES = (None, "int4", "int4_flat", "int8", "int4_proj")
+
+
 class Llama(nn.Module):
     """Decoder stack + head. The embedding and head keep `vocab_size` rows.
 
-    `quantize="int4"` builds the int4 layout directly (projections under
-    `int4`, an `Int8Head`), as `quantize_llama_int4` leaves a dense model."""
+    A `quantize` mode builds its layout directly (an `Int8Head`, and the
+    projections under `int4`: "int4" tiled, "int4_flat" flat; or under
+    `proj`: "int8", "int4_proj" flat int4), as the quantizers leave a dense
+    model and the JAX package's trees load."""
 
     def __init__(self, cfg: LlamaConfig, quantize: Optional[str] = None, **factory):
         super().__init__()
-        if quantize not in (None, "int4"):
+        if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         dense = quantize is None
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
         self.layers = nn.ModuleList(
             LlamaLayer(cfg, dense, **factory) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, **factory)
-        device = factory.get("device")
-        self.int4 = None if dense else nn.ModuleDict({
-            name: Int4Weight(din, dout, cfg.num_layers, device=device)
+        device, L = factory.get("device"), cfg.num_layers
+        self.int4 = None if quantize not in ("int4", "int4_flat") else nn.ModuleDict({
+            name: Int4Weight(din, dout, L, device=device, flat=quantize == "int4_flat")
             for name, (din, dout) in int4_projection_shapes(cfg).items()})
+        self.proj = None if quantize not in ("int8", "int4_proj") else nn.ModuleDict({
+            name: (Int8Weight(din, dout, L, device) if quantize == "int8"
+                   else Int4Weight(din, dout, L, device=device, flat=True))
+            for name, (din, dout) in projection_shapes(cfg).items()})
         if cfg.tie_word_embeddings:
             self.lm_head = None
         elif dense:
@@ -260,7 +320,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# int4 weights
+# Quantized weights
 # ---------------------------------------------------------------------------
 
 _FUSED = {  # fused projection -> (submodule, Linear names concatenated on dout)
@@ -269,6 +329,21 @@ _FUSED = {  # fused projection -> (submodule, Linear names concatenated on dout)
     "wgu": ("mlp", ("gate_proj", "up_proj")),
     "w_down": ("mlp", ("down_proj",)),
 }
+_PROJ = {  # JAX projection name -> (submodule, Linear name)
+    "wq": ("self_attn", "q_proj"), "wk": ("self_attn", "k_proj"),
+    "wv": ("self_attn", "v_proj"), "wo": ("self_attn", "o_proj"),
+    "w_gate": ("mlp", "gate_proj"), "w_up": ("mlp", "up_proj"),
+    "w_down": ("mlp", "down_proj"),
+}
+
+
+def _quantize_head(llama: Llama, device) -> None:
+    if llama.lm_head is not None:
+        w8, scale = quantize_lm_head(llama.lm_head.weight)
+        head = Int8Head(*w8.shape, device=device)
+        head.w8.copy_(w8)
+        head.scale.copy_(scale)
+        llama.lm_head = head
 
 
 @torch.no_grad()
@@ -297,33 +372,66 @@ def quantize_llama_int4(llama: Llama, cfg: LlamaConfig, group: int = INT4_GROUP)
                 delattr(mod, p)
         lp.self_attn = None
         lp.mlp = None
-    if llama.lm_head is not None:
-        w8, scale = quantize_lm_head(llama.lm_head.weight)
-        head = Int8Head(*w8.shape, device=device)
-        head.w8.copy_(w8)
-        head.scale.copy_(scale)
-        llama.lm_head = head
+    _quantize_head(llama, device)
     return llama
 
 
 @torch.no_grad()
-def dequantize_llama_int4(llama: Llama, cfg: LlamaConfig, dtype) -> Llama:
-    """The inverse layout change, for references: rebuild dense `dtype`
-    projections and head from the exactly dequantized int4 / int8 values
-    (one f32 rounding each, then the cast to `dtype`)."""
+def quantize_llama(llama: Llama, cfg: LlamaConfig) -> Llama:
+    """Quantize a dense decoder in place into the int8 layout (the JAX
+    package's `quantize_llama`): per layer, each of the seven projections
+    to int8 with one scale per output column into the stacked buffers, its
+    dense weight freed at once (the peak is the dense model plus the int8
+    buffers); then the head to int8. Norms and the embedding keep their
+    dtype."""
     device = llama.embed_tokens.weight.device
+    llama.proj = nn.ModuleDict({
+        name: Int8Weight(din, dout, cfg.num_layers, device)
+        for name, (din, dout) in projection_shapes(cfg).items()})
+    for i, lp in enumerate(llama.layers):
+        for name, (sub, lin) in _PROJ.items():
+            mod = getattr(lp, sub)
+            w8, scale = quantize_int8(getattr(mod, lin).weight.t(), axis=0)
+            llama.proj[name].w8[i].copy_(w8)
+            llama.proj[name].scale[i].copy_(scale)
+            delattr(mod, lin)
+        lp.self_attn = None
+        lp.mlp = None
+    _quantize_head(llama, device)
+    return llama
+
+
+def _dequantized(w: nn.Module, i: int) -> torch.Tensor:
+    """Layer i of a quantized projection -> its exactly dequantized (din,
+    dout) f32 weight (one f32 rounding of values x scales)."""
+    if isinstance(w, Int8Weight):
+        return w.w8[i].float() * w.scale[i]
+    if hasattr(w, "w4t"):
+        return dequantize_tiled(w.w4t, w.gst, i)
+    return dequantize_int4(w.w4[i], w.gscale[i])
+
+
+@torch.no_grad()
+def dequantize_llama(llama: Llama, cfg: LlamaConfig, dtype) -> Llama:
+    """The inverse layout change of any quantized mode, for references:
+    rebuild dense `dtype` projections and head from the exactly dequantized
+    int4 / int8 values (one f32 rounding each, then the cast to `dtype`)."""
+    device = llama.embed_tokens.weight.device
+    if llama.int4 is not None:
+        weights, table = llama.int4, _FUSED
+    else:
+        weights, table = llama.proj, {n: (sub, (lin,)) for n, (sub, lin) in _PROJ.items()}
     for i, lp in enumerate(llama.layers):
         lp.self_attn = LlamaAttention(cfg, device=device, dtype=dtype)
         lp.mlp = LlamaMLP(cfg, device=device, dtype=dtype)
-        for name, (sub, parts) in _FUSED.items():
-            buf = llama.int4[name]
-            w = dequantize_tiled(buf.w4t, buf.gst, i)  # (din, dout)
+        for name, (sub, parts) in table.items():
+            w = _dequantized(weights[name], i)
             start = 0
             for p in parts:
                 lin = getattr(getattr(lp, sub), p)
                 lin.weight.copy_(w[:, start:start + lin.out_features].t())
                 start += lin.out_features
-    llama.int4 = None
+    llama.int4 = llama.proj = None
     if isinstance(llama.lm_head, Int8Head):
         head = llama.lm_head
         lin = nn.Linear(head.w8.shape[1], head.w8.shape[0], bias=False, device=device,
@@ -363,25 +471,30 @@ def _layer(
     attn_impl: str,
     blocks: Optional[BlockList] = None,
 ) -> torch.Tensor:
-    """One decoder block, dense or int4. With a cache (bf16/f32 `KVCache`
-    or int8 `QuantKVCache`), this layer's k/v rows are written at
+    """One decoder block, dense, fused int4 (`Llama.int4`) or per
+    projection int8 / flat int4 (`Llama.proj`). With a cache (bf16/f32
+    `KVCache` or int8 `QuantKVCache`), this layer's k/v rows are written at
     `kv_cache.index` before attention reads them; a decode window attends
     over the forward's compacted block list `blocks`."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
-    int4 = llama.int4
+    int4, proj = llama.int4, llama.proj
     plain = attn_impl == "xla"
 
     def iproj(x, name):
-        w = int4[name]
-        return int4_matmul_stacked(x, w.w4t, w.gst, layer_idx, plain=plain)
+        return int4_matmul_stacked(x, *int4[name].packed(), layer_idx, plain=plain)
+
+    def pproj(x, name):
+        return maybe_int8_matmul(x, proj[name].leaf(layer_idx), plain=plain)
 
     x = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-    if int4 is None:
+    if int4 is not None:
+        q, kx, vx = iproj(x, "wqkv").split([h * hd, k * hd, k * hd], dim=-1)
+    elif proj is not None:
+        q, kx, vx = pproj(x, "wq"), pproj(x, "wk"), pproj(x, "wv")
+    else:
         attn = lp.self_attn
         q, kx, vx = attn.q_proj(x), attn.k_proj(x), attn.v_proj(x)
-    else:
-        q, kx, vx = iproj(x, "wqkv").split([h * hd, k * hd, k * hd], dim=-1)
     q = apply_rope(q.reshape(b, t, h, hd), cos, sin)
     kx = apply_rope(kx.reshape(b, t, k, hd), cos, sin)
     vx = vx.reshape(b, t, k, hd)
@@ -421,6 +534,10 @@ def _layer(
         x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
         gate, up = iproj(x, "wgu").chunk(2, dim=-1)
         return hidden + iproj(F.silu(gate) * up, "w_down")
+    if proj is not None:
+        hidden = hidden + pproj(out, "wo")
+        x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
+        return hidden + pproj(F.silu(pproj(x, "w_gate")) * pproj(x, "w_up"), "w_down")
     hidden = hidden + lp.self_attn.o_proj(out)
 
     x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)

@@ -46,7 +46,8 @@ SIGNATURES = {
         [_P] * 6 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
     "hv_gather_cache_blocks": ([_P, _P] + [_I] * 4 + [ctypes.c_int64] * 3 + [_I, _I, _P], _I),
     "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "hv_int4_gemv": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "hv_int4_gemv": ([_P] * 5 + [_I] * 9 + [_P], _I),
+    "hv_int8_matmul": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "hv_int4_prefill": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "hv_error_string": ([_I], ctypes.c_char_p),

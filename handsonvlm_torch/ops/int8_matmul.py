@@ -1,31 +1,41 @@
-"""Weight-only int4 / int8 quantization and the int4 matmuls.
+"""Weight-only int4 / int8 quantization and the quantized matmuls.
 
-Port of the parts of `handsonvlm_tpu/ops/int8_matmul.py` that the int4
-decode mode runs (`--int4`):
+Port of `handsonvlm_tpu/ops/int8_matmul.py`, for the quantized decoders
+(`--int4`, `--int8`) and the weight layouts the JAX package's decoder takes:
 
-- `quantize_int8` / `quantize_lm_head`: per-column symmetric int8. Only the
-  head uses it; `models/llama.lm_logits` consumes it in plain PyTorch, as
-  the JAX package leaves it to XLA.
+- `quantize_int8` / `quantize_lm_head` / `quantize_stacked_int8`:
+  per-column symmetric int8 (the int8 decoder's projections and the head).
 - `quantize_int4` / `unpack_int4` / `tile_int4_stacked`: group-wise
   symmetric int4 (group 128, gcd fallback for small dims), two nibbles per
   byte (row r of a group with row r + g/2; the low nibble biased by +8),
-  re-laid out into contiguous (NB, G, g/2, BN) tiles per layer with BN
-  frozen by `pick_block_n`. Bytes and scales are bit-identical to the JAX
-  package's, so a checkpoint quantized by either package loads in the other.
-- `int4_gemv_tiled` (kernel B4b, m < INT4_PREFILL_MIN_M rows) and
-  `int4_matmul_prefill_tiled` (kernel B5b, m >= INT4_PREFILL_MIN_M): each
-  launches its hand-written Hopper kernel (`csrc/int4_gemv.cu`,
-  `csrc/int4_prefill.cu`) for CUDA tensors and runs its plain version
-  (`*_ref`) for CPU tensors. There is no fallback: on a CUDA tensor a
-  wrapper launches its kernel or raises. `<wrapper>.LAUNCHES` counts
-  launches. `int4_matmul_stacked` dispatches on rows as the JAX package
-  does (rows = B x T).
+  optionally re-laid out into contiguous (NB, G, g/2, BN) tiles per layer
+  with BN frozen by `pick_block_n`. Bytes and scales are bit-identical to
+  the JAX package's, so a checkpoint quantized by either package loads in
+  the other.
+- The kernels, each a wrapper that launches its hand-written Hopper kernel
+  for CUDA tensors and runs its plain version (`*_ref`) for CPU tensors.
+  There is no fallback: on a CUDA tensor a wrapper launches its kernel or
+  raises. `<wrapper>.LAUNCHES` counts launches.
+  - B9 `int8_matmul` (`csrc/int8_matmul.cu`): x @ (w8 * scale), f32
+    accumulation, the GEMV below INT8_TC_MIN_M rows, the tensor cores from
+    there;
+  - B4b `int4_gemv_tiled`, B4c `int4_gemv_flat` and B4a `int4_matmul`
+    (`csrc/int4_gemv.cu`, one body over the tiled and the flat address
+    map): the int4 GEMV over a stacked tiled, a stacked flat and one flat
+    matrix;
+  - B5b `int4_matmul_prefill_tiled` and B5a `int4_matmul_prefill`
+    (`csrc/int4_prefill.cu`): the prefill matmul over the stacked tiled and
+    flat layouts.
+- `int4_matmul_stacked` dispatches on the layout (5-D tiled, 4-D flat) and
+  then on rows as the JAX package does (rows = B x T); `maybe_int8_matmul`
+  takes a dense weight, an int8 {"w8", "scale"} or a flat int4
+  {"w4", "gscale"} leaf, as the JAX package's does.
 
-The two plain versions differ on purpose, as the two Pallas kernels do:
-B4b's is the exact product (per-group f32 dot products, the f32 scale
-applied to each group's partial sum); B5b's rounds x to bf16 and each
-weight to bf16(bf16(nibble) x bf16(scale)) before an f32-accumulated
-product.
+The plain versions differ on purpose, as the Pallas kernels do: B4a/B4b/B4c's
+is the exact product (per-group f32 dot products, the f32 scale applied to
+each group's partial sum); B5a/B5b's rounds x to bf16 and each weight to
+bf16(bf16(nibble) x bf16(scale)) before an f32-accumulated product; B9's is
+(x @ w8) in f32 times the column scale, since bf16(int8) is exact.
 """
 
 from __future__ import annotations
@@ -39,6 +49,14 @@ import torch
 INT4_GROUP = 128  # contraction-group size of the int4 scales
 INT4_PREFILL_MIN_M = 128  # rows from which the prefill matmul serves a projection
 INT4_GEMV_BN = 512  # widest weight tile (columns) of the tiled layout
+# rows from which B9 runs a bf16 x on the tensor cores (below, and for an
+# f32 x at any m: the GEMV). The GEMV re-reads the weights once per row; on
+# an H100 the seven 7B projections of a layer take as long on either path at
+# 24 rows (1.20 vs 1.24 ms) and 21% less on the tensor cores at 32 (1.25 vs
+# 1.57 ms; chip_smoke.py phase 2 times both). Decode windows and slot
+# batches (<= 8 rows) stay on the GEMV, whose rows sum alone
+INT8_TC_MIN_M = 25
+INT8_GEMV_BN = 256  # columns of one B9 GEMV block (csrc/int8_matmul.cu kGemvCols)
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +79,13 @@ def quantize_lm_head(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale (V,) f32): one scale per vocab entry, the JAX package's
     per-vocab-column int8 head in the transposed layout."""
     return quantize_int8(weight, axis=1)
+
+
+def quantize_stacked_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, din, dout) -> (w8 (L, din, dout) int8, scale (L, dout) f32): one
+    scale per output column of each layer, the JAX package's
+    `quantize_stacked_int8`."""
+    return quantize_int8(w, axis=1)
 
 
 def int4_group(d: int, group: int = INT4_GROUP) -> int:
@@ -144,9 +169,50 @@ def dequantize_tiled(w4t: torch.Tensor, gst: torch.Tensor, layer_idx: int) -> to
     return w.permute(1, 2, 0, 3).reshape(G * 2 * half, nb * bn)
 
 
+def untile_int4_stacked(w4t: torch.Tensor, gst: torch.Tensor):
+    """The inverse of `tile_int4_stacked`: the tiled layout -> the flat
+    stacked w4 (L, G, g/2, n) and gscale (L, G, n), the bytes unchanged."""
+    L, nb, G, half, bn = w4t.shape
+    w4 = w4t.permute(0, 2, 3, 1, 4).reshape(L, G, half, nb * bn).contiguous()
+    return w4, gst.permute(0, 2, 1, 3).reshape(L, G, nb * bn).contiguous()
+
+
+def dequantize_int4(w4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """One flat matrix w4 (G, g/2, n), gscale (G, n) -> the exactly
+    dequantized (d, n) f32 weight."""
+    G, half, n = w4.shape
+    return (unpack_int4(w4, torch.float32) * gscale.float()[:, None, :]).reshape(2 * G * half, n)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+
+def int8_matmul_ref(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """x (..., d) @ w8 (d, n) in f32, times scale (n,) -> (..., n) in
+    `out_dtype`: the Pallas kernel's (x @ bf16(w8)) * scale, whose
+    bf16(int8) is exact."""
+    return ((x.float() @ w8.float()) * scale).to(out_dtype)
+
+
+def int4_matmul_ref(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ dequant(w4 (G, g/2, n), gscale (G, n)) -> (..., n) in
+    x.dtype, as y[n] = sum_g s[g, n] * sum_r x[g*g_size + r] * q[g, r, n]
+    in f32: the exact product, up to f32 summation."""
+    G, half, n = w4.shape
+    x2 = x.reshape(-1, G, 2 * half).float()
+    part = torch.einsum("mgr,grn->mgn", x2, unpack_int4(w4, torch.float32))
+    y = (part * gscale.float()[None]).sum(dim=1)
+    return y.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def int4_gemv_flat_ref(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor,
+                       layer_idx: int) -> torch.Tensor:
+    """`int4_matmul_ref` over layer `layer_idx` of the flat stacked layout
+    w4 (L, G, g/2, n), gscale (L, G, n)."""
+    return int4_matmul_ref(x, w4[layer_idx], gscale[layer_idx])
 
 
 def int4_gemv_tiled_ref(x: torch.Tensor, w4t: torch.Tensor, gst: torch.Tensor,
@@ -180,6 +246,15 @@ def int4_matmul_prefill_tiled_ref(x: torch.Tensor, w4t: torch.Tensor, gst: torch
     return y.reshape(*x.shape[:-1], nb * bn).to(x.dtype)
 
 
+def int4_matmul_prefill_ref(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor,
+                            layer_idx: int) -> torch.Tensor:
+    """`int4_matmul_prefill_tiled_ref` over the flat stacked layout: the flat
+    layout is the tiled one with a single tile of all n columns."""
+    L, G, half, n = w4.shape
+    return int4_matmul_prefill_tiled_ref(x, w4.view(L, 1, G, half, n),
+                                         gscale.view(L, 1, G, n), layer_idx)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -201,30 +276,42 @@ def gemv_split(nb: int, groups: int, n_sm: int) -> Tuple[int, int]:
     return -(-groups // per), per
 
 
-def _check_tiled(x, w4t, gst, layer_idx, what):
+def _int4_geometry(x, w, s, layer_idx, what):
+    """Check an int4 call; returns (flat, NB, G, g/2, BN) where BN is the
+    tiled layout's tile width, and for the flat layout (L, G, g/2, n) the
+    width `pick_block_n` gives the same weight's tiled layout."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} takes bf16 or f32 x, got {x.dtype}")
-    if w4t.dtype != torch.int8 or gst.dtype != torch.float32 or w4t.dim() != 5:
-        raise TypeError(f"{what} takes int8 (L, NB, G, g/2, BN) tiles and f32 "
-                        f"scales, got {w4t.dtype} {tuple(w4t.shape)} / {gst.dtype}")
-    L, nb, G, half, bn = w4t.shape
-    if tuple(gst.shape) != (L, nb, G, bn):
-        raise ValueError(f"scales {tuple(gst.shape)} do not fit tiles {tuple(w4t.shape)}")
+    flat = w.dim() == 4
+    if w.dtype != torch.int8 or s.dtype != torch.float32 or w.dim() not in (4, 5):
+        raise TypeError(f"{what} takes int8 tiles (L, NB, G, g/2, BN) or a flat stack "
+                        f"(L, G, g/2, n) and f32 scales, got {w.dtype} {tuple(w.shape)} / "
+                        f"{s.dtype}")
+    if flat:
+        L, G, half, n = w.shape
+        bn = pick_block_n(n, G * half)
+        nb = n // bn
+        want_s = (L, G, n)
+    else:
+        L, nb, G, half, bn = w.shape
+        want_s = (L, nb, G, bn)
+    if tuple(s.shape) != want_s:
+        raise ValueError(f"scales {tuple(s.shape)} do not fit weights {tuple(w.shape)}")
     if x.shape[-1] != G * 2 * half:
         raise ValueError(f"x has {x.shape[-1]} features, the weight {G * 2 * half}")
     if not 0 <= layer_idx < L:
         raise ValueError(f"layer {layer_idx} out of range for L={L}")
-    if not (x.device == w4t.device == gst.device):
-        raise ValueError("x, w4t and gst must be on one device")
-    if not (w4t.is_contiguous() and gst.is_contiguous()):
-        raise ValueError("w4t and gst must be contiguous")
+    if not (x.device == w.device == s.device):
+        raise ValueError("x, the weights and the scales must be on one device")
+    if not (w.is_contiguous() and s.is_contiguous()):
+        raise ValueError("the weights and the scales must be contiguous")
+    return flat, nb, G, half, bn
 
 
-def _launch_gemv(x, w4t, gst, layer_idx):
+def _launch_gemv(x, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library
 
-    _check_tiled(x, w4t, gst, layer_idx, "int4 gemv")
-    _, nb, G, half, bn = w4t.shape
+    flat, nb, G, half, bn = _int4_geometry(x, w, s, layer_idx, "int4 gemv")
     if bn % 16 or bn > 16 * 256:
         raise ValueError(f"int4 gemv needs a tile width that is a multiple of 16 "
                          f"up to 4096, got {bn}")
@@ -238,19 +325,20 @@ def _launch_gemv(x, w4t, gst, layer_idx):
     lib = load_library()
     with torch.cuda.device(x.device):
         status = lib.hv_int4_gemv(
-            x2.data_ptr(), w4t[layer_idx].data_ptr(), gst[layer_idx].data_ptr(),
-            part.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            x2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
+            part.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), int(flat),
             m, nb, G, half, bn, splits, per, torch.cuda.current_stream().cuda_stream)
-    check(status, "int4_gemv_tiled")
-    int4_gemv_tiled.LAUNCHES += 1
+    check(status, counter.__name__)
+    counter.LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)
 
 
-def _launch_prefill(x, w4t, gst, layer_idx):
+def _launch_prefill(x, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library
 
-    _check_tiled(x, w4t, gst, layer_idx, "int4 prefill")
-    _, nb, G, half, bn = w4t.shape
+    flat, nb, G, half, bn = _int4_geometry(x, w, s, layer_idx, "int4 prefill")
+    if flat:  # the flat layout is the tiled one with a single tile of n columns
+        nb, bn = 1, nb * bn
     if bn % 64 or half % 8 or 2 * half > 128:
         raise ValueError(f"int4 prefill needs a tile width that is a multiple of 64 "
                          f"and a group of 16..128 in steps of 16, got {bn}, {2 * half}")
@@ -260,49 +348,146 @@ def _launch_prefill(x, w4t, gst, layer_idx):
     lib = load_library()
     with torch.cuda.device(x.device):
         status = lib.hv_int4_prefill(
-            x2.data_ptr(), w4t[layer_idx].data_ptr(), gst[layer_idx].data_ptr(),
+            x2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
             out.data_ptr(), int(x.dtype == torch.bfloat16), m, nb, G, half, bn,
             torch.cuda.current_stream().cuda_stream)
-    check(status, "int4_matmul_prefill_tiled")
-    int4_matmul_prefill_tiled.LAUNCHES += 1
+    check(status, counter.__name__)
+    counter.LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)
 
 
-def _dispatch(launch, ref, x, w4t, gst, layer_idx):
-    layer_idx = int(layer_idx)
+def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
+    from handsonvlm_torch.ops._build import check, load_library
+
+    if x.dtype not in (torch.bfloat16, torch.float32) or out_dtype not in (x.dtype,
+                                                                           torch.float32):
+        raise TypeError(f"int8 matmul takes bf16 or f32 x and writes x's dtype or f32, "
+                        f"got {x.dtype} -> {out_dtype}")
+    if w8.dtype != torch.int8 or scale.dtype != torch.float32 or w8.dim() != 2:
+        raise TypeError(f"int8 matmul takes int8 w8 (d, n) and f32 scales, got "
+                        f"{w8.dtype} {tuple(w8.shape)} / {scale.dtype}")
+    d, n = w8.shape
+    if tuple(scale.shape) != (n,) or x.shape[-1] != d:
+        raise ValueError(f"x (..., {x.shape[-1]}), w8 {tuple(w8.shape)} and scale "
+                         f"{tuple(scale.shape)} do not fit")
+    if n % 16 or d % 8:
+        raise ValueError(f"int8 matmul reads 16 bytes at a time: n must be a multiple of "
+                         f"16 and d of 8, got d={d}, n={n}")
+    if not (x.device == w8.device == scale.device):
+        raise ValueError("x, w8 and scale must be on one device")
+    if not (w8.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("w8 and scale must be contiguous")
+    x2 = x.reshape(-1, d).contiguous()
+    m = x2.shape[0]
+    if not 1 <= m < 65536 * 64:
+        raise ValueError(f"int8 matmul takes 1..{65536 * 64 - 1} rows, got {m}")
+    if tensor_cores is None:  # the dispatch; chip_smoke times both sides of it
+        tensor_cores = x.dtype == torch.bfloat16 and m >= INT8_TC_MIN_M
+    if tensor_cores and x.dtype != torch.bfloat16:
+        raise TypeError("the int8 matmul runs only a bf16 x on the tensor cores")
+    splits, per = 1, d
+    part = None
+    if not tensor_cores:
+        if m >= 65536:
+            raise ValueError(f"the int8 GEMV takes 1..65535 rows, got {m}")
+        # splits of the contraction in units of 16 rows, sized for one row
+        splits, per = gemv_split(-(-n // INT8_GEMV_BN), -(-d // 16), _num_sms(x.device.index))
+        per *= 16
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        status = lib.hv_int8_matmul(
+            x2.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            int(tensor_cores), m, d, n, splits, per, torch.cuda.current_stream().cuda_stream)
+    check(status, "int8_matmul")
+    int8_matmul.LAUNCHES += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+def _on_device(x, launch, ref, *args):
     if x.is_cuda:
-        return launch(x, w4t, gst, layer_idx)
+        return launch(x, *args)
     if x.device.type == "cpu":
-        return ref(x, w4t, gst, layer_idx)
-    raise ValueError(f"no int4 matmul for device {x.device}")
+        return ref(x, *args)
+    raise ValueError(f"no quantized matmul for device {x.device}")
+
+
+def int8_matmul(x, w8, scale, out_dtype=torch.float32) -> torch.Tensor:
+    """x (..., d) @ (w8 (d, n) int8 * scale (n,) f32) -> (..., n) in
+    `out_dtype` (f32, as the JAX package returns, or x's dtype), f32
+    accumulation (kernel B9: the GEMV, or a bf16 x of INT8_TC_MIN_M rows or
+    more on the tensor cores). CUDA tensors run the Hopper kernel; CPU
+    tensors the plain version."""
+    return _on_device(x, _launch_int8, int8_matmul_ref, w8, scale, out_dtype)
 
 
 def int4_gemv_tiled(x, w4t, gst, layer_idx) -> torch.Tensor:
     """Decode-sized x (..., d) @ dequant(w4t[layer_idx]) -> (..., n) in
-    x.dtype (kernel B4b). CUDA tensors run the Hopper kernel; CPU tensors
-    the plain version."""
-    return _dispatch(_launch_gemv, int4_gemv_tiled_ref, x, w4t, gst, layer_idx)
+    x.dtype over the tiled layout (kernel B4b)."""
+    return _on_device(x, lambda *a: _launch_gemv(*a, int4_gemv_tiled), int4_gemv_tiled_ref,
+                      w4t, gst, int(layer_idx))
+
+
+def int4_gemv_flat(x, w4, gscale, layer_idx) -> torch.Tensor:
+    """Decode-sized x (..., d) @ dequant(w4[layer_idx]) -> (..., n) in
+    x.dtype over the flat stacked layout (kernel B4c: B4b's body over the
+    flat address map, with the tile width of the same weight's tiled
+    layout, so both give the same bits)."""
+    return _on_device(x, lambda *a: _launch_gemv(*a, int4_gemv_flat), int4_gemv_flat_ref,
+                      w4, gscale, int(layer_idx))
+
+
+def int4_matmul(x, w4, gscale) -> torch.Tensor:
+    """x (..., d) @ dequant(w4 (G, g/2, n), gscale (G, n)) -> (..., n) in
+    x.dtype, one flat matrix at any row count, as the JAX package runs it
+    (kernel B4a: B4c's launch over a stack of one)."""
+    return _on_device(x, lambda x_, w, s: _launch_gemv(x_, w[None], s[None], 0, int4_matmul),
+                      int4_matmul_ref, w4, gscale)
 
 
 def int4_matmul_prefill_tiled(x, w4t, gst, layer_idx) -> torch.Tensor:
     """Prefill-sized x (..., d) @ dequant(w4t[layer_idx]) -> (..., n) in
-    x.dtype (kernel B5b). CUDA tensors run the Hopper kernel; CPU tensors
-    the plain version."""
-    return _dispatch(_launch_prefill, int4_matmul_prefill_tiled_ref, x, w4t, gst, layer_idx)
+    x.dtype over the tiled layout (kernel B5b)."""
+    return _on_device(x, lambda *a: _launch_prefill(*a, int4_matmul_prefill_tiled),
+                      int4_matmul_prefill_tiled_ref, w4t, gst, int(layer_idx))
 
 
-int4_gemv_tiled.LAUNCHES = 0
-int4_matmul_prefill_tiled.LAUNCHES = 0
+def int4_matmul_prefill(x, w4, gscale, layer_idx) -> torch.Tensor:
+    """Prefill-sized x (..., d) @ dequant(w4[layer_idx]) -> (..., n) in
+    x.dtype over the flat stacked layout (kernel B5a: B5b's kernel with one
+    tile of n columns, the same bits as B5b on the same weight)."""
+    return _on_device(x, lambda *a: _launch_prefill(*a, int4_matmul_prefill),
+                      int4_matmul_prefill_ref, w4, gscale, int(layer_idx))
 
 
-def int4_matmul_stacked(x, w4t, gst, layer_idx, *, plain: bool = False) -> torch.Tensor:
-    """x (..., d) @ dequant(w4t[layer_idx]) over the tiled layout: rows =
-    prod(x.shape[:-1]) >= INT4_PREFILL_MIN_M go to the prefill matmul,
-    fewer to the GEMV. `plain` runs the chosen op's plain version on any
-    device (the reference path)."""
-    rows = math.prod(x.shape[:-1])
-    if rows >= INT4_PREFILL_MIN_M:
-        fn = int4_matmul_prefill_tiled_ref if plain else int4_matmul_prefill_tiled
-    else:
-        fn = int4_gemv_tiled_ref if plain else int4_gemv_tiled
-    return fn(x, w4t, gst, int(layer_idx))
+for _fn in (int8_matmul, int4_gemv_tiled, int4_gemv_flat, int4_matmul,
+            int4_matmul_prefill_tiled, int4_matmul_prefill):
+    _fn.LAUNCHES = 0
+
+
+def int4_matmul_stacked(x, w4, gscale, layer_idx, *, plain: bool = False) -> torch.Tensor:
+    """x (..., d) @ dequant(layer `layer_idx`) over the tiled (5-D) or the
+    flat (4-D) stacked layout: rows = prod(x.shape[:-1]) >=
+    INT4_PREFILL_MIN_M go to the prefill matmul, fewer to the GEMV. `plain`
+    runs the chosen op's plain version on any device (the reference path)."""
+    prefill = math.prod(x.shape[:-1]) >= INT4_PREFILL_MIN_M
+    fn = {(5, True): (int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref),
+          (5, False): (int4_gemv_tiled, int4_gemv_tiled_ref),
+          (4, True): (int4_matmul_prefill, int4_matmul_prefill_ref),
+          (4, False): (int4_gemv_flat, int4_gemv_flat_ref)}[(w4.dim(), prefill)][plain]
+    return fn(x, w4, gscale, int(layer_idx))
+
+
+def maybe_int8_matmul(x, w, *, plain: bool = False) -> torch.Tensor:
+    """x @ w where w is a dense (d, n) tensor, an int8 {"w8", "scale"} leaf
+    or a flat int4 {"w4", "gscale"} leaf (one layer's views), in x.dtype,
+    as the JAX package's `maybe_int8_matmul`: w8 leaves go to B9, w4 leaves
+    to B4a (their plain versions with `plain` or on CPU tensors)."""
+    if isinstance(w, dict):
+        if "w4" in w:
+            return (int4_matmul_ref if plain else int4_matmul)(x, w["w4"], w["gscale"])
+        return (int8_matmul_ref if plain else int8_matmul)(x, w["w8"], w["scale"], x.dtype)
+    return x @ w

@@ -7,10 +7,12 @@ imports no jax, so it also runs on a machine with a card and no JAX:
 
 Tolerance, kernel vs plain version (max abs): attention 1e-2 in bf16
 (rounding of the output, and of p in the plain vit version), 1e-4 in fp32
-(summation order). The int4 matmuls: 2e-3 x max|y| plus one bf16 rounding
-step of the element in bf16 (both sides round f32 sums taken in another
-order to bf16, and a sum next to a rounding boundary lands one step apart),
-1e-4 x max|y| in fp32 (summation order).
+(summation order). The int4 and int8 matmuls: 2e-3 x max|y| plus one bf16
+rounding step of the element in bf16 (both sides round f32 sums taken in
+another order to bf16, and a sum next to a rounding boundary lands one step
+apart), 1e-4 x max|y| in fp32 (summation order). The flat int4 kernels
+(B4c, B5a) give the tiled ones' bits (B4b, B5b) on the same weight, and a
+GEMV's rows (B4b, B9) are bit-equal alone and in a window.
 """
 
 import numpy as np
@@ -29,12 +31,23 @@ from handsonvlm_torch.ops.decode_attention import (
 )
 from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from handsonvlm_torch.ops.int8_matmul import (
+    _launch_int8,
+    int4_gemv_flat,
+    int4_gemv_flat_ref,
     int4_gemv_tiled,
     int4_gemv_tiled_ref,
+    int4_matmul,
+    int4_matmul_prefill,
+    int4_matmul_prefill_ref,
     int4_matmul_prefill_tiled,
     int4_matmul_prefill_tiled_ref,
+    int4_matmul_ref,
+    int8_matmul,
+    int8_matmul_ref,
     quantize_int4,
+    quantize_stacked_int8,
     tile_int4_stacked,
+    untile_int4_stacked,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 
@@ -450,3 +463,119 @@ def test_decode_attention_kernel_row_is_the_same_alone_and_in_a_window(cuda, qua
     for tq in range(T):
         alone = attend(q[:, tq:tq + 1], *cache, 1, n - (T - 1) + tq)
         assert torch.equal(alone[:, 0], window[:, tq])
+
+
+# (din, dout) of tiny and 7B per-projection matrices, and a ragged one (d not
+# a multiple of the 64-row step, n not a multiple of the 64- or 256-column
+# tiles)
+INT8_SHAPES = {
+    "tiny_wq": (64, 64), "tiny_w_gate": (64, 128), "tiny_w_down": (128, 64),
+    "7b_wq": (4096, 4096), "7b_w_gate": (4096, 11008), "7b_w_down": (11008, 4096),
+    "ragged": (136, 208),
+}
+
+
+def int8_weights(din, dout, layers, device, seed):
+    """Random (layers, din, dout) weights quantized as
+    models/llama.quantize_llama does: (w8, scale)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return quantize_stacked_int8(0.02 * torch.randn((layers, din, dout), generator=gen,
+                                                    device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 5, 8, 24, 25, 127, 391])
+@pytest.mark.parametrize("shape", list(INT8_SHAPES))
+def test_int8_matmul_kernel(cuda, shape, m, dtype):
+    """B9 on either side of its threshold (INT8_TC_MIN_M = 25: a bf16 x
+    takes the tensor cores from there), f32 out and x's dtype out."""
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 2, cuda, seed=m)
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    x = torch.randn((1, m, din), generator=gen, device=cuda).to(dtype)
+    before = int8_matmul.LAUNCHES
+    got = int8_matmul(x, w8[1], sc[1])
+    same_dtype = int8_matmul(x, w8[1], sc[1], dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.LAUNCHES == before + 2
+    assert got.dtype == torch.float32 and got.shape == (1, m, dout)
+    assert same_dtype.dtype == dtype
+    assert_int4_close(got, int8_matmul_ref(x, w8[1], sc[1]), torch.float32)
+    assert_int4_close(same_dtype, int8_matmul_ref(x, w8[1], sc[1], dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tensor_cores", [False, True], ids=["gemv", "tensor_cores"])
+@pytest.mark.parametrize("m", [8, 64, 200])
+@pytest.mark.parametrize("shape", ["7b_wq", "tiny_w_down", "ragged"])
+def test_int8_matmul_kernel_paths(cuda, shape, m, tensor_cores):
+    """Each of B9's two paths, forced, on either side of the dispatch's
+    threshold (a bf16 x; an f32 x takes the GEMV at any m)."""
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 1, cuda, seed=m)
+    x = torch.randn((m, din), generator=torch.Generator(device=cuda).manual_seed(m),
+                    device=cuda).to(torch.bfloat16)
+    got = _launch_int8(x, w8[0], sc[0], torch.float32, tensor_cores=tensor_cores)
+    assert_int4_close(got, int8_matmul_ref(x, w8[0], sc[0]), torch.float32)
+    if tensor_cores:
+        with pytest.raises(TypeError, match="bf16"):
+            _launch_int8(x.float(), w8[0], sc[0], torch.float32, tensor_cores=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_down", "tiny_wq", "ragged"])
+def test_int8_matmul_kernel_row_is_the_same_alone_and_in_a_window(cuda, shape, dtype):
+    """Row i of a 5-row B9 call is bit-equal to that row alone: the splits
+    of the contraction do not depend on the row count."""
+    w8, sc = int8_weights(*INT8_SHAPES[shape], 2, cuda, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((5, INT8_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+    window = int8_matmul(x, w8[0], sc[0], dtype)
+    for i in range(5):
+        assert torch.equal(int8_matmul(x[i:i + 1], w8[0], sc[0], dtype)[0], window[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_flat_kernels_are_bit_equal_to_tiled(cuda, shape, dtype):
+    """B4c and B5a over the flat layout (the tiled one's inverse permute)
+    give B4b's and B5b's bits on the same weight, and agree with their
+    plain versions."""
+    w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=5)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for m, flat, tiled, ref in ((1, int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref),
+                                (5, int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref),
+                                (127, int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref),
+                                (128, int4_matmul_prefill, int4_matmul_prefill_tiled,
+                                 int4_matmul_prefill_ref),
+                                (391, int4_matmul_prefill, int4_matmul_prefill_tiled,
+                                 int4_matmul_prefill_ref)):
+        x = torch.randn((1, m, INT4_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+        before = flat.LAUNCHES
+        got = flat(x, w4, gs, 1)
+        torch.cuda.synchronize()
+        assert flat.LAUNCHES == before + 1
+        assert torch.equal(got, tiled(x, w4t, gst, 1))
+        assert_int4_close(got, ref(x, w4, gs, 1), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 5, 391])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_matmul_kernel(cuda, shape, m, dtype):
+    """B4a: one flat matrix, the GEMV at any row count."""
+    din, dout = INT4_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w4, gs = quantize_int4(0.02 * torch.randn((din, dout), generator=gen, device=cuda))
+    x = torch.randn((m, din), generator=gen, device=cuda).to(dtype)
+    before = int4_matmul.LAUNCHES
+    got = int4_matmul(x, w4, gs)
+    torch.cuda.synchronize()
+    assert int4_matmul.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (m, dout)
+    assert_int4_close(got, int4_matmul_ref(x, w4, gs), dtype)

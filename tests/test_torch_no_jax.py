@@ -166,6 +166,47 @@ def test_chip_smoke_long_prompt_and_spec_phases_run_without_jax():
     assert "phases 9-10 ran" in proc.stdout and "run B (bank" in proc.stdout
 
 
+def test_chip_smoke_int8_and_flat_int4_phases_run_without_jax():
+    """chip_smoke's phases 11-13 at the tiny preset on the CPU (bf16
+    activations, plain versions, no launches): the int8 chat turns, the
+    int8 speculative phase with the window's rows bit-equal to single
+    steps, the batched int8 evaluation, the int8 kernel-vs-plain phase, the
+    fused flat int4 layout bit-equal to the tiled one, and phase 6 over the
+    tiled and the per-projection flat layouts; jax and the JAX package stay
+    unloaded."""
+    code = ("import torch\n"
+            "import chip_smoke as cs\n"
+            "def load(q):\n"
+            "    model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                               quantize=q)\n"
+            "    for p in model.parameters():\n"
+            "        p.data = p.data.to(torch.bfloat16)\n"
+            "    return model, cfg, tok\n"
+            "model, cfg, tok = load('int8')\n"
+            "video, frame_map = cs.random_video(cfg)\n"
+            "run = cs.phase_chat(model, cfg, tok, video, frame_map, new_tokens=4)\n"
+            "assert run['prefills'] == 3 and not any(run['launches'].values()), run\n"
+            "assert cs.serving_launches(model, cfg, None, 5, 1, 0)['int8_matmul'] == 7 * 2 * 6\n"
+            "cs.phase_spec(model, cfg, tok, video, frame_map, kv_quant='int8', new_tokens=8,\n"
+            "              window_exact=True)\n"
+            "st = cs.phase_eval_batched(model, cfg, tok, n_clips=3, slots=2, chunk=4, max_new=6,\n"
+            "                           max_len=1024)\n"
+            "assert st['batched_tok_s'] > 0, st\n"
+            "cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
+            "model, cfg, tok = load('int4')\n"
+            "counts, proj = cs.phase_flat_int4(model, cfg, tok, video, frame_map)\n"
+            "assert sorted(proj) == sorted(cs.projection_shapes(cfg.llama)), sorted(proj)\n"
+            "counts = cs.phase_quant_kernel_vs_plain(\n"
+            "    model, cfg, tok, video, frame_map,\n"
+            "    layouts={'tiled': (model.llama.int4, None), 'flat': (None, proj)})\n"
+            "assert sorted(counts) == ['flat', 'tiled'], counts\n"
+            "print('phases 11-13 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phases 11-13 ran" in proc.stdout and "bit-equal: ok" in proc.stdout
+
+
 def test_profile_cli_rehearses_on_cpu():
     """The profiler's CLI runs its control flow at the tiny preset on the
     CPU, reports no device numbers there, and loads no jax."""
@@ -180,6 +221,23 @@ def test_profile_cli_rehearses_on_cpu():
             "assert res['decode_step']['device_ms'] is None, res\n"
             "assert res['prefill']['wall_ms'] > 0, res\n"
             "assert res['verify_forward']['wall_ms'] > 0, res\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_profile_cli_int8_rehearses_on_cpu():
+    """The profiler's CLI with `--quantize int8` at the tiny preset on the
+    CPU, jax-free."""
+    code = ("import json, sys, runpy, io, contextlib\n"
+            "sys.argv = ['profile', '--preset', 'tiny', '--device', 'cpu', '--quantize',\n"
+            "            'int8', '--steps', '2']\n"
+            "out = io.StringIO()\n"
+            "with contextlib.redirect_stdout(out):\n"
+            "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
+            "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
+            "assert res['quantize'] == 'int8' and res['decode_step']['wall_ms'] > 0, res\n"
+            + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -346,7 +346,7 @@ def test_int4_prefill_matches_jax(int4_pair):
 def test_quantize_llama_int4_round_trip():
     """quantize_llama_int4 on a dense port model gives the bytes the JAX
     package's quantize_llama_int4 gives for the same weights, and
-    dequantize_llama_int4 restores the exactly dequantized dense weights."""
+    dequantize_llama restores the exactly dequantized dense weights."""
     params = jax.jit(lambda k: init_handsonvlm(k, jax_tiny_config()))(jax.random.PRNGKey(1))
     cfg = get_config("tiny")
     model = build_model(cfg, "cpu")
@@ -361,7 +361,7 @@ def test_quantize_llama_int4_round_trip():
     np.testing.assert_array_equal(model.llama.lm_head.w8.numpy(),
                                   np.asarray(want["lm_head"]["w8"]).T)
     assert model.llama.layers[0].self_attn is None  # dense projections freed
-    tllama.dequantize_llama_int4(model.llama, cfg.llama, torch.float32)
+    tllama.dequantize_llama(model.llama, cfg.llama, torch.float32)
     dense = dense_from_int4(want, cfg.llama)
     np.testing.assert_array_equal(model.llama.layers[1].mlp.down_proj.weight.numpy(),
                                   np.asarray(dense["layers"]["mlp"]["w_down"])[1].T)

@@ -191,9 +191,27 @@ def test_chat_cli_spec_end_to_end(tmp_path, flags):
     assert " tok / " in out and " fwd]" in out  # the speculative reply's yield
 
 
-@pytest.mark.parametrize("flag", ["--int8"])
-def test_chat_flags_not_ported_raise(monkeypatch, flag):
+@pytest.mark.parametrize("flags", [("--int8",), ("--int8", "--kv-int8"),
+                                   ("--int8", "--kv-int8", "--spec", "3")],
+                         ids=["int8", "int8_kv8", "int8_kv8_spec"])
+def test_chat_cli_int8_end_to_end(tmp_path, flags):
+    out = _run_chat_cli(tmp_path, *flags)
+    assert ("--spec" in flags) == (" fwd]" in out)
+
+
+def test_chat_cli_int8_builds_the_int8_decoder(monkeypatch):
+    """--int8 loads the int8 decoder (and wins over --int4, as in the JAX
+    package's CLI)."""
+    seen = {}
+
+    def load(path, preset, device, quantize=None):
+        seen["quantize"] = quantize
+        raise SystemExit(0)
+
+    monkeypatch.setattr(chat, "load_pretrained_model", load)
     monkeypatch.setattr(sys, "argv", ["chat", "--model-path", "random:tiny", "--preset",
-                                      "tiny", "--device", "cpu", "--path", "x.jpg", flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+                                      "tiny", "--device", "cpu", "--path", "x.jpg", "--int8",
+                                      "--int4"])
+    with pytest.raises(SystemExit):
         chat.main()
+    assert seen["quantize"] == "int8"
