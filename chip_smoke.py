@@ -78,10 +78,26 @@ Phases (each prints its lines; the last line is the JSON status):
    model's (B4b, B5b); (b) the seven per-projection flat leaves, sliced by
    columns from the fused flat buffers (B4a on every projection): exact
    launches and phase 6's rule, run inside phase 6 against the same fp32
-   reference.
+   reference;
+14. training at 7B (`train/`: `make_train_step`, `make_optimizer`), batch
+   1, one synthetic sample of 2048 rows after the splice (10 unique
+   frames), launches exact per step, wall ms, tokens/s and peak memory per
+   step: (a) LoRA r=128 alpha=256 over the bf16 base, remat "full", three
+   steps (B3 forward and recompute, B3b): the loss finite, the base, CLIP
+   and norms bit-identical, the adapters moved; (e) one step's adapter
+   gradients through the kernels against the plain route, phase 4's rule
+   (the fp32 plain route on an fp32 copy is the reference); (b) QLoRA int4,
+   the base quantized to tiled int4, three steps through B5b and B7b, the
+   packed weights bit-identical; (c) the same weights in the flat layout,
+   one step through B5a and B7a; (d) QLoRA int8 on the int8 model, one step
+   through B9 and its plain backward.
 
-Phases 7 to 10 and 13a run before phases 4 and 6 (which convert the
-model), on the model each chat phase loaded.
+Phase 2 also checks B3b (the flash backward) at T = S = 2048 and 4096 and
+B7a / B7b (the int4 transpose products) at the four fused 7B projections,
+m = 16 and 2048. Phase 14 a-c runs right after phase 2 on its own
+`random:7b` model, 14d on the int8 model before phase 11. Phases 7 to 10
+and 13a run before phases 4 and 6 (which convert the model), on the model
+each chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -89,6 +105,7 @@ nvcc, and when any check fails: no phase catches its own failure.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -101,12 +118,12 @@ import torch
 import torch.nn.functional as F
 
 from handsonvlm_torch.infer import sampler
-from handsonvlm_torch.infer.builder import load_pretrained_model
+from handsonvlm_torch.infer.builder import build_model, load_pretrained_model
 from handsonvlm_torch.config import get_config
 from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
 from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
-from handsonvlm_torch.infer.profile import random_video
+from handsonvlm_torch.infer.profile import random_video, train_batch
 from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
 from handsonvlm_torch.models.llama import (
     Int4Weight,
@@ -117,10 +134,12 @@ from handsonvlm_torch.models.llama import (
     int4_projection_shapes,
     lm_logits,
     projection_shapes,
+    quantize_llama_int4,
 )
+from handsonvlm_torch.models.lora import LoRA, init_lora
 from handsonvlm_torch.ops import _build
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
-from handsonvlm_torch.ops.attention import attention_xla
+from handsonvlm_torch.ops.attention import FLASH_MIN_T, attention_xla
 from handsonvlm_torch.ops.decode_attention import (
     block_list,
     decode_attention,
@@ -130,7 +149,12 @@ from handsonvlm_torch.ops.decode_attention import (
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
 )
-from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from handsonvlm_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 from handsonvlm_torch.ops.int8_matmul import (
     INT8_TC_MIN_M,
     _launch_int8,
@@ -145,6 +169,10 @@ from handsonvlm_torch.ops.int8_matmul import (
     int4_matmul_prefill_tiled,
     int4_matmul_prefill_tiled_ref,
     int4_matmul_ref,
+    int4_matmul_T_flat,
+    int4_matmul_T_flat_ref,
+    int4_matmul_T_tiled,
+    int4_matmul_T_tiled_ref,
     int8_matmul,
     int8_matmul_ref,
     quantize_int4,
@@ -155,6 +183,8 @@ from handsonvlm_torch.ops.int8_matmul import (
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 from handsonvlm_torch.serve.continuous import ContinuousEngine
 from handsonvlm_torch.serve.scheduler import ContinuousScheduler
+from handsonvlm_torch.train.step import loss_fn, make_train_step
+from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
 
 # kernel vs plain version, max abs error for attention (bf16 rounds p and
 # the output; fp32 differs only in summation order)
@@ -167,6 +197,16 @@ INT4_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 # the bf16 plain path's distance
 FP32_REL_L2 = 1e-4
 BF16_VS_PLAIN = 1.2
+# gradients (B3b) per element: |got - want| <= GRAD_RTOL x (|want| + the rms
+# of want's (token, head) row) + GRAD_FLOOR x the rms of its block of
+# GRAD_BLOCK tokens; in bf16 two rounding steps of the element (both round
+# p and ds alike, and their f32 sums, taken in another order, once; now and
+# then a ds lands one step apart, 1.15 steps read at 4096 keys) plus two of
+# the row's typical entry (an entry that cancels); the floor holds a row
+# that cancels whole to f32 noise (a causal first query row: p = 1 on its
+# one key, so dp = delta but for the sums' order)
+GRAD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+GRAD_FLOOR, GRAD_BLOCK = 2.0 ** -12, 64
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -181,6 +221,13 @@ TIMING_LAYERS = 4  # weights cycled while timing, so each launch finds L2 cold
 SERVE_SLOTS, SERVE_LEN = 8, 4096
 FRAG_LEN = 4000  # valid positions of the fragmented serving cache
 SPIN_CYCLES = 200_000_000  # ~0.1 s of the card's clock ahead of a timed loop
+# one training sample: 2048 rows after the splice, the reference's
+# model_max_length and the first row count at which "auto" takes B3 / B3b
+TRAIN_ROWS = 2048
+LORA_R, LORA_ALPHA = 128, 256.0  # the reference's --lora_enable recipe
+TRAIN_LR = 2e-5  # the reference recipe's (scripts/finetune.sh)
+TRAIN_T = (2048, 4096)  # B3b's checked lengths (T = S, causal)
+T_ROWS = (16, 2048)  # B7a / B7b's checked row counts
 
 # every kernel wrapper by the name chip_smoke reports it under
 WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
@@ -190,7 +237,9 @@ WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
             "gather_cache_blocks": gather_cache_blocks,
             "flash_attention": flash_attention, "decode_attention": decode_attention,
             "int8_matmul": int8_matmul, "int4_gemv_flat": int4_gemv_flat,
-            "int4_matmul_prefill": int4_matmul_prefill, "int4_matmul": int4_matmul}
+            "int4_matmul_prefill": int4_matmul_prefill, "int4_matmul": int4_matmul,
+            "flash_attention_bwd": flash_attention_bwd,
+            "int4_matmul_T_tiled": int4_matmul_T_tiled, "int4_matmul_T_flat": int4_matmul_T_flat}
 
 
 def log(msg: str) -> None:
@@ -922,12 +971,185 @@ def check_decode_attention_single() -> dict:
             "max_abs_err": max(errs[torch.bfloat16]), **row}
 
 
+def _grad_limit(want: torch.Tensor, rtol: float) -> torch.Tensor:
+    """The per-element limit of a gradient (B, N, heads, D): rtol x (|want|
+    + its (token, head) row's rms) + GRAD_FLOOR x the rms of its row's block
+    of GRAD_BLOCK tokens."""
+    ms = want.pow(2).mean(-1)  # (B, N, H)
+    block = torch.arange(ms.shape[1], device=want.device) // GRAD_BLOCK
+    sums = torch.zeros((ms.shape[0], int(block[-1]) + 1, ms.shape[2]),
+                       device=want.device).index_add_(1, block, ms)
+    local = (sums / torch.bincount(block)[None, :, None])[:, block]
+    return (rtol * (want.abs() + ms.sqrt()[..., None])
+            + GRAD_FLOOR * local.sqrt()[..., None])
+
+
+def _check_grad(name, got, want, want32, dtype, rows):
+    """A gradient (B, N, heads, D) against its plain version per element
+    (`_grad_limit`); in bf16 also phase 4's rule against `want32`, the
+    plain version in fp32 on the same inputs: the kernel at most
+    BF16_VS_PLAIN x the bf16 plain version's relative L2 distance from
+    it."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    limit = _grad_limit(want, GRAD_RTOL[dtype])
+    worst = float((diff / limit.clamp(min=1e-30)).max())
+    err = float(diff.max())
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= limit).all())
+    rows.append(err)
+    l2 = ""
+    if want32 is not None:
+        d_k, d_p = _rel(got, want32), _rel(want, want32)
+        ok = ok and d_k <= BF16_VS_PLAIN * d_p
+        l2 = (f"; relative L2 from fp32 plain: kernel {d_k:.3e}, bf16 plain {d_p:.3e} "
+              f"(ratio {d_k / d_p:.3f}, limit {BF16_VS_PLAIN})")
+    log(f"  {name} {str(dtype).split('.')[-1]}: max_abs_err={err:.3e}, worst element "
+        f"{worst:.3f} x its limit (rtol {GRAD_RTOL[dtype]:.2e}){l2} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version")
+
+
+def check_flash_attention_bwd() -> dict:
+    """B3b (the dq kernel, then the dk/dv kernel) against its plain version
+    on the forward kernel's output and logsumexp: T = S = 2048 and 4096
+    causal (bf16; 2048 also fp32), a 1024-row prefill at q_offset 1024 over
+    2048 keys, and a right-padded key mask (a training row's tail). Timed at
+    T = S = 2048 and 4096 against the plain version and the backward of
+    scaled_dot_product_attention (its forward outside the timed loop)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    h, d = 32, 128
+    cases = [(t, t, 0, 0, torch.bfloat16) for t in TRAIN_T] + [
+        (2048, 2048, 0, 0, torch.float32), (1024, 2048, 1024, 0, torch.bfloat16),
+        (2048, 2048, 0, 117, torch.bfloat16)]
+    for t, s, q_offset, right_pad, dtype in cases:
+        q, k, v = _rand(gen, (1, t, h, d), dtype), _rand(gen, (1, s, h, d), dtype), \
+            _rand(gen, (1, s, h, d), dtype)
+        mask = None
+        if right_pad:
+            mask = torch.ones((1, s), dtype=torch.bool, device="cuda")
+            mask[:, s - right_pad:] = False
+        out, lse = flash_attention(q, k, v, key_mask=mask, q_offset=q_offset)
+        do = _rand(gen, (1, t, h, d), dtype)
+        got = flash_attention_bwd(q, k, v, out, lse, do, key_mask=mask, q_offset=q_offset)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, key_mask=mask, q_offset=q_offset)
+        want32 = [None] * 3
+        if dtype == torch.bfloat16:
+            want32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse,
+                                             do.float(), key_mask=mask, q_offset=q_offset)
+        for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
+            _check_grad(f"B3b T={t} S={s} q_offset={q_offset} right_pad={right_pad} {name}",
+                        g, w, w32, dtype, errs[dtype])
+        del q, k, v, out, lse, do, got, want, want32
+        torch.cuda.empty_cache()
+
+    rows, Lt = {}, 4
+    log("  B3b time, T = S causal, (1, T, 32, 128) bf16, ms per layer (both kernels): T, "
+        "kernel, plain, library (sdpa backward), bound")
+    for t in TRAIN_T:
+        q, k, v = (_rand(gen, (Lt, t, h, d), torch.bfloat16) for _ in range(3))
+        do = _rand(gen, (1, t, h, d), torch.bfloat16)
+        fwd = [flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(Lt)]
+        ms = cuda_time_ms(lambda i: flash_attention_bwd(
+            q[i % Lt:i % Lt + 1], k[i % Lt:i % Lt + 1], v[i % Lt:i % Lt + 1],
+            fwd[i % Lt][0], fwd[i % Lt][1], do), iters=20)
+        plain_ms = cuda_time_ms(lambda i: flash_attention_bwd_ref(
+            q[i % Lt:i % Lt + 1], k[i % Lt:i % Lt + 1], v[i % Lt:i % Lt + 1],
+            fwd[i % Lt][0], fwd[i % Lt][1], do), iters=3, warmup=1)
+        leaves = [[x[i:i + 1].transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+                  for i in range(Lt)]
+        outs = [F.scaled_dot_product_attention(*lv, is_causal=True) for lv in leaves]
+        do_t = do.transpose(1, 2)
+        library_ms = cuda_time_ms(lambda i: torch.autograd.grad(
+            outs[i % Lt], leaves[i % Lt], do_t, retain_graph=True), iters=20)
+        pairs = t * (t + 1) // 2
+        # the function's five products (S, dP, dV, dK, dQ); the two-kernel
+        # design's second S and dP are not counted
+        flops = 5 * 2 * pairs * h * d
+        nbytes = 8 * t * h * d * 2 + 2 * h * t * 4  # q k v O dO dq dk dv, lse and delta
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"    {t:5d}  {ms:8.4f}  {plain_ms:8.4f}  {library_ms:8.4f}  {bound_ms:.4f} "
+            f"({bound_by}; {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s)")
+        rows[t] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        del q, k, v, do, fwd, leaves, outs
+        torch.cuda.empty_cache()
+    # the row reported is the training shape (T = S = 2048)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "handsonvlm_torch/csrc/flash_attention.cu",
+            "replaces": "handsonvlm_tpu/ops/flash_attention.py:303",
+            "max_abs_err": max(errs[torch.bfloat16]), **rows[TRAIN_ROWS]}
+
+
+def check_int4_transpose() -> list:
+    """B7b (tiled) and B7a (flat) against their plain versions at the four
+    fused 7B projections, m = 16 and 2048 (bf16 and fp32 dy), the flat
+    kernel bit-equal to the tiled one on the same weight; then both timed
+    over a layer's four projections at m = 2048 and 16 against the plain
+    version and torch.mm of dy with the dequantized bf16 weight
+    (transposed; upcast outside the timed loop), TIMING_LAYERS layers
+    cycled."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = int4_projection_shapes(get_config("7b").llama)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    Lt = TIMING_LAYERS
+    kernels = {"B7b": (int4_matmul_T_tiled, int4_matmul_T_tiled_ref),
+               "B7a": (int4_matmul_T_flat, int4_matmul_T_flat_ref)}
+    t = {(k, m): [0.0] * 5 for k in kernels for m in T_ROWS}  # kernel plain library bytes flops
+    for proj, (din, dout) in shapes.items():
+        w4t, gst = _int4_stack(din, dout, Lt, gen)
+        w4, gs = untile_int4_stacked(w4t, gst)
+        weights = {"B7b": (w4t, gst), "B7a": (w4, gs)}
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in T_ROWS:
+                dy = _rand(gen, (1, m, dout), dtype)
+                got = {}
+                for k, (fn, ref) in kernels.items():
+                    got[k] = fn(dy, *weights[k], m % Lt)
+                    _check_int4(f"{k} {proj} {dout}->{din} m={m}", got[k],
+                                ref(dy, *weights[k], m % Lt), dtype, errs[dtype])
+                if not torch.equal(got["B7a"], got["B7b"]):
+                    raise AssertionError(f"B7a {proj} m={m}: not bit-equal to B7b")
+        w_dense = [dequantize_tiled(w4t, gst, i).to(torch.bfloat16) for i in range(Lt)]
+        for m in T_ROWS:
+            dy = _rand(gen, (1, m, dout), torch.bfloat16)
+            lib = cuda_time_ms(lambda i: torch.mm(dy[0], w_dense[i % Lt].t()))
+            for k, (fn, ref) in kernels.items():
+                w, sc = weights[k]
+                row = t[(k, m)]
+                row[0] += cuda_time_ms(lambda i: fn(dy, w, sc, i % Lt))
+                row[1] += cuda_time_ms(lambda i: ref(dy, w, sc, i % Lt), iters=3, warmup=1)
+                row[2] += lib
+                row[3] += w4t[0].numel() + gst[0].numel() * 4 + m * (din + dout) * 2
+                row[4] += 2 * m * din * dout
+        del w4t, gst, w4, gs, w_dense, weights
+        torch.cuda.empty_cache()
+    out = []
+    for k, (fn, _) in kernels.items():
+        for m in T_ROWS:
+            ms, plain_ms, library_ms, nbytes, flops = t[(k, m)]
+            bound_ms, bound_by = bound(nbytes, flops)
+            log(f"  {k} ({fn.__name__}) time, a layer's four projections at m={m} (bf16, {Lt} "
+                f"layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"(torch.mm, dequantized bf16 weight) {library_ms:.4f} ms, bound {bound_ms:.4f} "
+                f"ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s")
+        ms, plain_ms, library_ms, nbytes, flops = t[(k, TRAIN_ROWS)]
+        bound_ms, bound_by = bound(nbytes, flops)
+        out.append({"name": fn.__name__, "route": "cuda",
+                    "source": "handsonvlm_torch/csrc/int4_transpose.cu",
+                    "replaces": ("handsonvlm_tpu/ops/int8_matmul.py:805" if k == "B7b"
+                                 else "handsonvlm_tpu/ops/int8_matmul.py:858"),
+                    "max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
 def phase_kernels() -> list:
     log("phase 2: kernels against their plain versions")
     return [check_decode_attention(), check_vit_attention(), check_int4_gemv(),
             check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks(),
             check_flash_attention(), check_decode_attention_single(), check_int8_matmul(),
-            *check_int4_flat()]
+            *check_int4_flat(), check_flash_attention_bwd(), *check_int4_transpose()]
 
 
 def reset_launches() -> None:
@@ -1783,6 +2005,204 @@ def phase_flat_int4(model, cfg, tokenizer, video, frame_map):
     return counts, proj
 
 
+def _host_copy(module) -> dict:
+    """The module's tensors copied to the host: the bit-identity check's
+    reference, kept off the card so the steps' peak memory is their own."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+
+def _bit_identical(module, before: dict, what: str) -> None:
+    changed = [k for k, v in module.state_dict().items() if not torch.equal(v.cpu(), before[k])]
+    log(f"  {what} bit-identical after the steps: {'ok' if not changed else 'FAIL'} "
+        f"({len(before)} tensors)")
+    if changed:
+        raise AssertionError(f"{what} changed in training: {changed[:5]}")
+
+
+def _moved(model, before: torch.Tensor, what: str) -> None:
+    delta = float((model.lora.adapters["wq"].b.detach() - before).abs().max())
+    log(f"  {what}: the adapters' b moved by up to {delta:.3e}")
+    if not delta > 0:
+        raise AssertionError(f"{what}: the adapters did not move")
+
+
+def _train_launches(cfg, rows, **extra) -> dict:
+    """Kernel launches of one train step: CLIP once (frozen, no graph); with
+    a sample of FLASH_MIN_T rows or more, B3 per layer in the forward and
+    again in its recompute (remat), B3b once per layer; `extra` per layer."""
+    n_layers = cfg.llama.num_layers
+    want = {"vit_attention": cfg.vision.num_layers + cfg.vision.select_layer + 1}
+    if rows >= FLASH_MIN_T:
+        want.update(flash_attention=2 * n_layers, flash_attention_bwd=n_layers)
+    want.update({k: v * n_layers for k, v in extra.items()})
+    return want
+
+
+def _train_steps(model, cfg, opt, batch, steps: int, want: dict, label: str, remat="full"):
+    """`steps` train steps (attn_impl="auto"), each with the launch counts
+    set to 0 before it and held to `want` after it; per step the loss, wall
+    ms, tokens/s and peak device memory. Returns (metrics, last counts)."""
+    device = model.llama.embed_tokens.weight.device
+    cuda = device.type == "cuda"
+    rows = batch["input_ids"].shape[1] + cfg.num_visual_tokens - 1
+    step = make_train_step(cfg, opt, attn_impl="auto", remat=remat)
+    state = create_train_state(model, opt)
+    out = []
+    for i in range(steps):
+        reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        t0 = time.perf_counter()
+        m = step(state, batch, 0)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        log(f"  {label} step {i}: loss {m['loss']:.4f} (text {m['text_loss']:.4f}, traj "
+            f"{m['traj_loss']:.4f}, kl {m['traj_kl_loss']:.4f}), grad_norm {m['grad_norm']:.4f}; "
+            f"wall {wall:.1f} ms, {rows / wall * 1e3:.1f} tokens/s, peak {peak:.3f} GiB")
+        launched = {k: v for k, v in counts.items() if v}
+        log(f"    launches {launched} (expect {want})")
+        if cuda and launched != want:
+            raise AssertionError(f"{label}: launches {launched}, expected {want}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: metrics not finite: {m}")
+        out.append(m)
+    return out, counts
+
+
+def _lora_grads(model, cfg, batch, eps, impl) -> torch.Tensor:
+    """The adapters' gradients of one step's loss (no update), flattened."""
+    device = model.llama.embed_tokens.weight.device
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, cfg, batch, eps=eps, attn_impl=impl, remat="full")
+    loss.backward()
+    return torch.cat([p.grad.float().flatten() for p in model.lora.parameters()])
+
+
+def phase_train_grads(model, cfg, batch, quantize=None, label="14e") -> None:
+    """14e: one step's adapter gradients from the kernel route ("auto")
+    against the plain route ("xla": plain attention and plain quantized
+    products, B7's plain version their backward) in the model's dtype, and
+    against the plain route in fp32 (a copy of the model and adapters with
+    fp32 activations over the same `quantize`d weights, the reference), the
+    same CVAE draws in all three. The kernel route may lie at most
+    BF16_VS_PLAIN x the plain route's relative L2 distance from the
+    reference."""
+    device = model.llama.embed_tokens.weight.device
+    gen = torch.Generator(device=device).manual_seed(14)
+    eps = torch.randn((8, cfg.traj.latent_dim), generator=gen, device=device)
+    g_k = _lora_grads(model, cfg, batch, eps, "auto")
+    g_p = _lora_grads(model, cfg, batch, eps, "xla")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = build_model(cfg32, device, quantize=quantize)
+    m32.lora = LoRA(cfg.llama, model.lora.adapters["wq"].a.shape[-1], 1.0, device=device)
+    m32.load_state_dict(model.state_dict())
+    g_32 = _lora_grads(m32, cfg32, batch, eps, "xla")
+    del m32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    model.zero_grad(set_to_none=True)
+    d_k, d_p = _rel(g_k, g_32), _rel(g_p, g_32)
+    log(f"  {label} adapter gradients ({g_k.numel()} values), relative L2 from the fp32 plain "
+        f"route: kernels {d_k:.3e}, plain {d_p:.3e} (ratio {d_k / d_p if d_p else float('nan'):.3f}, "
+        f"limit {BF16_VS_PLAIN}); kernels vs plain {_rel(g_k, g_p):.3e}")
+    if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
+        raise AssertionError(f"{label}: the kernel route's gradients lie {d_k:.3e} from the "
+                             f"fp32 reference, limit {BF16_VS_PLAIN * d_p:.3e}")
+
+
+def phase_train(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
+                alpha: float = LORA_ALPHA, steps: int = 3) -> dict:
+    """Phase 14a-c on a bf16 model from `random:<preset>` (quantized in place
+    on the way), batch 1, one sample of `rows` rows; returns the B3b, B7b
+    and B7a launch counts of the steps that ran them.
+
+    14a: LoRA (r, alpha) over the bf16 base, remat "full", `steps` steps: the
+    loss finite, the base, CLIP and norms bit-identical, the adapters' b
+    moved; 14e on the trained adapters; 14b: the base quantized to tiled int4
+    (QLoRA int4), fresh adapters, `steps` steps through B5b and B7b, the
+    packed weights bit-identical; 14c: the same fused projections untiled
+    to the flat layout, one step through B5a and B7a."""
+    device = model.llama.embed_tokens.weight.device
+    batch = train_batch(cfg, rows)
+    freeze = ("vision", "llama")
+    gen = torch.Generator(device=device).manual_seed(1)
+    counts = {}
+
+    def adapters():
+        model.lora = init_lora(gen, cfg.llama, r, alpha, device=device)
+        return make_optimizer(model, TRAIN_LR, freeze_top_keys=freeze), \
+            model.lora.adapters["wq"].b.detach().clone()
+
+    log(f"phase 14a: LoRA r={r} alpha={alpha:g} over the {cfg.pdtype} base, {rows} rows, "
+        f"remat full, {steps} steps")
+    opt, b0 = adapters()
+    frozen = {name: _host_copy(getattr(model, name)) for name in freeze}
+    _, c = _train_steps(model, cfg, opt, batch, steps, _train_launches(cfg, rows), "14a")
+    for name in freeze:
+        _bit_identical(getattr(model, name), frozen[name], f"14a {name}")
+    del frozen
+    _moved(model, b0, "14a")
+    counts["flash_attention_bwd"] = c["flash_attention_bwd"]
+    counts["flash_attention"] = c["flash_attention"]
+    log("phase 14e: one step's adapter gradients, kernel route against the plain route")
+    phase_train_grads(model, cfg, batch)
+
+    log(f"phase 14b: QLoRA int4 (tiled), fresh adapters, {steps} steps")
+    model.lora = opt = None
+    quantize_llama_int4(model.llama, cfg.llama)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    opt, b0 = adapters()
+    packed = _host_copy(model.llama.int4)
+    _, c = _train_steps(model, cfg, opt, batch, steps, _train_launches(
+        cfg, rows, int4_matmul_prefill_tiled=8, int4_matmul_T_tiled=4), "14b")
+    _bit_identical(model.llama.int4, packed, "14b packed int4 weights")
+    _moved(model, b0, "14b")
+    counts["int4_matmul_T_tiled"] = c["int4_matmul_T_tiled"]
+    log("phase 14e-int4: one step's adapter gradients over the tiled int4 base, kernel route "
+        "(B5b, B7b) against the plain route")
+    phase_train_grads(model, cfg, batch, quantize="int4", label="14e-int4")
+
+    log("phase 14c: QLoRA int4 over the flat layout (the same weights untiled), one step")
+    model.llama.int4 = flat_int4(model.llama, cfg.llama)
+    del packed
+    opt, b0 = adapters()
+    _, c = _train_steps(model, cfg, opt, batch, 1, _train_launches(
+        cfg, rows, int4_matmul_prefill=8, int4_matmul_T_flat=4), "14c")
+    _moved(model, b0, "14c")
+    counts["int4_matmul_T_flat"] = c["int4_matmul_T_flat"]
+    model.lora = None
+    model.requires_grad_(False)
+    return counts
+
+
+def phase_train_int8(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
+                     alpha: float = LORA_ALPHA) -> None:
+    """14d: QLoRA int8 (the JAX package's 7B recommendation): one step over
+    the int8 decoder, B9 seven times per layer in the forward and its
+    recompute, the plain backward; the int8 weights bit-identical."""
+    device = model.llama.embed_tokens.weight.device
+    log(f"phase 14d: QLoRA int8, r={r}, {rows} rows, one step")
+    model.lora = init_lora(torch.Generator(device=device).manual_seed(2), cfg.llama, r, alpha,
+                           device=device)
+    b0 = model.lora.adapters["wq"].b.detach().clone()
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=("vision", "llama"))
+    packed = _host_copy(model.llama.proj)
+    batch = train_batch(cfg, rows)
+    _train_steps(model, cfg, opt, batch, 1, _train_launches(cfg, rows, int8_matmul=14), "14d")
+    _bit_identical(model.llama.proj, packed, "14d int8 weights")
+    _moved(model, b0, "14d")
+    log("phase 14e-int8: one step's adapter gradients over the int8 base, kernel route (B9, "
+        "its plain backward) against the plain route")
+    phase_train_grads(model, cfg, batch, quantize="int8", label="14e-int8")
+    model.lora = None
+    model.requires_grad_(False)
+
+
 def model_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -1798,6 +2218,16 @@ def main() -> int:
     phase_device_and_build()
     kernels = phase_kernels()
     launches = {}
+
+    t0 = time.perf_counter()
+    model, cfg, tokenizer = load_pretrained_model("random:7b", "7b", "cuda")
+    torch.cuda.synchronize()
+    log(f"7B model (random:7b, seed 0) built on the card for training in "
+        f"{time.perf_counter() - t0:.2f} s")
+    train = phase_train(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     model, cfg, tokenizer = load_pretrained_model("random:7b", "7b", "cuda")
@@ -1875,6 +2305,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s: {model_bytes(model) / 2**30:.3f} GiB on the card "
         f"(decoder int8 projections {model_bytes(model.llama.proj) / 2**30:.3f} GiB, "
         f"int8 head {model_bytes(model.llama.lm_head) / 2**30:.3f} GiB)")
+    phase_train_int8(model, cfg)
     log("phase 11a: 7B int8 chat on the card, bf16 cache")
     run = phase_chat(model, cfg, tokenizer, video, frame_map)
     expect_launches(run["launches"], serving_launches(model, cfg, None, run["decode_steps"],
@@ -1887,6 +2318,8 @@ def main() -> int:
     log("phase 12: int8 kernel path against plain path at 7B")
     phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map)
 
+    launches["flash_attention"] += train.pop("flash_attention")
+    launches.update(train)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

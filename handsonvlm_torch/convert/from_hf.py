@@ -21,7 +21,10 @@ bytes, stacked over layers, and load into a model built with the
   `model.proj.<name>.{w8,scale}` ("int8"), flat int4 `w4`/`gscale` ->
   `model.proj.<name>.{w4,gscale}` ("int4_proj");
 - an int8 head `w8`/`scale` -> `lm_head.{w8,scale}` (transposed to (V, d),
-  the vocab cut to `vocab_size`).
+  the vocab cut to `vocab_size`);
+- LoRA adapters under `params["lora"]` (`init_lora`) ->
+  `lora.adapters.<target>.{a,b}` in the JAX layout and `lora.scale`, which
+  load into a model whose `lora` is a `models.lora.LoRA` of that rank.
 Any other decoder leaf (the fused-QLoRA `layers["int8"]` stack) is refused.
 """
 
@@ -40,6 +43,7 @@ PREFIXES = (
     ("hand_traj_decoder.hand_traj_decoder.cvae.", "traj."),
     ("model.", "llama."),
     ("lm_head.", "llama.lm_head."),
+    ("lora.", "lora."),
 )
 
 
@@ -194,4 +198,10 @@ def from_jax_params(params, vocab_size: int = 32101) -> Dict[str, np.ndarray]:
         p = "hand_traj_decoder.hand_traj_decoder.cvae." + hf
         sd[p + ".weight"] = _np(cvae[key]["kernel"]).T
         sd[p + ".bias"] = _np(cvae[key]["bias"])
-    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+    lora = params.get("lora")
+    if lora is not None:
+        for target, ad in lora["adapters"].items():
+            sd[f"lora.adapters.{target}.a"] = _np(ad["a"])
+            sd[f"lora.adapters.{target}.b"] = _np(ad["b"])
+        sd["lora.scale"] = _np(lora["scale"])
+    return {k: np.require(v, requirements="C") for k, v in sd.items()}

@@ -1,5 +1,6 @@
-// Blockwise (flash) attention forward for prefill-sized queries, for Hopper
-// (sm_90a).
+// Blockwise (flash) attention for prefill-sized queries, forward and
+// backward, for Hopper (sm_90a). The backward is described after the
+// forward's kernels, at hv_flash_attention_bwd's definition.
 //
 // Replaces handsonvlm_tpu/ops/flash_attention.py::_fwd_kernel (the
 // pallas_call of _fwd_call, reached through flash_attention). It computes
@@ -510,4 +511,657 @@ extern "C" int hv_flash_attention_fwd(
   if (aligned && D == 128) return (int)launch_mma<128>(a, B, st);
   if (aligned && D == 256) return (int)launch_mma<256>(a, B, st);
   return (int)launch_fma<__nv_bfloat16>(a, B, st);
+}
+
+// ===========================================================================
+// Backward (B3b)
+// ===========================================================================
+//
+// Replaces handsonvlm_tpu/ops/flash_attention.py::_bwd_dq_kernel and
+// ::_bwd_dkv_kernel (the two pallas_calls of _flash_bwd, the VJP of
+// flash_attention). The FlashAttention-2 backward: the probabilities are
+// recomputed tile by tile from the forward's logsumexp, p = exp(s - lse)
+// with the forward's key mask, causal rule and q_offset, never stored;
+// dp = dO V^T, ds = p (dp - delta) * scale with delta = rowsum(dO * O) in
+// f32; dq = ds K, dv = p^T dO, dk = ds^T Q. As in JAX, p is rounded to dO's
+// type before p^T dO, ds to q's type before ds K and ds^T Q, and every sum
+// is f32. A masked pair (key masked, above the causal diagonal, or a query
+// row past T) gives p = 0, so a query row with no valid key (the forward's
+// lse = NEG_INF) gets dq = 0 and adds nothing to dk / dv.
+//
+// Two kernels, launched in this order on the stream:
+// - dq: one block per (64 query rows, query head, batch row) sweeps the key
+//   tiles the forward visited (none above the causal diagonal, none whose
+//   keys are all masked). Its prologue computes delta for its rows and
+//   writes it to the scratch (B, H, T) buffer the second kernel reads.
+// - dk/dv: one block per (64 keys, kv head, batch row) sweeps, for each
+//   query head of the kv head's group in turn, the query tiles that can see
+//   its keys; the group's sum stays in the block's f32 registers, added in
+//   a fixed order with no atomics, so a step is deterministic. A block
+//   whose keys are all masked writes zeros.
+//
+// bf16 with D in {64, 128} runs on the tensor cores (mma.sync m16n8k16,
+// f32 accumulators): each warp owns 16 rows (queries for dq, keys for
+// dk/dv) and the other side comes in tiles of 32; S (or S^T) and dP (dP^T)
+// are two fragment products like the forward's S, and the rounded p / ds
+// are reused from the registers as the A fragments of the second products,
+// whose B fragments come from the staged tiles through ldmatrix.trans.
+// Anything else (f32, other head sizes up to 256) runs on f32 FMA, one key
+// (dq) or one query (dk/dv) per lane, as the forward's FMA kernel.
+//
+// Bound: operations. At B = 1, T = S = 2048, causal, H = 32, D = 128 the
+// backward's function needs five T x S x D products (S, dP, dq, dk, dv: 2
+// flops per multiply-add) over the causal half, 86 GFLOP a layer, 0.087 ms
+// at 989 TFLOP/s bf16 (the two kernels compute S and dP twice, seven
+// products, which the bound does not count); its bytes (q, k, v, O, dO, dq, dk, dv, lse) are ~0.13
+// GB, 0.04 ms at 3.35 TB/s. This first version re-reads K/V per query tile
+// and Q/dO per key tile from L2 without overlapping loads and products;
+// cp.async / TMA staging and wgmma are the later work toward the bound.
+
+namespace {
+
+constexpr int kBwdRows = 64;  // rows a block owns: 16 per warp
+constexpr int kBwdCols = 32;  // the other side's tile
+
+struct BwdArgs {
+  const void* q;       // (B, T, H, D), head and feature axes contiguous
+  const void* k;       // (B, S, K, D)
+  const void* v;       // (B, S, K, D)
+  const uint8_t* mask;  // (B, S) or nullptr
+  const void* out;     // (B, T, H, D) contiguous: the forward's output
+  const void* dout;    // (B, T, H, D) contiguous
+  const float* lse;    // (B, H, T)
+  float* delta;        // (B, H, T) scratch, written by the dq kernel
+  void* dq;            // (B, T, H, D) contiguous
+  void* dk;            // (B, S, K, D) contiguous
+  void* dv;            // (B, S, K, D) contiguous
+  int64_t q_sb, q_st, k_sb, k_st, v_sb, v_st;
+  int T, S, H, K, D;
+  int causal, q_offset;
+  float scale;
+};
+
+// rows [r0, r0 + rows) x D of a (.., token, head, D) tensor -> smem[rows][D + 8]
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int64_t token_stride, int r0, int rows,
+                                           int limit) {
+  constexpr int kLd = D + 8;
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = i % kVecs;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < limit)
+      val = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * token_stride + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
+  }
+}
+
+// acc[nt] (16 rows of A x 8 columns nt of B) += A B^T over D, A's 16 rows
+// at sa (pitch D + 8), B's kBwdCols rows at sb
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[kBwdCols / 8][4],
+                                        const __nv_bfloat16* sa,
+                                        const __nv_bfloat16* sb, int g, int tq) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t fa[4];
+    const __nv_bfloat16* ap = sa + g * kLd + kc * 16 + 2 * tq;
+    fa[0] = *reinterpret_cast<const uint32_t*>(ap);
+    fa[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * kLd);
+    fa[2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+    fa[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * kLd + 8);
+#pragma unroll
+    for (int nt = 0; nt < kBwdCols / 8; ++nt) {
+      const __nv_bfloat16* bp = sb + (nt * 8 + g) * kLd + kc * 16 + 2 * tq;
+      mma_bf16(acc[nt], fa, *reinterpret_cast<const uint32_t*>(bp),
+               *reinterpret_cast<const uint32_t*>(bp + 8));
+    }
+  }
+}
+
+// out (16 x D) += P (16 x kBwdCols, bf16 A fragments in registers) @ the
+// staged [kBwdCols][D] tile at sb
+template <int D>
+__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
+                                       const uint32_t (&pa)[kBwdCols / 8][2],
+                                       const __nv_bfloat16* sb, int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < kBwdCols / 16; ++kc) {
+    const uint32_t fa[4] = {pa[2 * kc][0], pa[2 * kc][1], pa[2 * kc + 1][0],
+                            pa[2 * kc + 1][1]};
+    const __nv_bfloat16* brow =
+        sb + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t fb[4];
+      ldmatrix_x4_trans(fb, brow + dn * 16);
+      mma_bf16(out[2 * dn], fa, fb[0], fb[1]);
+      mma_bf16(out[2 * dn + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// store a warp's 16 x D f32 fragment rows as bf16 rows of a contiguous
+// (.., rows, heads, D) tensor: `base` points at row 0's head
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride,
+                                           const float (&acc)[D / 8][4], int row_lo,
+                                           int limit, int tq) {
+  const int row_hi = row_lo + 8;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = i * 8 + 2 * tq;
+    if (row_lo < limit)
+      *reinterpret_cast<__nv_bfloat162*>(base + row_lo * row_stride + c) =
+          __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    if (row_hi < limit)
+      *reinterpret_cast<__nv_bfloat162*>(base + row_hi * row_stride + c) =
+          __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+  }
+}
+
+template <int D>
+size_t bwd_mma_smem_bytes() {
+  return (size_t)(2 * kBwdRows + 2 * kBwdCols) * (D + 8) * sizeof(__nv_bfloat16) +
+         2 * kBwdCols * sizeof(float) + kBwdRows;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(const BwdArgs a) {
+  constexpr int kLd = D + 8;
+  constexpr int kCT = kBwdCols / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdo = sq + kBwdRows * kLd;
+  __nv_bfloat16* sk = sdo + kBwdRows * kLd;
+  __nv_bfloat16* sv = sk + kBwdCols * kLd;
+  float* sdelta = reinterpret_cast<float*>(sv + kBwdCols * kLd);  // [kBwdRows]
+  uint8_t* sok = reinterpret_cast<uint8_t*>(sdelta + kBwdRows);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (a.H / a.K);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+
+  const __nv_bfloat16* qb =
+      static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
+  const __nv_bfloat16* kb =
+      static_cast<const __nv_bfloat16*>(a.k) + (int64_t)b * a.k_sb + (int64_t)kh * D;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(a.v) + (int64_t)b * a.v_sb + (int64_t)kh * D;
+  const int64_t row_st = (int64_t)a.H * D;  // out, dout and dq are contiguous
+  const int64_t head0 = (int64_t)b * a.T * row_st + (int64_t)h * D;
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(a.out) + head0;
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + head0;
+  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+  const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
+
+  stage_rows<D>(sq, qb, a.q_st, q0, kBwdRows, a.T);
+  stage_rows<D>(sdo, dob, row_st, q0, kBwdRows, a.T);
+  // delta = rowsum(dO * O) in f32: each warp its 16 rows
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr, t = q0 + r;
+    float acc = 0.f;
+    if (t < a.T)
+      for (int d = lane; d < D; d += 32)
+        acc += __bfloat162float(dob[t * row_st + d]) * __bfloat162float(ob[t * row_st + d]);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      sdelta[r] = acc;
+      if (t < a.T) a.delta[lrow + t] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const float lse_lo = row_lo < a.T ? a.lse[lrow + row_lo] : 0.f;
+  const float lse_hi = row_hi < a.T ? a.lse[lrow + row_hi] : 0.f;
+  const float dl_lo = sdelta[warp * 16 + g], dl_hi = sdelta[warp * 16 + g + 8];
+  const int qpos_lo = row_lo + a.q_offset, qpos_hi = qpos_lo + 8;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // the key tiles the forward visited: none past the last row's position
+  int end = a.S;
+  if (a.causal) end = min(end, min(q0 + kBwdRows, a.T) + a.q_offset);
+  const int n_tiles = end <= 0 ? 0 : (end + kBwdCols - 1) / kBwdCols;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBwdCols;
+    bool key_ok = false;
+    if (tid < kBwdCols) {
+      const int p = k0 + tid;
+      key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+    }
+    if (!__syncthreads_or(key_ok)) continue;
+    if (tid < kBwdCols) sok[tid] = key_ok;
+    stage_rows<D>(sk, kb, a.k_st, k0, kBwdCols, a.S);
+    stage_rows<D>(sv, vb, a.v_st, k0, kBwdCols, a.S);
+    __syncthreads();
+
+    float s[kCT][4], dp[kCT][4];
+#pragma unroll
+    for (int i = 0; i < kCT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    mma_abt<D>(s, sq + warp * 16 * kLd, sk, g, tq);
+    mma_abt<D>(dp, sdo + warp * 16 * kLd, sv, g, tq);
+
+    uint32_t pa[kCT][2];  // ds rounded to bf16: [.][0] row g, [.][1] row g + 8
+#pragma unroll
+    for (int nt = 0; nt < kCT; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nt * 8 + 2 * tq + (e & 1);
+        const bool hi = e >= 2;
+        const bool ok = sok[j] && (!a.causal || k0 + j <= (hi ? qpos_hi : qpos_lo));
+        const float p = ok ? expf(s[nt][e] * a.scale - (hi ? lse_hi : lse_lo)) : 0.f;
+        ds[e] = p * (dp[nt][e] - (hi ? dl_hi : dl_lo)) * a.scale;
+      }
+      pa[nt][0] = pack_bf16(ds[0], ds[1]);
+      pa[nt][1] = pack_bf16(ds[2], ds[3]);
+    }
+    mma_pb<D>(acc, pa, sk, lane);
+  }
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + head0, row_st, acc, row_lo, a.T, tq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const BwdArgs a) {
+  constexpr int kLd = D + 8;
+  constexpr int kCT = kBwdCols / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + kBwdRows * kLd;
+  __nv_bfloat16* sq = sv + kBwdRows * kLd;
+  __nv_bfloat16* sdo = sq + kBwdCols * kLd;
+  float* slse = reinterpret_cast<float*>(sdo + kBwdCols * kLd);  // [kBwdCols]
+  float* sdelta = slse + kBwdCols;                                // [kBwdCols]
+  uint8_t* sok = reinterpret_cast<uint8_t*>(sdelta + kBwdCols);   // [kBwdRows]
+
+  const int k0 = blockIdx.x * kBwdRows;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int group = a.H / a.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+
+  bool key_ok = false;
+  if (tid < kBwdRows) {
+    const int p = k0 + tid;
+    key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+    sok[tid] = key_ok;
+  }
+  const bool any_key = __syncthreads_or(key_ok);
+
+  const int64_t kv_row_st = (int64_t)a.K * D;  // dk and dv are contiguous
+  const int64_t kv_head0 = (int64_t)b * a.S * kv_row_st + (int64_t)kh * D;
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  if (any_key) {
+    stage_rows<D>(sk, static_cast<const __nv_bfloat16*>(a.k) + (int64_t)b * a.k_sb +
+                          (int64_t)kh * D, a.k_st, k0, kBwdRows, a.S);
+    stage_rows<D>(sv, static_cast<const __nv_bfloat16*>(a.v) + (int64_t)b * a.v_sb +
+                          (int64_t)kh * D, a.v_st, k0, kBwdRows, a.S);
+    const bool kok_lo = sok[warp * 16 + g], kok_hi = sok[warp * 16 + g + 8];
+    // the first query tile whose rows can see key k0 under causal masking
+    const int first_q = a.causal ? max(0, k0 - a.q_offset) : 0;
+    const int64_t row_st = (int64_t)a.H * D;
+    for (int i = 0; i < group; ++i) {
+      const int h = kh * group + i;
+      const __nv_bfloat16* qb =
+          static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
+      const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) +
+                                 (int64_t)b * a.T * row_st + (int64_t)h * D;
+      const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
+      for (int q0 = (first_q / kBwdCols) * kBwdCols; q0 < a.T; q0 += kBwdCols) {
+        __syncthreads();  // the previous tile's reads of sq, sdo, slse, sdelta are done
+        stage_rows<D>(sq, qb, a.q_st, q0, kBwdCols, a.T);
+        stage_rows<D>(sdo, dob, row_st, q0, kBwdCols, a.T);
+        if (tid < kBwdCols) {
+          const int t = q0 + tid;
+          slse[tid] = t < a.T ? a.lse[lrow + t] : 0.f;
+          sdelta[tid] = t < a.T ? a.delta[lrow + t] : 0.f;
+        }
+        __syncthreads();
+
+        float st[kCT][4], dpt[kCT][4];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.f;
+        mma_abt<D>(st, sk + warp * 16 * kLd, sq, g, tq);
+        mma_abt<D>(dpt, sv + warp * 16 * kLd, sdo, g, tq);
+
+        uint32_t pa[kCT][2], da[kCT][2];  // p^T and ds^T as bf16 A fragments
+#pragma unroll
+        for (int nt = 0; nt < kCT; ++nt) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = nt * 8 + 2 * tq + (e & 1);  // query within the tile
+            const bool hi = e >= 2;
+            const int t = q0 + j;
+            const bool ok = (hi ? kok_hi : kok_lo) && t < a.T &&
+                            (!a.causal || (hi ? key_hi : key_lo) <= t + a.q_offset);
+            p[e] = ok ? expf(st[nt][e] * a.scale - slse[j]) : 0.f;
+            ds[e] = p[e] * (dpt[nt][e] - sdelta[j]) * a.scale;
+          }
+          pa[nt][0] = pack_bf16(p[0], p[1]);
+          pa[nt][1] = pack_bf16(p[2], p[3]);
+          da[nt][0] = pack_bf16(ds[0], ds[1]);
+          da[nt][1] = pack_bf16(ds[2], ds[3]);
+        }
+        mma_pb<D>(dv, pa, sdo, lane);
+        mma_pb<D>(dk, da, sq, lane);
+      }
+    }
+  }
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + kv_head0, kv_row_st, dk, key_lo, a.S, tq);
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + kv_head0, kv_row_st, dv, key_lo, a.S, tq);
+}
+
+template <int D>
+cudaError_t launch_bwd_mma(const BwdArgs& a, int B, cudaStream_t stream) {
+  const size_t bytes = bwd_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<D>
+      <<<dim3((a.T + kBwdRows - 1) / kBwdRows, a.H, B), kThreads, bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_mma_kernel<D>
+      <<<dim3((a.S + kBwdRows - 1) / kBwdRows, a.K, B), kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 FMA backward (f32 inputs, and bf16 at other head sizes)
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaRows = 32;  // rows a block owns: 8 per warp
+constexpr int kFmaCols = 32;  // the other side's tile: one per lane
+
+size_t bwd_fma_smem_bytes(int d) {
+  return sizeof(float) * (2 * (size_t)kFmaRows * (d + 1) + 2 * (size_t)kFmaCols * (d + 1) +
+                          2 * kFmaCols) + kFmaRows + kFmaCols;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = a.D, ld = D + 1;
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kFmaRows][ld]
+  float* sdo = sq + kFmaRows * ld;                 // [kFmaRows][ld]
+  float* sk = sdo + kFmaRows * ld;                 // [kFmaCols][ld]
+  float* sv = sk + kFmaCols * ld;                  // [kFmaCols][ld]
+  uint8_t* sok = reinterpret_cast<uint8_t*>(sv + kFmaCols * ld + 2 * kFmaCols);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFmaRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (a.H / a.K);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qb = static_cast<const T*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
+  const T* kb = static_cast<const T*>(a.k) + (int64_t)b * a.k_sb + (int64_t)kh * D;
+  const T* vb = static_cast<const T*>(a.v) + (int64_t)b * a.v_sb + (int64_t)kh * D;
+  const int64_t row_st = (int64_t)a.H * D;
+  const int64_t head0 = (int64_t)b * a.T * row_st + (int64_t)h * D;
+  const T* ob = static_cast<const T*>(a.out) + head0;
+  const T* dob = static_cast<const T*>(a.dout) + head0;
+  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+  const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
+
+  for (int i = tid; i < kFmaRows * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = q0 + r;
+    sq[r * ld + d] = t < a.T ? to_f32(qb[(int64_t)t * a.q_st + d]) : 0.f;
+    sdo[r * ld + d] = t < a.T ? to_f32(dob[(int64_t)t * row_st + d]) : 0.f;
+  }
+  __syncthreads();
+  float lse[kRowsPerWarp], delta[kRowsPerWarp], acc[kRowsPerWarp][kMaxDPerLane];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr, t = q0 + r;
+    float dl = 0.f;
+    if (t < a.T)
+      for (int d = lane; d < D; d += 32) dl += sdo[r * ld + d] * to_f32(ob[t * row_st + d]);
+    delta[rr] = warp_sum(dl);
+    if (lane == 0 && t < a.T) a.delta[lrow + t] = delta[rr];
+    lse[rr] = t < a.T ? a.lse[lrow + t] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxDPerLane; ++i) acc[rr][i] = 0.f;
+  }
+
+  int end = a.S;
+  if (a.causal) end = min(end, min(q0 + kFmaRows, a.T) + a.q_offset);
+  const int n_tiles = end <= 0 ? 0 : (end + kFmaCols - 1) / kFmaCols;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kFmaCols;
+    bool key_ok = false;
+    if (tid < kFmaCols) {
+      const int p = k0 + tid;
+      key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+    }
+    if (!__syncthreads_or(key_ok)) continue;
+    if (tid < kFmaCols) sok[tid] = key_ok;
+    for (int i = tid; i < kFmaCols * D; i += kThreads) {
+      const int j = i / D, d = i % D, p = k0 + j;
+      const bool in = p < a.S;
+      sk[j * ld + d] = in ? to_f32(kb[(int64_t)p * a.k_st + d]) : 0.f;
+      sv[j * ld + d] = in ? to_f32(vb[(int64_t)p * a.v_st + d]) : 0.f;
+    }
+    __syncthreads();
+    const bool lane_ok = sok[lane];
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s += sq[r * ld + d] * sk[lane * ld + d];
+        dp += sdo[r * ld + d] * sv[lane * ld + d];
+      }
+      const bool ok = lane_ok && (!a.causal || kpos <= q0 + r + a.q_offset);
+      const float p = ok ? expf(s * a.scale - lse[rr]) : 0.f;
+      const float ds = round_as<T>(p * (dp - delta[rr]) * a.scale);
+      for (int j = 0; j < kFmaCols; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, ds, j);
+#pragma unroll
+        for (int i = 0; i < kMaxDPerLane; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) acc[rr][i] += dj * sk[j * ld + d];
+        }
+      }
+    }
+  }
+  T* dqb = static_cast<T*>(a.dq) + head0;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int t = q0 + warp * kRowsPerWarp + rr;
+    if (t >= a.T) continue;
+#pragma unroll
+    for (int i = 0; i < kMaxDPerLane; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) dqb[(int64_t)t * row_st + d] = from_f32<T>(acc[rr][i]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = a.D, ld = D + 1;
+  float* sk = reinterpret_cast<float*>(smem_raw);  // [kFmaRows][ld]
+  float* sv = sk + kFmaRows * ld;                  // [kFmaRows][ld]
+  float* sq = sv + kFmaRows * ld;                  // [kFmaCols][ld]
+  float* sdo = sq + kFmaCols * ld;                 // [kFmaCols][ld]
+  float* slse = sdo + kFmaCols * ld;               // [kFmaCols]
+  float* sdelta = slse + kFmaCols;                 // [kFmaCols]
+  uint8_t* sok = reinterpret_cast<uint8_t*>(sdelta + kFmaCols);  // [kFmaRows]
+
+  const int k0 = blockIdx.x * kFmaRows;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int group = a.H / a.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+  const T* kb = static_cast<const T*>(a.k) + (int64_t)b * a.k_sb + (int64_t)kh * D;
+  const T* vb = static_cast<const T*>(a.v) + (int64_t)b * a.v_sb + (int64_t)kh * D;
+
+  bool key_ok = false;
+  if (tid < kFmaRows) {
+    const int p = k0 + tid;
+    key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+    sok[tid] = key_ok;
+  }
+  for (int i = tid; i < kFmaRows * D; i += kThreads) {
+    const int r = i / D, d = i % D, p = k0 + r;
+    sk[r * ld + d] = p < a.S ? to_f32(kb[(int64_t)p * a.k_st + d]) : 0.f;
+    sv[r * ld + d] = p < a.S ? to_f32(vb[(int64_t)p * a.v_st + d]) : 0.f;
+  }
+  const bool any_key = __syncthreads_or(key_ok);
+
+  float dk[kRowsPerWarp][kMaxDPerLane], dv[kRowsPerWarp][kMaxDPerLane];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr)
+#pragma unroll
+    for (int i = 0; i < kMaxDPerLane; ++i) dk[rr][i] = dv[rr][i] = 0.f;
+
+  if (any_key) {
+    const int first_q = a.causal ? max(0, k0 - a.q_offset) : 0;
+    const int64_t row_st = (int64_t)a.H * D;
+    for (int gi = 0; gi < group; ++gi) {
+      const int h = kh * group + gi;
+      const T* qb = static_cast<const T*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
+      const T* dob = static_cast<const T*>(a.dout) + (int64_t)b * a.T * row_st +
+                     (int64_t)h * D;
+      const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
+      for (int q0 = (first_q / kFmaCols) * kFmaCols; q0 < a.T; q0 += kFmaCols) {
+        __syncthreads();
+        for (int i = tid; i < kFmaCols * D; i += kThreads) {
+          const int j = i / D, d = i % D, t = q0 + j;
+          sq[j * ld + d] = t < a.T ? to_f32(qb[(int64_t)t * a.q_st + d]) : 0.f;
+          sdo[j * ld + d] = t < a.T ? to_f32(dob[(int64_t)t * row_st + d]) : 0.f;
+        }
+        if (tid < kFmaCols) {
+          const int t = q0 + tid;
+          slse[tid] = t < a.T ? a.lse[lrow + t] : 0.f;
+          sdelta[tid] = t < a.T ? a.delta[lrow + t] : 0.f;
+        }
+        __syncthreads();
+        const int t = q0 + lane;  // this lane's query
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const int r = warp * kRowsPerWarp + rr;
+          float s = 0.f, dp = 0.f;
+          for (int d = 0; d < D; ++d) {
+            s += sk[r * ld + d] * sq[lane * ld + d];
+            dp += sv[r * ld + d] * sdo[lane * ld + d];
+          }
+          const bool ok = sok[r] && t < a.T && (!a.causal || k0 + r <= t + a.q_offset);
+          const float p = ok ? expf(s * a.scale - slse[lane]) : 0.f;
+          const float ds = round_as<T>(p * (dp - sdelta[lane]) * a.scale);
+          const float pr = round_as<T>(p);
+          for (int j = 0; j < kFmaCols; ++j) {
+            const float pj = __shfl_sync(0xffffffffu, pr, j);
+            const float dj = __shfl_sync(0xffffffffu, ds, j);
+#pragma unroll
+            for (int i = 0; i < kMaxDPerLane; ++i) {
+              const int d = lane + 32 * i;
+              if (d < D) {
+                dv[rr][i] += pj * sdo[j * ld + d];
+                dk[rr][i] += dj * sq[j * ld + d];
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  const int64_t kv_row_st = (int64_t)a.K * D;
+  const int64_t kv_head0 = (int64_t)b * a.S * kv_row_st + (int64_t)kh * D;
+  T* dkb = static_cast<T*>(a.dk) + kv_head0;
+  T* dvb = static_cast<T*>(a.dv) + kv_head0;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int p = k0 + warp * kRowsPerWarp + rr;
+    if (p >= a.S) continue;
+#pragma unroll
+    for (int i = 0; i < kMaxDPerLane; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) {
+        dkb[(int64_t)p * kv_row_st + d] = from_f32<T>(dk[rr][i]);
+        dvb[(int64_t)p * kv_row_st + d] = from_f32<T>(dv[rr][i]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_fma(const BwdArgs& a, int B, cudaStream_t stream) {
+  const size_t bytes = bwd_fma_smem_bytes(a.D);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_fma_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_dq_fma_kernel<T>
+      <<<dim3((a.T + kFmaRows - 1) / kFmaRows, a.H, B), kThreads, bytes, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_fma_kernel<T>
+      <<<dim3((a.S + kFmaRows - 1) / kFmaRows, a.K, B), kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The backward of hv_flash_attention_fwd with the same q, k, v, mask,
+// strides, causal rule and q_offset: out (the forward's output), dout, dq
+// (B, T, H, D), dk and dv (B, S, K, D) contiguous, of q's dtype; lse
+// (B, H, T) f32 from the forward; delta (B, H, T) f32 scratch. Launches
+// the dq kernel, then the dk/dv kernel. bf16 with D in {64, 128}, 16-byte
+// aligned bases and strides that are multiples of 8 runs on the tensor
+// cores, anything else with D <= 256 on f32 FMA. Returns cudaGetLastError().
+extern "C" int hv_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* mask, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int is_bf16, int B, int T, int S, int H, int K, int D, int64_t q_sb, int64_t q_st,
+    int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, int causal, int q_offset,
+    float scale, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || K < 1 || H % K || D < 1 || D > 32 * kMaxDPerLane)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdArgs a = {q, k, v, static_cast<const uint8_t*>(mask), out, dout,
+                     static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
+                     q_sb, q_st, k_sb, k_st, v_sb, v_st, T, S, H, K, D, causal, q_offset,
+                     scale};
+  if (!is_bf16) return (int)launch_bwd_fma<float>(a, B, st);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+       reinterpret_cast<uintptr_t>(dv)) % 16 == 0 &&
+      (q_sb | q_st | k_sb | k_st | v_sb | v_st) % 8 == 0;
+  if (aligned && D == 64) return (int)launch_bwd_mma<64>(a, B, st);
+  if (aligned && D == 128) return (int)launch_bwd_mma<128>(a, B, st);
+  return (int)launch_bwd_fma<__nv_bfloat16>(a, B, st);
 }

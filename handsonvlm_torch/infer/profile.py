@@ -16,8 +16,11 @@ prefill of 2048 rows or more, which goes through the flash kernel, can be
 traced. `--spec K` adds a third part: speculative verify forwards of K + 1
 positions (every draft rejected, one token kept per forward, the cache
 index set back each time), beside the one-token decode step they replace.
-`--device cpu` runs the same control flow on the CPU (no device numbers)
-to rehearse it.
+`--train` profiles a LoRA train step instead (r=128, alpha=256, remat
+"full", batch 1, one synthetic sample of --prompt-rows rows, 2048 by
+default; with --quantize the frozen base is int4 or int8: QLoRA), after a
+warm-up step. `--device cpu` runs the same control flow on the CPU (no
+device numbers) to rehearse it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from handsonvlm_torch.constants import IGNORE_INDEX
 from handsonvlm_torch.infer import sampler
 from handsonvlm_torch.infer.builder import load_pretrained_model
 from handsonvlm_torch.infer.chat import frame_map_for, new_conversation, prompt_ids
@@ -81,6 +85,59 @@ def _measure(fn, device, activities, steps: int) -> dict:
     }
 
 
+def train_batch(cfg, rows: int = 2048, seed: int = 0) -> dict:
+    """One synthetic SFT sample of `rows` rows after the splice, laid out as
+    the JAX package's train tests lay their batch out: the image sentinel
+    at 1, <hand_traj> at 8, 10, 12 and 14, labels from position 7; 10
+    unique frames and the slot map that tiles them into the video."""
+    t = rows - cfg.num_visual_tokens + 1
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 1000, size=(1, t))
+    ids[:, 1] = cfg.image_token_index
+    ids[:, [8, 10, 12, 14]] = cfg.hand_token_id
+    labels = np.where(np.arange(t) >= 7, ids, IGNORE_INDEX)
+    video, frame_map = random_video(cfg, seed)
+    return {"input_ids": ids, "attn_mask": np.ones((1, t), bool), "image": video,
+            "frame_map": frame_map, "labels": labels,
+            "future_hands": rng.uniform(size=(1, 2, 5, 2)).astype(np.float32),
+            "future_valid": np.ones((1, 2), np.float32)}
+
+
+def profile_train(model, cfg, device, rows: int, quantize) -> None:
+    """One LoRA train step (the frozen base as loaded), traced after a
+    warm-up step: wall and device ms, busy share, launches, top kernels and
+    peak device memory."""
+    from handsonvlm_torch.models.lora import init_lora
+    from handsonvlm_torch.train.step import make_train_step
+    from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
+
+    batch = train_batch(cfg, rows)
+    model.lora = init_lora(torch.Generator(device=device).manual_seed(1), cfg.llama, 128,
+                           256.0, device=device)
+    opt = make_optimizer(model, 2e-5, freeze_top_keys=("vision", "llama"))
+    step = make_train_step(cfg, opt, attn_impl="auto", remat="full")
+    state = create_train_state(model, opt)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+    step(state, batch, 0)  # warm-up
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    s = _measure(lambda: step(state, batch, 0), device, activities, 1)
+    name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    dev = (f"device {s['device_ms']:.3f} ms, busy {100 * s['busy']:.1f}%, "
+           f"{s['launches']:.0f} launches, peak {peak:.3f} GiB" if on_card
+           else "device not measured")
+    print(f"train step (LoRA r=128, remat full, base quantize={quantize}) on {name}, "
+          f"{rows} rows: wall {s['wall_ms']:.3f} ms, {rows / s['wall_ms'] * 1e3:.1f} "
+          f"tokens/s, {dev}")
+    for key, count, ms in s["top"]:
+        print(f"    {ms:9.4f} ms  x{count:g}  {key}")
+    print(json.dumps({"device": name, "quantize": quantize, "rows": rows,
+                      "train_step": s, "peak_gib": peak}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="7b")
@@ -92,12 +149,17 @@ def main() -> None:
                     help="also trace verify forwards of K + 1 positions")
     ap.add_argument("--prompt-rows", type=int, default=0, metavar="N",
                     help="rows of the prompt after the splice (0: the chat prompt)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a LoRA / QLoRA train step instead")
     args = ap.parse_args()
     device = torch.device(args.device)
     kv_quant = "int8" if args.kv_int8 else None
 
     model, cfg, tokenizer = load_pretrained_model(f"random:{args.preset}", args.preset,
                                                   device, quantize=args.quantize)
+    if args.train:
+        profile_train(model, cfg, device, args.prompt_rows or 2048, args.quantize)
+        return
     video, frame_map = random_video(cfg)
     images = torch.as_tensor(video, device=device)
     if args.prompt_rows:

@@ -9,7 +9,8 @@ Port of `handsonvlm_tpu/models/handsonvlm.py`:
 - the fixed-shape splice of the visual tokens into the prompt;
 - loss = CE(shifted) + hoi_lambda * (lambda_traj * sum_B recon +
   lambda_traj_kl * sum_B KL), hand hidden states taken at the position
-  before each <hand_traj> label (forward pass only: no training here).
+  before each <hand_traj> label; `forward` takes the LoRA adapters and the
+  remat policy of the train step (train/step.py).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ class HandsOnVLM(nn.Module):
         self.vision = ClipVision(cfg.vision, **factory)
         self.projector = build_projector(cfg.mm_hidden_size, cfg.llama.hidden_size, **factory)
         self.traj = TrajCVAE(cfg.traj, cfg.llama.hidden_size // 2, **factory)
+        self.lora = None  # a models.lora.LoRA once adapters are attached
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.llama.init_weights(generator)
@@ -73,10 +75,14 @@ def encode_video(
     `frame_map` int (num_frames,) or (B, num_frames): `images` holds only the
     unique frames and video slot i is frame images[:, frame_map[i]] (or
     images[b, frame_map[b, i]]). Encoding the unique frames and gathering
-    their features equals encoding the duplicates."""
+    their features equals encoding the duplicates. The CLIP tower is frozen
+    in every reference recipe: its features carry no gradient (the JAX
+    package's stop_gradient), so it runs without a graph, and the projector
+    after it still trains."""
     b, t = images.shape[:2]
     flat = images.reshape((b * t,) + tuple(images.shape[2:]))
-    feats = apply_clip_vision(model.vision, cfg.vision, flat, attn_impl=attn_impl)
+    with torch.no_grad():
+        feats = apply_clip_vision(model.vision, cfg.vision, flat, attn_impl=attn_impl)
     tokens = apply_projector(model.projector, feats)
     tokens = tokens.reshape(b, t, tokens.shape[1], tokens.shape[2])
     if frame_map is not None:
@@ -254,12 +260,17 @@ def forward(
     eps: Optional[torch.Tensor] = None,  # CVAE noise (B*2*4, latent)
     generator: Optional[torch.Generator] = None,
     attn_impl: str = "auto",
+    lora=None,
+    remat=False,
+    frame_map: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Teacher-forced forward: logits, hidden, and with labels the losses.
 
     Drops the last-observed waypoint (future_hands[:, :, 1:]), splices the
     visual tokens, adds gt coordinate embeddings at <hand_traj> inputs, runs
-    the decoder, computes shifted CE + CVAE losses."""
+    the decoder, computes shifted CE + CVAE losses. `lora` (default: the
+    model's attached `model.lora`) and `remat` go to `apply_llama`;
+    `frame_map` (the unique frames' slot map) goes to `encode_video`."""
     train = labels is not None
     if train:
         future_hands = future_hands[:, :, 1:]
@@ -269,11 +280,13 @@ def forward(
         text_embeds = add_hand_coord_embeddings(
             text_embeds, input_ids, future_hands, scale_by_count=True)
 
-    visual = encode_video(model, cfg, images, attn_impl=attn_impl).to(text_embeds.dtype)
+    visual = encode_video(model, cfg, images, attn_impl=attn_impl,
+                          frame_map=frame_map).to(text_embeds.dtype)
     sp = splice_visual_tokens(text_embeds, input_ids, visual, attn_mask=attn_mask,
                               labels=labels)
     hidden, _ = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
-                            attn_mask=sp.attn_mask, attn_impl=attn_impl)
+                            attn_mask=sp.attn_mask, attn_impl=attn_impl,
+                            lora=model.lora if lora is None else lora, remat=remat)
     logits = lm_logits(model.llama, cfg.llama, hidden)
 
     out = {"logits": logits, "hidden": hidden}

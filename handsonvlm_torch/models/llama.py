@@ -40,13 +40,16 @@ of its kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from handsonvlm_torch.config import LlamaConfig
+from handsonvlm_torch.models.lora import lora_delta, lora_delta_multi
 from handsonvlm_torch.ops.attention import attention
 from handsonvlm_torch.ops.decode_attention import (
     MAX_T_WINDOW,
@@ -458,6 +461,11 @@ def _write_quant_kv(cache: QuantKVCache, layer_idx: int, kx, vx) -> None:
     cache.vs[layer_idx, :, :, idx:idx + t] = vsc.transpose(1, 2)
 
 
+def _add(y: torch.Tensor, delta) -> torch.Tensor:
+    """y plus a LoRA delta; the untargeted delta 0.0 adds no op."""
+    return y if isinstance(delta, float) else y + delta
+
+
 def _layer(
     llama: Llama,
     lp: LlamaLayer,
@@ -470,12 +478,16 @@ def _layer(
     layer_idx: int,
     attn_impl: str,
     blocks: Optional[BlockList] = None,
+    lora_layer=None,
+    lora_scale=0.0,
 ) -> torch.Tensor:
     """One decoder block, dense, fused int4 (`Llama.int4`) or per
     projection int8 / flat int4 (`Llama.proj`). With a cache (bf16/f32
     `KVCache` or int8 `QuantKVCache`), this layer's k/v rows are written at
     `kv_cache.index` before attention reads them; a decode window attends
-    over the forward's compacted block list `blocks`."""
+    over the forward's compacted block list `blocks`. `lora_layer` (the
+    layer's adapter views, `LoRA.layer(i)`) adds each target's low-rank
+    delta where the JAX package's `_layer` adds it."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     int4, proj = llama.int4, llama.proj
@@ -487,14 +499,30 @@ def _layer(
     def pproj(x, name):
         return maybe_int8_matmul(x, proj[name].leaf(layer_idx), plain=plain)
 
+    def dense(x, name):  # a dense or per-projection weight, without its delta
+        if proj is not None:
+            return pproj(x, name)
+        sub, lin = _PROJ[name]
+        return getattr(getattr(lp, sub), lin)(x)
+
+    def split(delta, widths):  # lora_delta_multi's three forms -> a tuple
+        if isinstance(delta, tuple):
+            return delta
+        if isinstance(delta, float):
+            return (0.0,) * len(widths)
+        return tuple(delta.split(widths, dim=-1))
+
     x = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
+    qkv_widths = [h * hd, k * hd, k * hd]
+    dqkv = lora_delta_multi(lora_layer, ("wq", "wk", "wv"), x, lora_scale)
     if int4 is not None:
-        q, kx, vx = iproj(x, "wqkv").split([h * hd, k * hd, k * hd], dim=-1)
-    elif proj is not None:
-        q, kx, vx = pproj(x, "wq"), pproj(x, "wk"), pproj(x, "wv")
+        qkv = iproj(x, "wqkv")
+        if not isinstance(dqkv, tuple):  # one concatenated delta, or none
+            qkv, dqkv = _add(qkv, dqkv), (0.0, 0.0, 0.0)
+        q, kx, vx = (_add(y, dy) for y, dy in zip(qkv.split(qkv_widths, dim=-1), dqkv))
     else:
-        attn = lp.self_attn
-        q, kx, vx = attn.q_proj(x), attn.k_proj(x), attn.v_proj(x)
+        dqkv = split(dqkv, qkv_widths)
+        q, kx, vx = (_add(dense(x, n), dy) for n, dy in zip(("wq", "wk", "wv"), dqkv))
     q = apply_rope(q.reshape(b, t, h, hd), cos, sin)
     kx = apply_rope(kx.reshape(b, t, k, hd), cos, sin)
     vx = vx.reshape(b, t, k, hd)
@@ -529,25 +557,65 @@ def _layer(
             q, kv_cache.k[layer_idx], kv_cache.v[layer_idx], key_mask=key_mask,
             causal=True, q_offset=idx, impl=impl, decode_length=idx + t, blocks=blocks)
     out = out.reshape(b, t, h * hd)
+    f = cfg.intermediate_size
     if int4 is not None:
-        hidden = hidden + iproj(out, "wo")
+        hidden = _add(hidden + iproj(out, "wo"), lora_delta(lora_layer, "wo", out, lora_scale))
         x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
-        gate, up = iproj(x, "wgu").chunk(2, dim=-1)
-        return hidden + iproj(F.silu(gate) * up, "w_down")
-    if proj is not None:
-        hidden = hidden + pproj(out, "wo")
-        x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
-        return hidden + pproj(F.silu(pproj(x, "w_gate")) * pproj(x, "w_up"), "w_down")
-    hidden = hidden + lp.self_attn.o_proj(out)
+        gu = iproj(x, "wgu")
+        dgu = lora_delta_multi(lora_layer, ("w_gate", "w_up"), x, lora_scale)
+        if not isinstance(dgu, tuple):
+            gu, dgu = _add(gu, dgu), (0.0, 0.0)
+        gate, up = (_add(y, dy) for y, dy in zip(gu.split([f, f], dim=-1), dgu))
+        gu = F.silu(gate) * up
+        return _add(hidden + iproj(gu, "w_down"),
+                    lora_delta(lora_layer, "w_down", gu, lora_scale))
+    hidden = hidden + _add(dense(out, "wo"), lora_delta(lora_layer, "wo", out, lora_scale))
 
     x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
-    gate = F.silu(lp.mlp.gate_proj(x))
-    return hidden + lp.mlp.down_proj(gate * lp.mlp.up_proj(x))
+    dgu = split(lora_delta_multi(lora_layer, ("w_gate", "w_up"), x, lora_scale), [f, f])
+    gu = F.silu(_add(dense(x, "w_gate"), dgu[0])) * _add(dense(x, "w_up"), dgu[1])
+    return hidden + _add(dense(gu, "w_down"), lora_delta(lora_layer, "w_down", gu, lora_scale))
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "dots", "dots_nobatch", "save_lora")
+
+
+def _remat_context(remat):
+    """`context_fn` of torch.utils.checkpoint for a remat policy, as the JAX
+    package's `_remat` picks its jax.checkpoint policy: True / "full" save
+    nothing (the default contexts); "dots" keep every matmul output
+    (dots_saveable); "dots_nobatch" those without batch dimensions, mm and
+    not bmm (dots_with_no_batch_dims_saveable); "save_lora" only the
+    adapters' first-stage x @ a (the op `handsonvlm_torch::lora_u`, JAX's
+    `save_only_these_names("lora_u")`). An unknown policy raises."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    aten, lora = torch.ops.aten, torch.ops.handsonvlm_torch.lora_u.default
+    saved = {
+        "dots": (aten.mm.default, aten.addmm.default, aten.bmm.default,
+                 aten.baddbmm.default, lora),
+        "dots_nobatch": (aten.mm.default, aten.addmm.default, lora),
+        "save_lora": (lora,),
+    }
+    if remat is True or remat == "full":
+        return noop_context_fn
+    if remat not in saved:
+        raise ValueError(f"unknown remat policy {remat!r} (use {REMAT_POLICIES})")
+    ops = saved[remat]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def apply_llama(
@@ -560,6 +628,8 @@ def apply_llama(
     positions: Optional[torch.Tensor] = None,
     kv_cache=None,
     attn_impl: str = "auto",
+    lora=None,
+    remat=False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.
 
@@ -569,6 +639,13 @@ def apply_llama(
       S_max cache keys (None: every written key is valid). The cache's
       index advances by T. A `QuantKVCache` serves windows of T <= 8 only:
       a prefill fills a `KVCache` and then `quantize_kv_cache`.
+
+    `lora` (a `models.lora.LoRA`) adds its adapters' deltas in every layer.
+    `remat` (False, True / "full", "dots", "dots_nobatch", "save_lora")
+    recomputes each layer in the backward (`torch.utils.checkpoint`, one
+    checkpoint per layer) with the JAX package's save policies: "full"
+    saves nothing, "dots" every matmul output, "dots_nobatch" those
+    without batch dimensions, "save_lora" only the adapters' x @ a.
 
     Returns the final-normed hidden states (B,T,D) and the cache (or None).
     """
@@ -604,10 +681,22 @@ def apply_llama(
     if kv_cache is not None and t <= MAX_T_WINDOW and stacked:
         blocks = block_list(key_mask, start + t, b, kv_cache.max_len, device)
 
+    context_fn = _remat_context(remat) if remat else None
+    lora_scale = lora.scale if lora is not None else 0.0
+
+    def run(i, lp, hidden):
+        lora_layer = lora.layer(i) if lora is not None else None
+        return _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl,
+                      blocks, lora_layer, lora_scale)
+
     hidden = inputs_embeds
     for i, lp in enumerate(llama.layers):
-        hidden = _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl,
-                        blocks)
+        if context_fn is None:
+            hidden = run(i, lp, hidden)
+        else:
+            hidden = torch.utils.checkpoint.checkpoint(
+                functools.partial(run, i, lp), hidden, use_reentrant=False,
+                context_fn=context_fn)
     hidden = rms_norm(hidden, llama.norm.weight, cfg.rms_norm_eps)
     if kv_cache is not None:
         kv_cache.index += t
@@ -630,9 +719,29 @@ def lm_logits(llama: Llama, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Ten
         w = llama.lm_head.weight
     flat = hidden.reshape(-1, hidden.shape[-1])
     if flat.is_cuda and flat.dtype != torch.float32:
-        logits = torch.mm(flat, w.t(), out_dtype=torch.float32)
+        logits = _HeadMatmul.apply(flat, w)
     else:
         logits = flat.float() @ w.float().t()
     if scale is not None:
         logits = logits * scale
     return logits.reshape(*hidden.shape[:-1], w.shape[0])
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """logits = flat @ w^T with f32 output from bf16 operands (`torch.mm`'s
+    out_dtype form, which autograd cannot differentiate), and a plain
+    backward: the f32 logits' gradient rounded to the operands' dtype, f32
+    sums in the products."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        ctx.save_for_backward(flat, w)
+        return torch.mm(flat, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        flat, w = ctx.saved_tensors
+        g = dlogits.to(flat.dtype)
+        dflat = g @ w.to(flat.dtype) if ctx.needs_input_grad[0] else None
+        dw = (g.t() @ flat).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dflat, dw

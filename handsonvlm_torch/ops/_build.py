@@ -24,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "handsonvlm_torch"
 NVCC_FLAGS = (
@@ -44,11 +46,14 @@ SIGNATURES = {
     "hv_decode_attention": ([_P] * 7 + [_I] * 8 + [_F, _P], _I),
     "hv_flash_attention_fwd": (
         [_P] * 6 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
+    "hv_flash_attention_bwd": (
+        [_P] * 11 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
     "hv_gather_cache_blocks": ([_P, _P] + [_I] * 4 + [ctypes.c_int64] * 3 + [_I, _I, _P], _I),
     "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hv_int4_gemv": ([_P] * 5 + [_I] * 9 + [_P], _I),
     "hv_int8_matmul": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "hv_int4_prefill": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "hv_int4_transpose": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "hv_error_string": ([_I], ctypes.c_char_p),
 }
@@ -135,3 +140,14 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = load_library().hv_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and a tensor requires grad: for the kernels
+    with no backward (decode and cache ops, which the JAX package never
+    differentiates), whose raw-pointer outputs would otherwise cut the
+    graph without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward (its kernel serves decoding only): call it under "
+            f"torch.no_grad() or with inputs that do not require grad")

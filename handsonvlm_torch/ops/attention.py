@@ -139,8 +139,8 @@ def _best_impl(q, k, v, decode_length=None, *, key_mask=None, causal=True) -> st
         return "xla"
     if vit_attention_ok(q, k, v, key_mask, causal):
         return "vit"
-    # the flash kernel has no backward yet: its wrapper raises on an input
-    # that needs a gradient, and such a caller passes impl="xla" itself
+    # with or without a gradient: the flash kernel's backward is B3b, as
+    # the JAX package's `_best_impl` takes flash for training rows too
     if q.shape[1] >= FLASH_MIN_T and q.shape[3] in (128, 256):
         return "flash"
     return "xla"

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from handsonvlm_torch.ops._build import refuse_grad
+
 _CHUNK_BYTES = 1 << 16  # bytes of one block moved by one thread block
 
 
@@ -106,6 +108,7 @@ def gather_cache_blocks(c: torch.Tensor, table, *, block_k: int,
     table = torch.as_tensor(table)
     _check(c, table, block_k, seq_axis)
     if c.is_cuda:
+        refuse_grad("gather_cache_blocks", c)
         _launch(c, table, block_k, seq_axis)
     elif c.device.type == "cpu":
         gather_cache_blocks_ref(c, table, block_k=block_k, seq_axis=seq_axis)

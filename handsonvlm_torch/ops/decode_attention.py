@@ -30,6 +30,8 @@ The wrappers launch the hand-written Hopper kernel
 points) for CUDA tensors and run their plain versions (`*_ref`) for CPU
 tensors. There is no fallback: on a CUDA tensor a wrapper launches the
 kernel or raises. Each wrapper's `LAUNCHES` counts its kernel launches.
+The kernels have no backward (the JAX package never differentiates decode
+attention): a CUDA input that requires grad under grad mode raises.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from handsonvlm_torch.ops._build import refuse_grad
 
 NEG_INF = -1e30
 MAX_T_WINDOW = 8
@@ -92,8 +96,11 @@ def _attend_ref(q, k, v, blocks: BlockList, length, key_mask, ks=None, vs=None):
     """q (B,T,H,D) over one layer's keys k, v (B,S,K,D) listed by `blocks`;
     with ks, vs (B,K,S) the int8 cache's scales, applied as the Pallas
     kernel applies them: on the score rows and on p before P.V. Each row
-    gathers its own listed blocks in order and reduces over exactly those,
-    so its result depends on nothing but its own list."""
+    gathers the valid keys of its own listed blocks, in position order, and
+    reduces over exactly those, so its result depends on nothing but its
+    own keys: not on the other rows, and not on where in the cache its keys
+    sit (a request joined at another cursor, or moved by a compaction,
+    gives the same bits)."""
     b, tw, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -112,6 +119,8 @@ def _attend_ref(q, k, v, blocks: BlockList, length, key_mask, ks=None, vs=None):
         pos = pos.clamp(max=s - 1)
         if key_mask is not None:
             valid = valid & key_mask[r].bool()[pos]
+        pos = pos[valid]  # the row's valid keys alone, in position order
+        valid = valid[valid]
         kg, vg = k[r, pos].float(), v[r, pos].float()  # (N, K, D)
         # rows laid out (kv head, group, tq) as in the kernel
         qg = q[r].float().reshape(tw, kh, g, d)
@@ -278,6 +287,7 @@ def decode_attention_stacked(
     layer_idx, length = int(layer_idx), int(length)
     blocks = _blocks_for(q, ck, length, key_mask, blocks)
     if q.is_cuda:
+        refuse_grad("decode_attention_stacked", q, ck, cv)
         out = _launch(q, ck, cv, layer_idx, length, key_mask, blocks)
     elif q.device.type == "cpu":
         out = decode_attention_stacked_ref(
@@ -308,6 +318,7 @@ def decode_attention_stacked_q(
     layer_idx, length = int(layer_idx), int(length)
     blocks = _blocks_for(q, ck, length, key_mask, blocks)
     if q.is_cuda:
+        refuse_grad("decode_attention_stacked_q", q, ks, vs)
         out = _launch(q, ck, cv, layer_idx, length, key_mask, blocks, scales=(ks, vs))
     elif q.device.type == "cpu":
         out = decode_attention_stacked_q_ref(
@@ -413,6 +424,7 @@ def decode_attention(
         q = q[:, 0]
     length = int(length)
     if q.is_cuda:
+        refuse_grad("decode_attention", q, k, v)
         out = _launch_single(q.contiguous(), k, v, length, key_mask)
     elif q.device.type == "cpu":
         out = decode_attention_ref(q, k, v, length, key_mask=key_mask)

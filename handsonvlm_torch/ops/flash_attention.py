@@ -1,13 +1,14 @@
-"""Blockwise (flash) attention forward for prefill-sized queries.
+"""Blockwise (flash) attention for prefill-sized queries, with its backward.
 
-Port of `handsonvlm_tpu/ops/flash_attention.py::flash_attention` (kernel
-B3, the forward `_fwd_call`). q (B, T, H, D) attends over k, v (B, S, K, D)
+Port of `handsonvlm_tpu/ops/flash_attention.py::flash_attention`: kernel
+B3, the forward `_fwd_call`, and B3b, the backward `_flash_bwd` (its dq and
+dk/dv kernels). q (B, T, H, D) attends over k, v (B, S, K, D)
 with grouped-query heads, an optional boolean key mask (B, S), causal
 masking against the scalar `q_offset` (the absolute position of q[:, 0]:
 the cache index of a prefill), an fp32 softmax, and the probabilities cast
 to the inputs' dtype before the P.V product. Returns the output
 (B, T, H, D) and each row's logsumexp (B, H, T) in fp32, which the
-backward will need.
+backward reads: it recomputes the probabilities tile by tile from it.
 
 No (T, S) score tensor reaches device memory: at T = 4096 over a 4608-key
 cache layer the plain route writes 2.4 GB of fp32 scores per layer. The
@@ -21,12 +22,16 @@ NEG_INF here and in `flash_attention_ref`; the Pallas kernel and
 `attention_xla` average some keys there. Such rows are never read:
 comparisons hold valid rows only.
 
-The wrapper launches the hand-written Hopper kernel
-(`csrc/flash_attention.cu`) for CUDA tensors and runs the plain version
-(`flash_attention_ref`) for CPU tensors. There is no fallback: on a CUDA
-tensor it launches the kernel or raises. `flash_attention.LAUNCHES` counts
-the launches. Forward only: the backward kernels (dq; dk/dv) come with
-training (ROADMAP A9), and a CUDA input that requires grad raises.
+The wrappers launch the hand-written Hopper kernels
+(`csrc/flash_attention.cu`) for CUDA tensors and run the plain versions
+(`flash_attention_ref`, `flash_attention_bwd_ref`) for CPU tensors. There
+is no fallback: on a CUDA tensor a wrapper launches its kernel or raises.
+`flash_attention.LAUNCHES` counts forward launches and
+`flash_attention_bwd.LAUNCHES` backward ones (each launches the dq kernel
+and then the dk/dv kernel). When q, k or v requires grad under grad mode,
+`flash_attention` runs as a `torch.autograd.Function` whose backward is
+`flash_attention_bwd`, as the JAX package's custom_vjp pairs its forward
+with `_flash_bwd`.
 """
 
 from __future__ import annotations
@@ -58,12 +63,7 @@ def flash_attention_ref(
     # query heads grouped by their kv head: (B, K, groups, T, S) scores
     qg = q.float().reshape(b, t, kh, h // kh, d)
     scores = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
-    ok = torch.ones((b, 1, 1, t, s), dtype=torch.bool, device=q.device)
-    if key_mask is not None:
-        ok = ok & key_mask.bool()[:, None, None, None, :]
-    if causal:
-        q_pos = torch.arange(t, device=q.device) + int(q_offset)
-        ok = ok & (q_pos[:, None] >= torch.arange(s, device=q.device)[None, :])
+    ok = _valid(b, t, s, key_mask, causal, q_offset, q.device)
     scores = torch.where(ok, scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(scores - m), 0.0)
@@ -73,6 +73,56 @@ def flash_attention_ref(
     out = (acc / l_safe.permute(0, 3, 1, 2, 4)).reshape(b, t, h, d).to(q.dtype)
     lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l_safe)).reshape(b, h, t)
     return out, lse
+
+
+def _valid(b, t, s, key_mask, causal, q_offset, device):
+    """(B, 1, 1, T, S) bool: the pairs the forward attends."""
+    ok = torch.ones((b, 1, 1, t, s), dtype=torch.bool, device=device)
+    if key_mask is not None:
+        ok = ok & key_mask.bool()[:, None, None, None, :]
+    if causal:
+        q_pos = torch.arange(t, device=device) + int(q_offset)
+        ok = ok & (q_pos[:, None] >= torch.arange(s, device=device)[None, :])
+    return ok
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, S, K, D)
+    v: torch.Tensor,
+    out: torch.Tensor,  # (B, T, H, D): the forward's output
+    lse: torch.Tensor,  # (B, H, T) f32: the forward's logsumexp
+    dout: torch.Tensor,  # (B, T, H, D)
+    *,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B3b, the JAX package's `_flash_bwd`:
+    p = exp(s - lse) on the attended pairs (0 elsewhere, so a row with no
+    valid key gets dq = 0 and adds nothing), delta = rowsum(dO * O) in f32,
+    ds = p (dO V^T - delta) * scale; dq = ds K, dv = p^T dO, dk = ds^T Q
+    with p cast to dO's dtype and ds to q's before those products, f32
+    sums. The GQA group's dk / dv are summed in f32 and rounded once (the
+    JAX package rounds each repeated head's first; equal for MHA and in
+    f32)."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    grp = h // kh
+    scale = float(1.0 / (d ** 0.5))
+    qg = q.float().reshape(b, t, kh, grp, d)
+    dog = dout.float().reshape(b, t, kh, grp, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    ok = _valid(b, t, s, key_mask, causal, q_offset, q.device)
+    p = torch.where(ok, torch.exp(scores - lse.reshape(b, kh, grp, t)[..., None]), 0.0)
+    delta = (dog * out.float().reshape(b, t, kh, grp, d)).sum(-1)  # (B, T, K, G)
+    dp = torch.einsum("btkgd,bskd->bkgts", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    ds_r = ds.to(q.dtype).float()
+    dq = torch.einsum("bkgts,bskd->btkgd", ds_r, k.float()).reshape(b, t, h, d)
+    dk = torch.einsum("bkgts,btkgd->bskd", ds_r, qg)
+    dv = torch.einsum("bkgts,btkgd->bskd", p.to(dout.dtype).float(), dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _strides(x: torch.Tensor, name: str):
@@ -85,9 +135,8 @@ def _strides(x: torch.Tensor, name: str):
     return x.stride(0), x.stride(1)
 
 
-def _launch(q, k, v, key_mask, causal: bool, q_offset: int):
-    from handsonvlm_torch.ops._build import check, load_library
-
+def _check_args(q, k, v, key_mask):
+    """Check a call the kernels take; returns the six strides."""
     b, t, h, d = q.shape
     kb, s, kh, kd = k.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -108,7 +157,15 @@ def _launch(q, k, v, key_mask, causal: bool, q_offset: int):
                                  or tuple(key_mask.shape) != (b, s)
                                  or not key_mask.is_contiguous()):
         raise ValueError(f"key_mask must be a contiguous bool (B, S)=({b}, {s})")
-    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
+    return (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
+
+
+def _launch(q, k, v, key_mask, causal: bool, q_offset: int):
+    from handsonvlm_torch.ops._build import check, load_library
+
+    strides = _check_args(q, k, v, key_mask)
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = load_library()
@@ -124,6 +181,81 @@ def _launch(q, k, v, key_mask, causal: bool, q_offset: int):
     return out, lse
 
 
+def _launch_bwd(q, k, v, out, lse, dout, key_mask, causal: bool, q_offset: int):
+    from handsonvlm_torch.ops._build import check, load_library, refuse_grad
+
+    refuse_grad("flash_attention_bwd", q, k, v, out, dout)
+
+    strides = _check_args(q, k, v, key_mask)
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (b, h, t):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be f32, got {lse.dtype}")
+    out, lse = out.contiguous(), lse.contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kh, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, kh, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        status = lib.hv_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16), b, t, s, h, kh, d, *strides,
+            int(causal), q_offset, float(1.0 / (d ** 0.5)),
+            torch.cuda.current_stream().cuda_stream)
+    check(status, "flash_attention_bwd")
+    flash_attention_bwd.LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, key_mask, causal, q_offset):
+    if q.is_cuda:
+        return _launch(q, k, v, key_mask, causal, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, key_mask=key_mask, causal=causal,
+                                   q_offset=q_offset)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, key_mask=None, causal: bool = True,
+                        q_offset: int = 0):
+    """Flash attention backward: (dq, dk, dv) in q's dtype from the forward's
+    output and logsumexp (kernel B3b). CUDA tensors run the Hopper kernels;
+    CPU tensors the plain version."""
+    q_offset = int(q_offset)
+    if q.is_cuda:
+        return _launch_bwd(q, k, v, out, lse, dout, key_mask, causal, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, key_mask=key_mask,
+                                       causal=causal, q_offset=q_offset)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+class _Flash(torch.autograd.Function):
+    """B3 forward, B3b backward; the logsumexp output has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, q_offset):
+        out, lse = _forward(q, k, v, key_mask, causal, q_offset)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, key_mask=key_mask,
+                                         causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, T, H, D)
     k: torch.Tensor,  # (B, S, K, D); a view of a cache layer is read in place
@@ -135,18 +267,14 @@ def flash_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward: (out (B, T, H, D), logsumexp (B, H, T) f32).
 
-    CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
+    CUDA tensors run the Hopper kernel; CPU tensors the plain version. Under
+    grad mode with an input that requires grad, the output's gradient runs
+    through `flash_attention_bwd`."""
     q_offset = int(q_offset)
-    if q.is_cuda:
-        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention has no backward kernel yet (ROADMAP A9): call it "
-                "under torch.no_grad() or use impl='xla'")
-        return _launch(q, k, v, key_mask, causal, q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, key_mask=key_mask, causal=causal,
-                                   q_offset=q_offset)
-    raise ValueError(f"no flash attention for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _Flash.apply(q, k, v, key_mask, causal, q_offset)
+    return _forward(q, k, v, key_mask, causal, q_offset)
 
 
 flash_attention.LAUNCHES = 0
+flash_attention_bwd.LAUNCHES = 0

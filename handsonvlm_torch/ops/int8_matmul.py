@@ -25,17 +25,29 @@ Port of `handsonvlm_tpu/ops/int8_matmul.py`, for the quantized decoders
     matrix;
   - B5b `int4_matmul_prefill_tiled` and B5a `int4_matmul_prefill`
     (`csrc/int4_prefill.cu`): the prefill matmul over the stacked tiled and
-    flat layouts.
+    flat layouts;
+  - B7b `int4_matmul_T_tiled` and B7a `int4_matmul_T_flat`
+    (`csrc/int4_transpose.cu`): the transpose product dy @ dequant(W)^T
+    over the same two layouts, the input gradient through a frozen int4
+    projection.
 - `int4_matmul_stacked` dispatches on the layout (5-D tiled, 4-D flat) and
   then on rows as the JAX package does (rows = B x T); `maybe_int8_matmul`
   takes a dense weight, an int8 {"w8", "scale"} or a flat int4
-  {"w4", "gscale"} leaf, as the JAX package's does.
+  {"w4", "gscale"} leaf, as the JAX package's does;
+  `int4_matmul_stacked_T` dispatches the transpose product on the layout.
+- Gradients: under grad mode with an x that requires grad, the int4
+  products run as an autograd Function whose backward is B7b / B7a (the
+  JAX package's `int4_matmul_stacked` custom_vjp), dx cast to x's dtype,
+  and `int8_matmul` as one whose backward is dy @ (w8 * scale)^T in plain
+  torch (the JAX package's default int8 path is a differentiable XLA dot).
+  The quantized weights and scales get no gradient.
 
 The plain versions differ on purpose, as the Pallas kernels do: B4a/B4b/B4c's
 is the exact product (per-group f32 dot products, the f32 scale applied to
 each group's partial sum); B5a/B5b's rounds x to bf16 and each weight to
 bf16(bf16(nibble) x bf16(scale)) before an f32-accumulated product; B9's is
-(x @ w8) in f32 times the column scale, since bf16(int8) is exact.
+(x @ w8) in f32 times the column scale, since bf16(int8) is exact; B7a/B7b's
+rounds dy to bf16 and the weights as B5a/B5b's do.
 """
 
 from __future__ import annotations
@@ -229,6 +241,17 @@ def int4_gemv_tiled_ref(x: torch.Tensor, w4t: torch.Tensor, gst: torch.Tensor,
     return y.reshape(*x.shape[:-1], nb * bn).to(x.dtype)
 
 
+def _dequant_bf16(p: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Packed bytes (..., G, g/2, N) and scales (..., G, N) -> the weights
+    (..., G, g, N) as bf16(bf16(nibble) * bf16(scale)), the Pallas kernels'
+    per-group dequantization."""
+    p = p.to(torch.int32)
+    s = sc.to(torch.bfloat16)[..., None, :]
+    lo = ((p & 0x0F) - 8).to(torch.bfloat16) * s
+    hi = (p >> 4).to(torch.bfloat16) * s
+    return torch.cat([lo, hi], dim=-2)
+
+
 def int4_matmul_prefill_tiled_ref(x: torch.Tensor, w4t: torch.Tensor, gst: torch.Tensor,
                                   layer_idx: int) -> torch.Tensor:
     """x (..., d) @ dequant(w4t[layer_idx]) -> (..., n) in x.dtype with the
@@ -237,11 +260,8 @@ def int4_matmul_prefill_tiled_ref(x: torch.Tensor, w4t: torch.Tensor, gst: torch
     _, nb, G, half, bn = w4t.shape
     d = G * 2 * half
     x2 = x.reshape(-1, d).to(torch.bfloat16)
-    p = w4t[layer_idx].to(torch.int32)  # (NB, G, g/2, BN)
-    sc = gst[layer_idx].to(torch.bfloat16)[:, :, None, :]
-    lo = ((p & 0x0F) - 8).to(torch.bfloat16) * sc
-    hi = (p >> 4).to(torch.bfloat16) * sc
-    w = torch.cat([lo, hi], dim=2).permute(1, 2, 0, 3).reshape(d, nb * bn)
+    w = _dequant_bf16(w4t[layer_idx], gst[layer_idx])  # (NB, G, g, BN)
+    w = w.permute(1, 2, 0, 3).reshape(d, nb * bn)
     y = x2.float() @ w.float()
     return y.reshape(*x.shape[:-1], nb * bn).to(x.dtype)
 
@@ -253,6 +273,28 @@ def int4_matmul_prefill_ref(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Ten
     L, G, half, n = w4.shape
     return int4_matmul_prefill_tiled_ref(x, w4.view(L, 1, G, half, n),
                                          gscale.view(L, 1, G, n), layer_idx)
+
+
+def int4_matmul_T_tiled_ref(dy: torch.Tensor, w4t: torch.Tensor, gst: torch.Tensor,
+                            layer_idx: int) -> torch.Tensor:
+    """dy (..., n) @ dequant(w4t[layer_idx])^T -> (..., d) in dy.dtype with
+    the Pallas transpose kernel's roundings: dy to bf16 whatever its dtype,
+    each weight bf16(bf16(nibble) * bf16(scale)), f32 sums."""
+    _, nb, G, half, bn = w4t.shape
+    d = G * 2 * half
+    dy2 = dy.reshape(-1, nb * bn).to(torch.bfloat16)
+    w = _dequant_bf16(w4t[layer_idx], gst[layer_idx])  # (NB, G, g, BN)
+    w = w.permute(1, 2, 0, 3).reshape(d, nb * bn)
+    return (dy2.float() @ w.float().t()).reshape(*dy.shape[:-1], d).to(dy.dtype)
+
+
+def int4_matmul_T_flat_ref(dy: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor,
+                           layer_idx: int) -> torch.Tensor:
+    """`int4_matmul_T_tiled_ref` over the flat stacked layout (one tile of
+    all n columns)."""
+    L, G, half, n = w4.shape
+    return int4_matmul_T_tiled_ref(dy, w4.view(L, 1, G, half, n), gscale.view(L, 1, G, n),
+                                   layer_idx)
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +318,11 @@ def gemv_split(nb: int, groups: int, n_sm: int) -> Tuple[int, int]:
     return -(-groups // per), per
 
 
-def _int4_geometry(x, w, s, layer_idx, what):
-    """Check an int4 call; returns (flat, NB, G, g/2, BN) where BN is the
-    tiled layout's tile width, and for the flat layout (L, G, g/2, n) the
-    width `pick_block_n` gives the same weight's tiled layout."""
+def _int4_geometry(x, w, s, layer_idx, what, transpose=False):
+    """Check an int4 call (x of d features, or with `transpose` of n);
+    returns (flat, NB, G, g/2, BN) where BN is the tiled layout's tile
+    width, and for the flat layout (L, G, g/2, n) the width `pick_block_n`
+    gives the same weight's tiled layout."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} takes bf16 or f32 x, got {x.dtype}")
     flat = w.dim() == 4
@@ -297,8 +340,9 @@ def _int4_geometry(x, w, s, layer_idx, what):
         want_s = (L, nb, G, bn)
     if tuple(s.shape) != want_s:
         raise ValueError(f"scales {tuple(s.shape)} do not fit weights {tuple(w.shape)}")
-    if x.shape[-1] != G * 2 * half:
-        raise ValueError(f"x has {x.shape[-1]} features, the weight {G * 2 * half}")
+    want = nb * bn if transpose else G * 2 * half
+    if x.shape[-1] != want:
+        raise ValueError(f"x has {x.shape[-1]} features, the weight {want}")
     if not 0 <= layer_idx < L:
         raise ValueError(f"layer {layer_idx} out of range for L={L}")
     if not (x.device == w.device == s.device):
@@ -354,6 +398,33 @@ def _launch_prefill(x, w, s, layer_idx, counter):
     check(status, counter.__name__)
     counter.LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)
+
+
+def _launch_transpose(dy, w, s, layer_idx, counter):
+    from handsonvlm_torch.ops._build import check, load_library, refuse_grad
+
+    refuse_grad(counter.__name__, dy)
+    flat, nb, G, half, bn = _int4_geometry(dy, w, s, layer_idx, "int4 transpose",
+                                           transpose=True)
+    if flat:  # the flat layout is the tiled one with a single tile of n columns
+        nb, bn = 1, nb * bn
+    if bn % 16:
+        raise ValueError(f"int4 transpose needs a tile width that is a multiple of 16, "
+                         f"got {bn}")
+    dy2 = dy.reshape(-1, nb * bn).contiguous()
+    if dy2.data_ptr() % 16:  # the kernel reads dy 16 bytes at a time
+        dy2 = dy2.clone()
+    m, d = dy2.shape[0], G * 2 * half
+    out = torch.empty((m, d), dtype=dy.dtype, device=dy.device)
+    lib = load_library()
+    with torch.cuda.device(dy.device):
+        status = lib.hv_int4_transpose(
+            dy2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
+            out.data_ptr(), int(dy.dtype == torch.bfloat16), m, nb, G, half, bn,
+            torch.cuda.current_stream().cuda_stream)
+    check(status, counter.__name__)
+    counter.LAUNCHES += 1
+    return out.reshape(*dy.shape[:-1], d)
 
 
 def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
@@ -415,20 +486,95 @@ def _on_device(x, launch, ref, *args):
     raise ValueError(f"no quantized matmul for device {x.device}")
 
 
+class _FrozenWeightMatmul(torch.autograd.Function):
+    """y = fwd(x) through a frozen quantized weight; dx = bwd(dy) cast to
+    x's dtype. The weights and scales are constants of the closures: they
+    get no gradient, as the JAX package gives its quantized leaves zero
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd, ctx.dtype = bwd, x.dtype
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.bwd(dy).to(ctx.dtype), None, None
+
+
+def _with_grad(x, fwd, bwd):
+    """fwd(x), differentiable in x through `bwd` under grad mode."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FrozenWeightMatmul.apply(x, fwd, bwd)
+    return fwd(x)
+
+
+def _int8_dx(dy, w8, scale, dtype):
+    """dx = dy @ (w8 * scale)^T in plain torch: (dy * scale) rounded to x's
+    dtype against the exact w8, f32 sums (exact in f32, as `jax.vjp` of the
+    JAX package's XLA int8 dot)."""
+    return (dy.float() * scale).to(dtype) @ w8.to(dtype).t()
+
+
 def int8_matmul(x, w8, scale, out_dtype=torch.float32) -> torch.Tensor:
     """x (..., d) @ (w8 (d, n) int8 * scale (n,) f32) -> (..., n) in
     `out_dtype` (f32, as the JAX package returns, or x's dtype), f32
     accumulation (kernel B9: the GEMV, or a bf16 x of INT8_TC_MIN_M rows or
     more on the tensor cores). CUDA tensors run the Hopper kernel; CPU
-    tensors the plain version."""
-    return _on_device(x, _launch_int8, int8_matmul_ref, w8, scale, out_dtype)
+    tensors the plain version. dx = dy @ (w8 * scale)^T in plain torch."""
+    dtype = x.dtype  # the backward keeps the weights alone, never x itself
+    return _with_grad(
+        x, lambda x_: _on_device(x_, _launch_int8, int8_matmul_ref, w8, scale, out_dtype),
+        lambda dy: _int8_dx(dy, w8, scale, dtype))
+
+
+def int4_matmul_T_tiled(dy, w4t, gst, layer_idx) -> torch.Tensor:
+    """dy (..., n) @ dequant(w4t[layer_idx])^T -> (..., d) in dy.dtype over
+    the tiled layout (kernel B7b)."""
+    return _on_device(dy, lambda *a: _launch_transpose(*a, int4_matmul_T_tiled),
+                      int4_matmul_T_tiled_ref, w4t, gst, int(layer_idx))
+
+
+def int4_matmul_T_flat(dy, w4, gscale, layer_idx) -> torch.Tensor:
+    """dy (..., n) @ dequant(w4[layer_idx])^T -> (..., d) in dy.dtype over
+    the flat stacked layout (kernel B7a: B7b's kernel with one tile of n
+    columns)."""
+    return _on_device(dy, lambda *a: _launch_transpose(*a, int4_matmul_T_flat),
+                      int4_matmul_T_flat_ref, w4, gscale, int(layer_idx))
+
+
+def int4_matmul_stacked_T(dy, w4, gscale, layer_idx) -> torch.Tensor:
+    """dy (..., n) @ dequant(layer `layer_idx`)^T -> (..., d) over the tiled
+    (5-D, B7b) or the flat (4-D, B7a) stacked layout: the input gradient of
+    `int4_matmul_stacked`."""
+    fn = int4_matmul_T_tiled if w4.dim() == 5 else int4_matmul_T_flat
+    return fn(dy, w4, gscale, int(layer_idx))
+
+
+def int4_matmul_stacked_T_ref(dy, w4, gscale, layer_idx) -> torch.Tensor:
+    """The plain version of `int4_matmul_stacked_T` on any device."""
+    fn = int4_matmul_T_tiled_ref if w4.dim() == 5 else int4_matmul_T_flat_ref
+    return fn(dy, w4, gscale, int(layer_idx))
+
+
+def _int4(x, w, s, layer_idx, fwd, bwd):
+    """fwd(x, w, s, layer) over a stacked int4 layout, differentiable in x
+    through bwd(dy, w, s, layer), the transpose product of the layout."""
+    layer_idx = int(layer_idx)
+    return _with_grad(x, lambda x_: fwd(x_, w, s, layer_idx),
+                      lambda dy: bwd(dy, w, s, layer_idx))
+
+
+def _int4_kernel(x, w, s, layer_idx, launch, ref):
+    return _int4(x, w, s, layer_idx, lambda *a: _on_device(a[0], launch, ref, *a[1:]),
+                 int4_matmul_stacked_T)
 
 
 def int4_gemv_tiled(x, w4t, gst, layer_idx) -> torch.Tensor:
     """Decode-sized x (..., d) @ dequant(w4t[layer_idx]) -> (..., n) in
     x.dtype over the tiled layout (kernel B4b)."""
-    return _on_device(x, lambda *a: _launch_gemv(*a, int4_gemv_tiled), int4_gemv_tiled_ref,
-                      w4t, gst, int(layer_idx))
+    return _int4_kernel(x, w4t, gst, layer_idx, lambda *a: _launch_gemv(*a, int4_gemv_tiled),
+                        int4_gemv_tiled_ref)
 
 
 def int4_gemv_flat(x, w4, gscale, layer_idx) -> torch.Tensor:
@@ -436,35 +582,44 @@ def int4_gemv_flat(x, w4, gscale, layer_idx) -> torch.Tensor:
     x.dtype over the flat stacked layout (kernel B4c: B4b's body over the
     flat address map, with the tile width of the same weight's tiled
     layout, so both give the same bits)."""
-    return _on_device(x, lambda *a: _launch_gemv(*a, int4_gemv_flat), int4_gemv_flat_ref,
-                      w4, gscale, int(layer_idx))
+    return _int4_kernel(x, w4, gscale, layer_idx, lambda *a: _launch_gemv(*a, int4_gemv_flat),
+                        int4_gemv_flat_ref)
+
+
+def _int4_matmul_ref(x, w, s, i):
+    return int4_matmul_ref(x, w[i], s[i])
 
 
 def int4_matmul(x, w4, gscale) -> torch.Tensor:
     """x (..., d) @ dequant(w4 (G, g/2, n), gscale (G, n)) -> (..., n) in
     x.dtype, one flat matrix at any row count, as the JAX package runs it
-    (kernel B4a: B4c's launch over a stack of one)."""
-    return _on_device(x, lambda x_, w, s: _launch_gemv(x_, w[None], s[None], 0, int4_matmul),
-                      int4_matmul_ref, w4, gscale)
+    (kernel B4a: B4c's launch over a stack of one; its gradient B7a over
+    the same stack)."""
+    return _int4_kernel(x, w4[None], gscale[None], 0,
+                        lambda x_, w, s, i: _launch_gemv(x_, w, s, i, int4_matmul),
+                        _int4_matmul_ref)
 
 
 def int4_matmul_prefill_tiled(x, w4t, gst, layer_idx) -> torch.Tensor:
     """Prefill-sized x (..., d) @ dequant(w4t[layer_idx]) -> (..., n) in
     x.dtype over the tiled layout (kernel B5b)."""
-    return _on_device(x, lambda *a: _launch_prefill(*a, int4_matmul_prefill_tiled),
-                      int4_matmul_prefill_tiled_ref, w4t, gst, int(layer_idx))
+    return _int4_kernel(x, w4t, gst, layer_idx,
+                        lambda *a: _launch_prefill(*a, int4_matmul_prefill_tiled),
+                        int4_matmul_prefill_tiled_ref)
 
 
 def int4_matmul_prefill(x, w4, gscale, layer_idx) -> torch.Tensor:
     """Prefill-sized x (..., d) @ dequant(w4[layer_idx]) -> (..., n) in
     x.dtype over the flat stacked layout (kernel B5a: B5b's kernel with one
     tile of n columns, the same bits as B5b on the same weight)."""
-    return _on_device(x, lambda *a: _launch_prefill(*a, int4_matmul_prefill),
-                      int4_matmul_prefill_ref, w4, gscale, int(layer_idx))
+    return _int4_kernel(x, w4, gscale, layer_idx,
+                        lambda *a: _launch_prefill(*a, int4_matmul_prefill),
+                        int4_matmul_prefill_ref)
 
 
 for _fn in (int8_matmul, int4_gemv_tiled, int4_gemv_flat, int4_matmul,
-            int4_matmul_prefill_tiled, int4_matmul_prefill):
+            int4_matmul_prefill_tiled, int4_matmul_prefill, int4_matmul_T_tiled,
+            int4_matmul_T_flat):
     _fn.LAUNCHES = 0
 
 
@@ -472,12 +627,17 @@ def int4_matmul_stacked(x, w4, gscale, layer_idx, *, plain: bool = False) -> tor
     """x (..., d) @ dequant(layer `layer_idx`) over the tiled (5-D) or the
     flat (4-D) stacked layout: rows = prod(x.shape[:-1]) >=
     INT4_PREFILL_MIN_M go to the prefill matmul, fewer to the GEMV. `plain`
-    runs the chosen op's plain version on any device (the reference path)."""
+    runs the chosen op's plain version, and B7's as its backward, on any
+    device (the reference path). Differentiable in x: dx =
+    `int4_matmul_stacked_T(dy)` in x's dtype, as the JAX package's
+    custom_vjp."""
     prefill = math.prod(x.shape[:-1]) >= INT4_PREFILL_MIN_M
-    fn = {(5, True): (int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref),
-          (5, False): (int4_gemv_tiled, int4_gemv_tiled_ref),
-          (4, True): (int4_matmul_prefill, int4_matmul_prefill_ref),
-          (4, False): (int4_gemv_flat, int4_gemv_flat_ref)}[(w4.dim(), prefill)][plain]
+    fn, ref = {(5, True): (int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref),
+               (5, False): (int4_gemv_tiled, int4_gemv_tiled_ref),
+               (4, True): (int4_matmul_prefill, int4_matmul_prefill_ref),
+               (4, False): (int4_gemv_flat, int4_gemv_flat_ref)}[(w4.dim(), prefill)]
+    if plain:
+        return _int4(x, w4, gscale, layer_idx, ref, int4_matmul_stacked_T_ref)
     return fn(x, w4, gscale, int(layer_idx))
 
 
@@ -488,6 +648,9 @@ def maybe_int8_matmul(x, w, *, plain: bool = False) -> torch.Tensor:
     to B4a (their plain versions with `plain` or on CPU tensors)."""
     if isinstance(w, dict):
         if "w4" in w:
-            return (int4_matmul_ref if plain else int4_matmul)(x, w["w4"], w["gscale"])
+            if plain:
+                return _int4(x, w["w4"][None], w["gscale"][None], 0, _int4_matmul_ref,
+                             int4_matmul_stacked_T_ref)
+            return int4_matmul(x, w["w4"], w["gscale"])
         return (int8_matmul_ref if plain else int8_matmul)(x, w["w8"], w["scale"], x.dtype)
     return x @ w

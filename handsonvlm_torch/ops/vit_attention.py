@@ -8,7 +8,11 @@ layout (the packed (B, T, H*64) view of it).
 (`csrc/vit_attention.cu`) for CUDA tensors and runs the plain version
 `vit_attention_ref` for CPU tensors. There is no fallback: on a CUDA tensor
 it launches the kernel or raises. `vit_attention.LAUNCHES` counts kernel
-launches. Forward only: the CLIP tower is frozen on the serving path.
+launches. Under grad mode with an input that requires grad it runs as a
+`torch.autograd.Function` whose backward recomputes the plain version and
+differentiates that, as the JAX package's custom_vjp recomputes through
+XLA (`_vit_attention_bwd`); the kernel has no backward of its own, and the
+frozen CLIP tower of training never asks for one.
 """
 
 from __future__ import annotations
@@ -62,15 +66,37 @@ def _launch(q, k, v):
     return out
 
 
-def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal unmasked self-attention, q/k/v/out (B, T, H, 64).
-
-    CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
+def _forward(q, k, v):
     if q.is_cuda:
         return _launch(q, k, v)
     if q.device.type == "cpu":
         return vit_attention_ref(q, k, v)
     raise ValueError(f"no vit attention for device {q.device}")
+
+
+class _VitAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes `vit_attention_ref`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = vit_attention_ref(*inputs)
+        return torch.autograd.grad(out, inputs, dout)
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal unmasked self-attention, q/k/v/out (B, T, H, 64).
+
+    CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _VitAttention.apply(q, k, v)
+    return _forward(q, k, v)
 
 
 vit_attention.LAUNCHES = 0

@@ -12,8 +12,12 @@ from the host: one torch call per operation, the cache written in place.
   into its slot's plane at [cursor, cursor + bucket); the cursor then jumps
   past it for everyone. Other rows have a masked hole there: each row's
   valid keys are tracked in a host (slots, S) mask, uploaded once a chunk.
-- Rotary positions are per row: position = cursor - start_r, so a row's
-  logits do not depend on where its keys sit in the shared cache.
+- Rotary positions are per row: position = cursor - start_r, and a join
+  moves the live rows' starts with the cursor past the new bucket, so a
+  row's positions run on as in a solo decode and its logits do not depend
+  on where its keys sit in the shared cache or on who joined beside it.
+  (The JAX package's engine leaves the live rows' starts where they were,
+  so their positions jump by the bucket at another request's join.)
 - Draws are per row: each slot owns a `torch.Generator` seeded from its
   request's seed, which gives the token draw and the CVAE latent of every
   step in order, so a request's stream depends on its seed and its step,
@@ -272,6 +276,12 @@ class ContinuousEngine:
         self._splice(pcache, rows, at, s1)
         del pcache
         self.pos = self.cache.index = at + s1
+        # the rows already live step over the new bucket (a masked hole in
+        # their planes): their starts move with the cursor, so their rotary
+        # positions go on from where they were, as in a solo decode
+        live = [r for r, slot in enumerate(self.slots) if slot.busy]
+        if live:
+            self.starts[torch.tensor(live, device=self.device)] += s1
 
         t_outs = [pl + nv - 1 for pl in plens]
         t_pad = p + nv - 1

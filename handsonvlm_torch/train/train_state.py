@@ -1,0 +1,152 @@
+"""Train state, optimizer and LR schedule.
+
+Port of `handsonvlm_tpu/train/train_state.py`. The recipe is the
+reference's (scripts/finetune.sh): AdamW, lr 2e-5, weight decay 0, a cosine
+schedule with 3% warmup, gradients clipped to a global norm of 1, the CLIP
+tower frozen.
+
+Freezing: the JAX package masks whole top-level trees out of its optax
+chain (`multi_transform` with `set_to_zero`). Here a frozen top-level module
+gets `requires_grad_(False)`, so no gradient is ever computed for it, and
+the optimizer holds one param group per trainable module. `vision` is
+frozen by default; LoRA freezes `vision` and `llama` (the adapters, the
+projector and the trajectory head train); the projector-only recipe
+freezes everything but `projector`. LoRA's alpha / r is a buffer and never
+trains, as the JAX package's mask freezes it.
+
+`AdamW` is optax's chain `clip_by_global_norm(max_grad_norm)` then
+`adamw(...)`, step for step: the clip scales every gradient by
+max_norm / norm when the norm (over the trainable leaves) is not below
+max_norm, with no epsilon (unlike `torch.nn.utils.clip_grad_norm_`); the
+moments are optax's (the first in `mu_dtype` when given, bf16 for
+`--mu-bf16`, updated in f32), bias-corrected with (1 - b^count) in f32;
+the weight decay is added to the Adam direction before the learning rate
+scales it; and the schedule reads optax's count, which starts at 0, so the
+first step of a warmup has lr 0. `torch.optim.AdamW` has no `mu_dtype` and
+decays the weights apart from the update, hence this short optimizer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def cosine_schedule(base_lr: float, total_steps: int,
+                    warmup_ratio: float = 0.03) -> Callable[[int], float]:
+    """HF's 'cosine' schedule with linear warmup, as optax's
+    `join_schedules([linear 0 -> lr over w steps, cosine decay to 0 over
+    the rest])` with w = max(int(total * warmup_ratio), 1), in f32."""
+    warmup = max(int(total_steps * warmup_ratio), 1)
+    decay = max(total_steps - warmup, 1)
+    lr = np.float32(base_lr)
+
+    def schedule(step: int) -> float:
+        if step < warmup:
+            return float(lr * np.float32(min(max(step, 0), warmup) / warmup))
+        t = np.float32(min(step - warmup, decay)) / np.float32(decay)
+        return float(lr * np.float32(0.5) * (np.float32(1.0) + np.cos(np.float32(math.pi) * t)))
+
+    return schedule
+
+
+def _c(value, like: torch.Tensor) -> torch.Tensor:
+    """A constant in `like`'s dtype, as JAX casts a Python scalar to the
+    array it meets (a bf16 moment times b1 rounds b1 to bf16 first)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax.chain(clip_by_global_norm(max_grad_norm), adamw(...)) over the
+    param groups; `step()` returns the global norm of the gradients it
+    clipped (the trainable leaves')."""
+
+    def __init__(self, groups, learning_rate: Union[float, Callable[[int], float]] = 2e-5,
+                 weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, max_grad_norm: Optional[float] = 1.0, mu_dtype=None):
+        super().__init__(groups, dict(weight_decay=weight_decay, b1=b1, b2=b2, eps=eps))
+        self.learning_rate = learning_rate
+        self.max_grad_norm = max_grad_norm
+        self.mu_dtype = mu_dtype
+        self.count = 0  # optax's adam and schedule count
+
+    def lr(self) -> float:
+        lr = self.learning_rate
+        return float(lr(self.count)) if callable(lr) else float(lr)
+
+    @torch.no_grad()
+    def step(self, closure=None) -> torch.Tensor:
+        pairs = [(p, g) for g in self.param_groups for p in g["params"] if p.grad is not None]
+        if not pairs:
+            raise RuntimeError("no parameter has a gradient")
+        norm = torch.sqrt(sum(p.grad.float().square().sum() for p, _ in pairs))
+        clip = self.max_grad_norm is not None and bool(norm >= self.max_grad_norm)
+        count = self.count + 1
+        step_size = -np.float32(self.lr())
+        for p, group in pairs:
+            b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+            g = p.grad
+            if clip:
+                g = (g / norm.to(g.dtype)) * _c(self.max_grad_norm, g)
+            st = self.state[p]
+            if not st:
+                st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                st["nu"] = torch.zeros_like(p)
+            mu = _c(1 - b1, g) * g + _c(b1, st["mu"]) * st["mu"]
+            nu = _c(1 - b2, g) * (g * g) + _c(b2, st["nu"]) * st["nu"]
+            bc1 = np.float32(1) - np.float32(b1) ** np.float32(count)
+            bc2 = np.float32(1) - np.float32(b2) ** np.float32(count)
+            u = (mu / _c(bc1, mu)) / (torch.sqrt(nu / _c(bc2, nu)) + _c(eps, nu))
+            if wd:
+                u = u + _c(wd, p) * p
+            p.copy_(p + u * _c(step_size, u))
+            st["mu"] = mu.to(st["mu"].dtype)
+            st["nu"] = nu
+        self.count = count
+        return norm
+
+
+def make_optimizer(
+    model: nn.Module,
+    learning_rate: Union[float, Callable[[int], float]] = 2e-5,
+    weight_decay: float = 0.0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    max_grad_norm: Optional[float] = 1.0,
+    freeze_top_keys: Sequence[str] = ("vision",),
+    mu_dtype=None,
+) -> AdamW:
+    """Freeze the top-level modules named in `freeze_top_keys`
+    (`requires_grad_(False)`), make the rest trainable, and return an
+    `AdamW` with one param group per trainable module. `mu_dtype`
+    (torch.bfloat16) stores the first moment in bf16."""
+    groups = []
+    for name, child in model.named_children():
+        if child is None:
+            continue
+        frozen = name in freeze_top_keys
+        child.requires_grad_(not frozen)
+        params = [p for p in child.parameters() if p.requires_grad]
+        if params:
+            groups.append({"name": name, "params": params})
+    return AdamW(groups, learning_rate, weight_decay, b1, b2, eps, max_grad_norm, mu_dtype)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the model (the parameters) and its optimizer (the
+    optimizer state)."""
+
+    step: int
+    model: nn.Module
+    optimizer: AdamW
+
+
+def create_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
+    return TrainState(step=0, model=model, optimizer=optimizer)

@@ -14,8 +14,12 @@ sets, and gives 0 in the port. Such rows are never read, so they are left
 out of every comparison here, as tests/test_flash_attention.py and
 tests/test_left_padding.py leave them out.
 
-The kernel itself is held against `flash_attention_ref` on the card, in
-tests/test_torch_kernels.py.
+The backward's plain version (`flash_attention_bwd_ref`, kernel B3b's) is
+held against `jax.vjp` of the JAX package's flash_attention, which runs
+the Pallas dq and dk/dv kernels.
+
+The kernels themselves are held against their plain versions on the card,
+in tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -41,6 +45,7 @@ from handsonvlm_torch.ops.attention import attention_xla
 from handsonvlm_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
+    flash_attention_bwd_ref,
     flash_attention_ref,
 )
 
@@ -257,3 +262,91 @@ def test_flash_window_stays_plain_and_prefill_takes_flash(port, monkeypatch):
         apply_llama(port.llama, CFG.llama, inputs_embeds=emb[:, 11:], kv_cache=cache,
                     attn_impl="flash")  # 9 rows at index 12
         assert [c[:2] for c in calls[CFG.llama.num_layers:]] == [(9, 12)] * CFG.llama.num_layers
+
+
+# ---------------------------------------------------------------------------
+# B3b: the backward
+# ---------------------------------------------------------------------------
+
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+BWD_CASES = ("causal", "key_mask_hole", "non_divisible", "gqa",
+             "left_pad_prefill_over_cache", "noncausal_masked")
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_ref_matches_pallas_vjp(case):
+    """`flash_attention_bwd_ref` (B3b's plain version) against `jax.vjp` of
+    the JAX package's flash_attention, whose VJP runs the Pallas dq and
+    dk/dv kernels (interpret mode), fp32: causal, q_offset, key masks and a
+    GQA group of 4. dO is zero on rows with no valid key (the loss never
+    reads them; the Pallas forward averages keys there, the port gives 0),
+    so every dk / dv and the valid rows' dq compare. Tolerance atol / rtol
+    1e-4: another summation order in f32."""
+    q, k, v, mask, causal, q_offset = _inputs(case)
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    valid = _valid_rows(mask, causal, q_offset, b, t, s)
+    do = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    do[~valid] = 0.0
+    jmask = None if mask is None else jnp.asarray(mask)
+    out, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_attention(
+        q_, k_, v_, key_mask=jmask, causal=causal, q_offset=q_offset, block_q=8, block_k=8),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    tout, lse = flash_attention_ref(tq, tk, tv, key_mask=tmask, causal=causal,
+                                    q_offset=q_offset)
+    got = flash_attention_bwd_ref(tq, tk, tv, tout, lse, torch.from_numpy(do),
+                                  key_mask=tmask, causal=causal, q_offset=q_offset)
+    assert [g.shape for g in got] == [tq.shape, tk.shape, tv.shape]
+    np.testing.assert_allclose(got[0].numpy()[valid], want[0][valid], err_msg="dq", **BWD_TOL)
+    assert not got[0].numpy()[~valid].any()
+    np.testing.assert_allclose(got[1].numpy(), want[1], err_msg="dk", **BWD_TOL)
+    np.testing.assert_allclose(got[2].numpy(), want[2], err_msg="dv", **BWD_TOL)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa"])
+def test_flash_wrapper_gradient_is_the_backward(case):
+    """On a CPU tensor that requires grad, `flash_attention` is the
+    autograd Function pairing B3 and B3b (plain versions): its gradient is
+    `flash_attention_bwd_ref`'s and matches autograd through the plain
+    attention; the logsumexp output carries no gradient."""
+    q, k, v, mask, causal, q_offset = _inputs(case)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    do = torch.from_numpy(np.random.default_rng(3).normal(size=q.shape).astype(np.float32))
+    out, lse = flash_attention(*leaves, key_mask=tmask, causal=causal, q_offset=q_offset)
+    assert out.grad_fn is not None and not lse.requires_grad
+    got = torch.autograd.grad(out, leaves, do)
+    ref_out = attention_xla(*leaves, key_mask=tmask, causal=causal, q_offset=q_offset)
+    want = torch.autograd.grad(ref_out, leaves, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, msg=name, **BWD_TOL)
+    bwd = flash_attention_bwd_ref(*(x.detach() for x in leaves), out.detach(), lse, do,
+                                  key_mask=tmask, causal=causal, q_offset=q_offset)
+    for g, w in zip(got, bwd):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_vit_attention_gradient_matches_jax_vjp():
+    """The CLIP attention's autograd Function (its backward recomputes the
+    plain version, as the JAX package's custom_vjp recomputes through XLA)
+    against `jax.vjp` of the JAX package's `vit_attention`, fp32, atol /
+    rtol 1e-4."""
+    from handsonvlm_tpu.ops.vit_attention import vit_attention as jax_vit_attention
+    from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
+
+    rng = np.random.default_rng(4)
+    q, k, v, do = (rng.normal(size=(2, 17, 2, 64)).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(jax_vit_attention, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = vit_attention(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    plain = torch.autograd.grad(vit_attention_ref(*leaves), leaves, torch.from_numpy(do))
+    for name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **BWD_TOL)
+        torch.testing.assert_close(g, p, atol=0, rtol=0)

@@ -236,3 +236,105 @@ def test_load_pretrained_int8_random_and_generate():
         out = generate_host(model, cfg, ids, frames, None, frame_map=frame_map, max_new_tokens=4,
                             temperature=0.0, kv_quant=kv_quant)
         assert out.sequences.shape == (1, 4) and int(out.num_tokens[0]) >= 1
+
+
+# ---------------------------------------------------------------------------
+# B7a / B7b (the int4 transpose product) and the quantized matmuls' gradients
+# ---------------------------------------------------------------------------
+
+
+def _w_down_stacks(n=128, layers=2, seed=5):
+    """JAX-quantized flat stacks at w_down's contraction d = 11008 (no
+    multiple of 512, JAX's widest block) and their tiles."""
+    w4, gs, _ = _flat_int4(11008, n, layers, seed)
+    tiled = j8.tile_int4_stacked(jnp.asarray(w4), jnp.asarray(gs))
+    return {"flat": (w4, gs), "tiled": (np.asarray(tiled["w4t"]), np.asarray(tiled["gst"]))}
+
+
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+def test_int4_transpose_plain_vs_pallas(layout):
+    """B7b's and B7a's plain versions against `int4_matmul_stacked_T` (the
+    Pallas transpose kernels, interpret mode) at d = 11008: dy rounded to
+    bf16 and each weight to bf16(bf16(nibble) * bf16(scale)) in both, so
+    they differ only in f32 summation order, <= 1e-5 x max|y|; the two
+    layouts' plain versions are bit-equal, and the dispatch runs them on a
+    CPU tensor (no launch)."""
+    stacks = _w_down_stacks()
+    w, s = stacks[layout]
+    dy = rand((2, 8, 128), 11, 0.3)
+    before = (t8.int4_matmul_T_tiled.LAUNCHES, t8.int4_matmul_T_flat.LAUNCHES)
+    for layer in (0, 1):
+        want = np.asarray(j8.int4_matmul_stacked_T(jnp.asarray(dy), jnp.asarray(w),
+                                                   jnp.asarray(s), layer))
+        ref = t8.int4_matmul_T_tiled_ref if layout == "tiled" else t8.int4_matmul_T_flat_ref
+        got = ref(torch.from_numpy(dy), _t(w), _t(s), layer)
+        assert got.shape == want.shape == (2, 8, 11008) and got.dtype == torch.float32
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+        other = stacks["flat" if layout == "tiled" else "tiled"]
+        other_ref = t8.int4_matmul_T_flat_ref if layout == "tiled" else t8.int4_matmul_T_tiled_ref
+        torch.testing.assert_close(other_ref(torch.from_numpy(dy), *map(_t, other), layer), got,
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(t8.int4_matmul_stacked_T(torch.from_numpy(dy), _t(w), _t(s),
+                                                            layer), got, atol=0, rtol=0)
+    assert (t8.int4_matmul_T_tiled.LAUNCHES, t8.int4_matmul_T_flat.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("route", ["wrapper", "plain"])
+@pytest.mark.parametrize("m", [16, 130], ids=["gemv", "prefill"])
+@pytest.mark.parametrize("layout", ["tiled", "flat", "one_matrix"])
+def test_int4_gradient_matches_jax_vjp(layout, m, route):
+    """dx through the int4 products (the autograd Function of each layout,
+    run on the CPU through the kernel wrappers, which take their plain
+    versions there, or through the dispatchers' `plain` route, the
+    reference path on any device) against `jax.vjp` of the JAX
+    package's `int4_matmul_stacked` (its custom_vjp: the Pallas transpose
+    kernel), fp32, <= 1e-5 x max|dx|: GEMV-sized and prefill-sized x, the
+    tiled and flat stacks and one flat matrix (B4a, whose JAX counterpart
+    is the flat stack of one). The packed weights get no gradient."""
+    w4, gs, _ = _flat_int4(384, 256, 2, seed=m)
+    if layout == "tiled":
+        tiled = j8.tile_int4_stacked(jnp.asarray(w4), jnp.asarray(gs))
+        jw, js, layer = tiled["w4t"], tiled["gst"], 1
+    elif layout == "flat":
+        jw, js, layer = jnp.asarray(w4), jnp.asarray(gs), 1
+    else:
+        jw, js, layer = jnp.asarray(w4[1:]), jnp.asarray(gs[1:]), 0
+    x, dy = rand((1, m, 384), m, 0.3), rand((1, m, 256), m + 1, 0.3)
+    _, vjp = jax.vjp(lambda x_: j8.int4_matmul_stacked(x_, jw, js, layer), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(dy))[0])
+    tx = torch.from_numpy(x).requires_grad_()
+    plain = route == "plain"
+    if layout == "one_matrix":
+        y = t8.maybe_int8_matmul(tx, {"w4": _t(w4[1]), "gscale": _t(gs[1])}, plain=plain)
+    else:
+        y = t8.int4_matmul_stacked(tx, _t(jw), _t(js), layer, plain=plain)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, tx, torch.from_numpy(dy))[0]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gradient_matches_jax_vjp(dtype):
+    """dx through `maybe_int8_matmul` over a w8 leaf (B9 forward, the plain
+    backward dy @ (w8 * scale)^T) against `jax.vjp` of the JAX package's
+    (its default XLA int8 dot) on the same x and dy: fp32 within 1e-5 x
+    max|dx|; in bf16 (both take bf16 x and dy and return a bf16 dx; the
+    port rounds dy * scale to bf16 before the product) within the bf16 rule,
+    2e-3 x max|dx| plus one rounding step of the element."""
+    w8, scale = j8.quantize_int8(jnp.asarray(rand((384, 640), 3, 0.05)))
+    x, dy = rand((2, 5, 384), 4, 0.3), rand((2, 5, 640), 5, 0.3)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, vjp = jax.vjp(lambda x_: j8.maybe_int8_matmul(x_, {"w8": w8, "scale": scale}),
+                     jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(dy, jdt))[0].astype(jnp.float32))
+    tx = torch.from_numpy(x).to(dtype).requires_grad_()
+    leaf = {"w8": _t(w8), "scale": _t(scale)}
+    y = t8.maybe_int8_matmul(tx, leaf)
+    got = torch.autograd.grad(y, tx, torch.from_numpy(dy).to(dtype))[0]
+    assert got.dtype == dtype and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want)
+    if dtype == torch.float32:
+        assert err.max() <= 1e-5 * np.abs(want).max()
+    else:
+        assert (err <= 2e-3 * np.abs(want).max() + 2.0 ** -7 * np.abs(want)).all()

@@ -12,7 +12,11 @@ rounding step of the element in bf16 (both sides round f32 sums taken in
 another order to bf16, and a sum next to a rounding boundary lands one step
 apart), 1e-4 x max|y| in fp32 (summation order). The flat int4 kernels
 (B4c, B5a) give the tiled ones' bits (B4b, B5b) on the same weight, and a
-GEMV's rows (B4b, B9) are bit-equal alone and in a window.
+GEMV's rows (B4b, B9) are bit-equal alone and in a window. The backward
+kernels: B3b's gradients within 2e-2 (bf16) or 1e-4 (fp32) of max|want|
+(p and ds are rounded as in the plain version, the sums taken in another
+order), B7a / B7b under the int4 rule, and every wrapper on an input that
+requires grad either carries the plain version's gradient or raises.
 """
 
 import numpy as np
@@ -29,7 +33,13 @@ from handsonvlm_torch.ops.decode_attention import (
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
 )
-from handsonvlm_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from handsonvlm_torch.ops.attention import attention_xla
+from handsonvlm_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 from handsonvlm_torch.ops.int8_matmul import (
     _launch_int8,
     int4_gemv_flat,
@@ -42,8 +52,14 @@ from handsonvlm_torch.ops.int8_matmul import (
     int4_matmul_prefill_tiled,
     int4_matmul_prefill_tiled_ref,
     int4_matmul_ref,
+    int4_matmul_stacked,
+    int4_matmul_T_flat,
+    int4_matmul_T_flat_ref,
+    int4_matmul_T_tiled,
+    int4_matmul_T_tiled_ref,
     int8_matmul,
     int8_matmul_ref,
+    maybe_int8_matmul,
     quantize_int4,
     quantize_stacked_int8,
     tile_int4_stacked,
@@ -346,6 +362,8 @@ def flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed):
         mask[:, :min(S, q_offset + T)] = True
         if mask_kind == "left_pad":
             mask[:, :5] = False
+        elif mask_kind == "right_pad":  # a training row's padded tail
+            mask[:, max(1, min(S, q_offset + T) - 13):] = False
         else:
             mask[:, 40:110] = False  # a whole 64-key tile and more
     return q, k, v, mask
@@ -389,9 +407,207 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_grad(cuda):
+    """The logsumexp output refuses a gradient (it is the backward's input,
+    not a differentiable output); the attention output takes one."""
     q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        flash_attention(q, q, q)
+    out, lse = flash_attention(q, q, q)
+    assert out.requires_grad and not lse.requires_grad
+
+
+# (B, T, S, H, K, D, causal, q_offset, mask): the backward's cases
+FLASH_BWD_CASES = {
+    "d128_causal": (1, 200, 200, 4, 4, 128, True, 0, None),
+    "d128_q_offset": (1, 100, 300, 4, 4, 128, True, 200, None),
+    "d128_right_pad": (2, 150, 150, 4, 4, 128, True, 0, "right_pad"),
+    "d64_left_pad_dead_rows": (2, 77, 77, 4, 4, 64, True, 0, "left_pad"),
+    "gqa_d64": (2, 70, 70, 8, 2, 64, True, 0, None),
+    "noncausal_hole_d64": (1, 65, 130, 4, 4, 64, False, 0, "hole"),
+    "fma_d32_gqa": (1, 45, 60, 4, 2, 32, True, 15, None),
+    "7b_2048": (1, 2048, 2048, 32, 32, 128, True, 0, "right_pad"),
+}
+
+
+def assert_grad_close(got, want, dtype, name, want32=None):
+    """Gradients per element: |got - want| <= rtol x (|want| + the rms of
+    want's row over the last axis) + 2^-12 x the rms of its block of 64
+    rows (the token axis of (B, N, heads, D), the first of (N, D)). rtol is
+    2^-6 in bf16 (two rounding steps of the element: p and ds are rounded
+    alike in both, the f32 sums taken in another order are rounded once,
+    and now and then a ds lands one step apart; plus two steps of the
+    row's typical entry, for an entry that cancels) or 1e-4 in fp32; the floor holds a row that cancels whole to f32 noise
+    (a causal first query row: p = 1 on its one key, so dp = delta but for
+    the sums' order). With `want32`, the plain version in fp32 on the same
+    inputs, also the relative L2 rule: got at most 1.2 x want's distance
+    from it."""
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), name
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    w = want if want.dim() == 4 else want.reshape(1, want.shape[0], 1, -1)
+    ms = w.pow(2).mean(-1)  # (B, N, H)
+    block = torch.arange(ms.shape[1], device=want.device) // 64
+    sums = torch.zeros((ms.shape[0], int(block[-1]) + 1, ms.shape[2]),
+                       device=want.device).index_add_(1, block, ms)
+    local = (sums / torch.bincount(block)[None, :, None])[:, block]
+    limit = (rtol * (w.abs() + ms.sqrt()[..., None])
+             + 2.0 ** -12 * local.sqrt()[..., None]).reshape(want.shape)
+    diff = (got - want).abs()
+    assert bool((diff <= limit).all()), (name, float(diff.max()),
+                                        float((diff / limit.clamp(min=1e-30)).max()))
+    if want32 is not None:
+        d_got = float((got - want32).norm() / want32.norm())
+        d_want = float((want - want32).norm() / want32.norm())
+        assert d_got <= 1.2 * d_want, (name, d_got, d_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES), ids=list(FLASH_BWD_CASES))
+def test_flash_attention_bwd_kernel(cuda, case, dtype):
+    """B3b (the dq and dk/dv kernels) against `flash_attention_bwd_ref` on
+    the forward's own output and logsumexp; dO is zero on rows with no
+    valid key, as a loss leaves them, and both give those rows dq = 0."""
+    B, T, S, H, K, D, causal, q_offset, mask_kind = FLASH_BWD_CASES[case]
+    q, k, v, mask = flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed=len(case))
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    out, lse = flash_attention(q, k, v, key_mask=t_mask, causal=causal, q_offset=q_offset)
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    do = torch.where((lse > -1e29).transpose(1, 2)[..., None], do, 0.0).to(dtype)
+    before = flash_attention_bwd.LAUNCHES
+    got = flash_attention_bwd(q, k, v, out, lse, do, key_mask=t_mask, causal=causal,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.LAUNCHES == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, key_mask=t_mask, causal=causal,
+                                   q_offset=q_offset)
+    want32 = [None] * 3
+    if dtype == torch.bfloat16:
+        want32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse, do.float(),
+                                         key_mask=t_mask, causal=causal, q_offset=q_offset)
+    for name, g, w, w32, x in zip(("dq", "dk", "dv"), got, want, want32, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert_grad_close(g, w, dtype, name, w32)
+    dead = (lse <= -1e29).transpose(1, 2)  # (B, T, H)
+    assert not bool(got[0][dead].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [16, 200])
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_transpose_kernel(cuda, shape, layout, m, dtype):
+    """B7b (tiled) and B7a (flat) against their plain versions: dy @
+    dequant(W)^T with dy and the weights rounded to bf16 in both; the two
+    layouts give the same bits on the same weight."""
+    din, dout = INT4_SHAPES[shape]
+    w4t, gst = int4_weights(din, dout, 2, cuda, seed=m + 7)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    dy = torch.randn((m, dout), generator=gen, device=cuda).to(dtype)
+    fn, ref, w, s = ((int4_matmul_T_tiled, int4_matmul_T_tiled_ref, w4t, gst)
+                     if layout == "tiled" else (int4_matmul_T_flat, int4_matmul_T_flat_ref, w4, gs))
+    before = fn.LAUNCHES
+    got = fn(dy, w, s, 1)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (m, din)
+    assert_int4_close(got, ref(dy, w, s, 1), dtype)
+    other = int4_matmul_T_flat(dy, w4, gs, 1) if layout == "tiled" else int4_matmul_T_tiled(
+        dy, w4t, gst, 1)
+    assert torch.equal(got, other)
+
+
+def _grad_cases(device):
+    """wrapper name -> (kernel call, plain call, inputs that require grad):
+    every wrapper of the port's kernels at a small shape."""
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    w4t, gst = int4_weights(128, 256, 2, device, seed=1)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    w8, sc = quantize_stacked_int8(0.02 * rnd(1, 128, 256))
+    q, k, v = rnd(2, 40, 4, 64), rnd(2, 40, 4, 64), rnd(2, 40, 4, 64)
+    ck, cv = rnd(2, 2, 64, 4, 64), rnd(2, 2, 64, 4, 64)
+    x16, x200 = rnd(16, 128), rnd(200, 128)
+    q1 = q[:, :1].contiguous()
+    k8, v8, ks, vs = quantize_cache(ck, cv)
+    return {
+        "vit_attention": (lambda a, b, c: vit_attention(a, b, c),
+                          lambda a, b, c: vit_attention_ref(a, b, c), (q, k, v)),
+        "flash_attention": (lambda a, b, c: flash_attention(a, b, c)[0],
+                            lambda a, b, c: attention_xla(a, b, c), (q, k, v)),
+        # the plain routes: the dispatchers' `plain`, B7's plain version as
+        # the backward
+        "int4_gemv_tiled": (lambda a: int4_gemv_tiled(a, w4t, gst, 1),
+                            lambda a: int4_matmul_stacked(a, w4t, gst, 1, plain=True), (x16,)),
+        "int4_gemv_flat": (lambda a: int4_gemv_flat(a, w4, gs, 1),
+                           lambda a: int4_matmul_stacked(a, w4, gs, 1, plain=True), (x16,)),
+        "int4_matmul": (lambda a: int4_matmul(a, w4[1], gs[1]),
+                        lambda a: maybe_int8_matmul(a, {"w4": w4[1], "gscale": gs[1]},
+                                                    plain=True), (x16,)),
+        "int4_matmul_prefill_tiled": (
+            lambda a: int4_matmul_prefill_tiled(a, w4t, gst, 1),
+            lambda a: int4_matmul_stacked(a, w4t, gst, 1, plain=True), (x200,)),
+        "int4_matmul_prefill": (lambda a: int4_matmul_prefill(a, w4, gs, 1),
+                                lambda a: int4_matmul_stacked(a, w4, gs, 1, plain=True),
+                                (x200,)),
+        "int8_matmul": (lambda a: int8_matmul(a, w8[0], sc[0]),
+                        lambda a: int8_matmul_ref(a, w8[0], sc[0]), (x16,)),
+        # no backward: decoding and cache ops, and the backward kernels
+        "decode_attention_stacked": (
+            lambda a: decode_attention_stacked(a, ck, cv, 1, 30), None, (q1,)),
+        "decode_attention_stacked_q": (
+            lambda a: decode_attention_stacked_q(a, k8, v8, ks, vs, 1, 30), None, (q1,)),
+        "decode_attention": (lambda a: decode_attention(a, ck[1], cv[1], 30), None,
+                             (q1,)),
+        "gather_cache_blocks": (
+            lambda a: gather_cache_blocks(a, np.tile(np.arange(2), (2, 1)), block_k=32),
+            None, (ck.clone(),)),
+        "flash_attention_bwd": (
+            lambda a: flash_attention_bwd(a, k, v, q, torch.zeros((2, 4, 40), device=device),
+                                          q), None, (q,)),
+        "int4_matmul_T_tiled": (lambda a: int4_matmul_T_tiled(a, w4t, gst, 1), None,
+                                (rnd(16, 256),)),
+        "int4_matmul_T_flat": (lambda a: int4_matmul_T_flat(a, w4, gs, 1), None,
+                               (rnd(16, 256),)),
+    }
+
+
+GRAD_WRAPPERS = ("vit_attention", "flash_attention", "int4_gemv_tiled", "int4_gemv_flat",
+                 "int4_matmul", "int4_matmul_prefill_tiled", "int4_matmul_prefill",
+                 "int8_matmul", "decode_attention_stacked", "decode_attention_stacked_q",
+                 "decode_attention", "gather_cache_blocks", "flash_attention_bwd",
+                 "int4_matmul_T_tiled", "int4_matmul_T_flat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
+def test_kernel_wrapper_carries_or_refuses_grad(cuda, name):
+    """Every kernel wrapper, on a CUDA input that requires grad: either its
+    output carries the plain version's gradient (an autograd Function whose
+    backward is a kernel or plain torch), or it raises, naming the missing
+    backward; none returns a graph-less output."""
+    kernel, plain, inputs = _grad_cases(cuda)[name]
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    if plain is None:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            kernel(*leaves)
+        with torch.no_grad():
+            kernel(*[x.detach() for x in inputs])
+        return
+    out = kernel(*leaves)
+    assert out.grad_fn is not None
+    dy = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda)
+    got = torch.autograd.grad(out, leaves, dy)
+    ref_leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, dy)
+    for g, w in zip(got, want):
+        assert_grad_close(g, w, torch.float32, name)
 
 
 SINGLE_CASES = {name: c for name, c in DECODE_CASES.items() if c[6] == 1}

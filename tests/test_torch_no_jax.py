@@ -25,6 +25,7 @@ MODULES = [
     "handsonvlm_torch.ops.int8_matmul",
     "handsonvlm_torch.ops.vit_attention",
     "handsonvlm_torch.models.llama",
+    "handsonvlm_torch.models.lora",
     "handsonvlm_torch.models.handsonvlm",
     "handsonvlm_torch.convert.from_hf",
     "handsonvlm_torch.infer.builder",
@@ -37,6 +38,8 @@ MODULES = [
     "handsonvlm_torch.serve.scheduler",
     "handsonvlm_torch.eval.traj_metrics",
     "handsonvlm_torch.eval.evaluator",
+    "handsonvlm_torch.train.train_state",
+    "handsonvlm_torch.train.step",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -207,6 +210,29 @@ def test_chip_smoke_int8_and_flat_int4_phases_run_without_jax():
     assert "phases 11-13 ran" in proc.stdout and "bit-equal: ok" in proc.stdout
 
 
+def test_chip_smoke_train_phases_run_without_jax():
+    """chip_smoke's phase 14 at the tiny preset on the CPU (fp32, plain
+    versions, no launches): LoRA steps over the dense base, the gradient
+    check, QLoRA int4 tiled and flat and QLoRA int8 steps through the
+    port's train step, each base bit-identical and the adapters moved; jax
+    and the JAX package stay unloaded."""
+    code = ("import chip_smoke as cs\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu')\n"
+            "counts = cs.phase_train(model, cfg, rows=140, r=2, alpha=4.0, steps=2)\n"
+            "assert sorted(counts) == ['flash_attention', 'flash_attention_bwd',\n"
+            "                          'int4_matmul_T_flat', 'int4_matmul_T_tiled'], counts\n"
+            "assert model.lora is None and not any(p.requires_grad for p in model.parameters())\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                           quantize='int8')\n"
+            "cs.phase_train_int8(model, cfg, rows=140, r=2, alpha=4.0)\n"
+            "print('phase 14 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 14 ran" in proc.stdout and "FAIL" not in proc.stdout
+    assert proc.stdout.count("bit-identical after the steps: ok") == 4
+
+
 def test_profile_cli_rehearses_on_cpu():
     """The profiler's CLI runs its control flow at the tiny preset on the
     CPU, reports no device numbers there, and loads no jax."""
@@ -237,6 +263,23 @@ def test_profile_cli_int8_rehearses_on_cpu():
             "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
             "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
             "assert res['quantize'] == 'int8' and res['decode_step']['wall_ms'] > 0, res\n"
+            + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_profile_cli_train_rehearses_on_cpu():
+    """The profiler's CLI with `--train` (a QLoRA int4 step) at the tiny
+    preset on the CPU, jax-free."""
+    code = ("import json, sys, runpy, io, contextlib\n"
+            "sys.argv = ['profile', '--preset', 'tiny', '--device', 'cpu', '--quantize',\n"
+            "            'int4', '--train', '--prompt-rows', '140']\n"
+            "out = io.StringIO()\n"
+            "with contextlib.redirect_stdout(out):\n"
+            "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
+            "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
+            "assert res['rows'] == 140 and res['train_step']['wall_ms'] > 0, res\n"
             + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)

@@ -43,6 +43,7 @@ from handsonvlm_torch.ops import cache_ops
 from handsonvlm_torch.ops.decode_attention import (
     block_list,
     decode_attention_stacked,
+    decode_attention_stacked_q,
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
 )
@@ -222,6 +223,38 @@ def test_decode_attention_bit_equal_across_block_shift():
     assert torch.equal(got[0], out[0])
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["kv", "kv8"])
+def test_decode_attention_plain_row_ignores_where_its_keys_sit(quant):
+    """The plain stacked decode attention gives a row the same bits wherever
+    its keys sit in the cache (a request joined at cursor 0 alone, or at
+    another cursor beside others, straddling a 256-key block), with or
+    without a hole between its prompt and its decoded keys: it reduces over
+    the row's valid keys alone, in order. Before, the sums ran over whole
+    gathered blocks and a shifted row rounded differently, so a sampled
+    stream could depart from its solo run by one token."""
+    S, H, K, D, n = 512, 4, 2, 16, 45
+    rng = np.random.default_rng(11)
+    keys = torch.from_numpy(rng.normal(size=(n, K, D)).astype(np.float32))
+    vals = torch.from_numpy(rng.normal(size=(n, K, D)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(2, 2, H, D)).astype(np.float32))
+    outs = []
+    for off, hole in ((0, 0), (3, 0), (200, 0), (250, 7), (100, 90)):
+        ck, cv = torch.zeros((1, 2, S, K, D)), torch.zeros((1, 2, S, K, D))
+        pos = off + np.arange(n) + np.where(np.arange(n) >= 30, hole, 0)
+        mask = np.zeros((2, S), bool)
+        mask[:, pos] = True
+        ck[0, :, pos], cv[0, :, pos] = keys, vals
+        length = int(pos[-1]) + 1
+        tmask = torch.from_numpy(mask)
+        if quant:
+            k8, v8, ks, vs = quantize_cache(ck, cv)
+            outs.append(decode_attention_stacked_q(q, k8, v8, ks, vs, 0, length, key_mask=tmask))
+        else:
+            outs.append(decode_attention_stacked(q, ck, cv, 0, length, key_mask=tmask))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
 # -- the engine against the JAX engine ----------------------------------------
 
 
@@ -277,14 +310,25 @@ def _drive(eng, reqs):
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 def test_engine_matches_jax_engine(jparams, model, kv_quant):
+    """The port's engine driven through staggered and group joins against
+    the JAX engine running each request alone (greedy, the JAX latents):
+    the same tokens, waypoints within 1e-5. The JAX engine's own staggered
+    run is not the reference: it moves a live row's rotary positions by the
+    bucket at every later join (test_jax_engine_moves_live_positions_at_a_join),
+    which a solo run never sees."""
     reqs = [(_prompt(1, 10), 11, 8), (_prompt(2, 8), 22, 8), (_prompt(3, 9), 33, 8),
             (_prompt(4, 12), 44, 8)]
     kw = dict(slots=4, temperature=0.0, kv_quant=kv_quant, **ENGINE_KW)
     jeng = JaxEngine(jparams, JCFG, attn_impl="xla", **kw)
     teng = ContinuousEngine(model, CFG, z_fn=_JaxLatents(), **kw)
     jwps, twps = _capture(jeng), _capture(teng)
-    want, got = _drive(jeng, reqs), _drive(teng, reqs)
-    assert teng.join_group_sizes == jeng.join_group_sizes == [2]
+    want = {}
+    for (ids, im), seed, mn in reqs:  # each alone: the only finished row is seed's
+        jeng.join(ids, im, seed=seed, max_new=mn)
+        while seed not in want:
+            want.update((seed, out) for _, out in jeng.step())
+    got = _drive(teng, reqs)
+    assert teng.join_group_sizes == [2]
     hands = 0
     for _, seed, _ in reqs:
         n = int(want[seed].num_tokens[0])
@@ -296,6 +340,28 @@ def test_engine_matches_jax_engine(jparams, model, kv_quant):
                                    rtol=0)
         hands += int(got[seed].num_hands[0])
     assert hands > 0  # the rigged head made the hand hook run
+
+
+def test_jax_engine_moves_live_positions_at_a_join(jparams, model):
+    """Why the JAX engine's staggered run is not the port's reference: its
+    join jumps the shared cursor past the new bucket and leaves the live
+    rows' starts, so a live row's rotary position (cursor - start) jumps by
+    the bucket; the port moves the live rows' starts with the cursor, so
+    their positions run on by one a token, as in a solo decode."""
+    kw = dict(slots=2, temperature=0.0, **ENGINE_KW)
+    jeng = JaxEngine(jparams, JCFG, attn_impl="xla", **kw)
+    teng = ContinuousEngine(model, CFG, **kw)
+    pos = {}
+    for name, eng in (("jax", jeng), ("port", teng)):
+        row = eng.join(*_prompt(1, 10), seed=11, max_new=12)
+        eng.step()
+        before = int(np.asarray(eng.cache.index)) - int(np.asarray(eng.starts)[row])
+        eng.join(*_prompt(2, 8), seed=22, max_new=12)
+        after = int(np.asarray(eng.cache.index)) - int(np.asarray(eng.starts)[row])
+        pos[name] = (before, after)
+    bucket = teng._bucket(10)
+    assert pos["port"][1] == pos["port"][0]
+    assert pos["jax"] == (pos["port"][0], pos["port"][0] + bucket)
 
 
 # -- compaction ---------------------------------------------------------------
