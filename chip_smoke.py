@@ -12,7 +12,11 @@ Phases (each prints its lines; the last line is the JSON status):
    (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2379,
    its window rows bit-equal to single rows and its GEMV / tensor-core
    crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
-   on the same weights, B4a (one flat matrix) at m = 1 and 391;
+   on the same weights, B4a (one flat matrix) at m = 1 and 391; B10a /
+   B10b (the fused QLoRA matmuls) through their autograd fronts at the
+   seven 7B projections, m = 16 and 2048, r = 0, 5 and 128, bf16 and fp32
+   inputs; B11 (the fused decode MLP) at a 7B int4 layer's MLP half, B = 1
+   and 8, timed against the port's unfused chain;
 3. the bf16 chat path: the 7B bf16 model from `random:7b` on the card, three
    chat requests through the chat CLI's own turn function (prefill +
    generate_host, 32 new tokens each; one turn forces a `<hand_traj>`
@@ -90,14 +94,27 @@ Phases (each prints its lines; the last line is the JSON status):
    the base quantized to tiled int4, three steps through B5b and B7b, the
    packed weights bit-identical; (c) the same weights in the flat layout,
    one step through B5a and B7a; (d) QLoRA int8 on the int8 model, one step
-   through B9 and its plain backward.
+   through B9 and its plain backward; (f) QLoRA int8_fused over the same
+   int8 weights, three steps through B10a and B10b (B9 never), then 14e
+   over that route;
+15. the training CLI at 7B (`handsonvlm_torch.train.train --qlora
+   int8_fused --lora-r 128 --synthetic 4`): two steps in this process, the
+   checkpoint restored bit-equal into a fresh template, the same command
+   with one more step in its own process resuming from it, the LoRA
+   artifact merged by the builder answering a chat turn; the checkpoint's
+   bytes and save / restore seconds.
+
+Phase 13c runs B11 over the int4 model's 32 layers for one token (the JAX
+package's `tools/perf_fused_mlp.py` chain; no decoder takes B11), its
+launches counted and the chain held by phase 4's rule against the plain
+chain in f32, then timed against the unfused chain.
 
 Phase 2 also checks B3b (the flash backward) at T = S = 2048 and 4096 and
 B7a / B7b (the int4 transpose products) at the four fused 7B projections,
 m = 16 and 2048. Phase 14 a-c runs right after phase 2 on its own
-`random:7b` model, 14d on the int8 model before phase 11. Phases 7 to 10
-and 13a run before phases 4 and 6 (which convert the model), on the model
-each chat phase loaded.
+`random:7b` model, 14d and 14f on the int8 model before phase 11, phase 15
+last. Phases 7 to 10 and 13a, 13c run before phases 4 and 6 (which convert
+the model), on the model each chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -108,8 +125,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -121,6 +141,7 @@ from handsonvlm_torch.infer import sampler
 from handsonvlm_torch.infer.builder import build_model, load_pretrained_model
 from handsonvlm_torch.config import get_config
 from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
+from handsonvlm_torch.core.checkpoint import restore_train_state
 from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video, train_batch
@@ -135,6 +156,7 @@ from handsonvlm_torch.models.llama import (
     lm_logits,
     projection_shapes,
     quantize_llama_int4,
+    rms_norm,
 )
 from handsonvlm_torch.models.lora import LoRA, init_lora
 from handsonvlm_torch.ops import _build
@@ -158,6 +180,7 @@ from handsonvlm_torch.ops.flash_attention import (
 from handsonvlm_torch.ops.int8_matmul import (
     INT8_TC_MIN_M,
     _launch_int8,
+    dequantize_int4,
     dequantize_tiled,
     int4_gemv_flat,
     int4_gemv_flat_ref,
@@ -180,9 +203,25 @@ from handsonvlm_torch.ops.int8_matmul import (
     tile_int4_stacked,
     untile_int4_stacked,
 )
+from handsonvlm_torch.ops.fused_decode import (
+    fused_mlp_ok,
+    fused_mlp_stacked,
+    fused_mlp_stacked_ref,
+    split_wgu_tiled,
+)
+from handsonvlm_torch.ops.qlora_fused import (
+    int8_lora_matmul_stacked,
+    int8_matmul_stacked,
+    int8_stacked_bwd,
+    int8_stacked_bwd_ref,
+    int8_stacked_fwd,
+    int8_stacked_fwd_ref,
+    mm_f32,
+)
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 from handsonvlm_torch.serve.continuous import ContinuousEngine
 from handsonvlm_torch.serve.scheduler import ContinuousScheduler
+from handsonvlm_torch.train import train as train_cli
 from handsonvlm_torch.train.step import loss_fn, make_train_step
 from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
 
@@ -192,6 +231,12 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the int4 matmuls: a share of max|y|, plus in bf16 one rounding step of the
 # element (both sides round f32 sums taken in another order to bf16)
 INT4_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# B11 rounds xn and act to bf16 in both versions whatever h's dtype: an fp32
+# row differs where an act element's f32 sum, taken in another order, lands
+# on the other side of a rounding boundary (1.1e-4 x max|y| at 7B, B = 8, on
+# an H100); 3e-4 x max|y| with no per-element term fails a kernel that
+# rounds the residual h to bf16 (2^-9 x |h|)
+B11_TOL = {torch.bfloat16: INT4_TOL[torch.bfloat16], torch.float32: 3e-4}
 # final hidden at 7B, relative L2 from the fp32 plain path: the fp32 kernel
 # path at most FP32_REL_L2, the bf16 kernel path at most BF16_VS_PLAIN x
 # the bf16 plain path's distance
@@ -207,9 +252,11 @@ BF16_VS_PLAIN = 1.2
 # one key, so dp = delta but for the sums' order)
 GRAD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 GRAD_FLOOR, GRAD_BLOCK = 2.0 ** -12, 64
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
+# and f32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
 # the 7B chat prompt after the splice (turn 1 of phase 3 in earlier runs)
 PREFILL_ROWS = 391
 DECODE_LEN = 450  # cache positions attended by a mid-answer decode step
@@ -228,6 +275,9 @@ LORA_R, LORA_ALPHA = 128, 256.0  # the reference's --lora_enable recipe
 TRAIN_LR = 2e-5  # the reference recipe's (scripts/finetune.sh)
 TRAIN_T = (2048, 4096)  # B3b's checked lengths (T = S, causal)
 T_ROWS = (16, 2048)  # B7a / B7b's checked row counts
+QLORA_ROWS = (16, 2048)  # B10a / B10b's checked row counts
+QLORA_RANKS = (0, 5, 128)  # no adapter (no epilogue), an odd small rank, the recipe's
+MLP_ROWS = (1, 8)  # B11's checked decode rows
 
 # every kernel wrapper by the name chip_smoke reports it under
 WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
@@ -239,7 +289,9 @@ WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
             "int8_matmul": int8_matmul, "int4_gemv_flat": int4_gemv_flat,
             "int4_matmul_prefill": int4_matmul_prefill, "int4_matmul": int4_matmul,
             "flash_attention_bwd": flash_attention_bwd,
-            "int4_matmul_T_tiled": int4_matmul_T_tiled, "int4_matmul_T_flat": int4_matmul_T_flat}
+            "int4_matmul_T_tiled": int4_matmul_T_tiled, "int4_matmul_T_flat": int4_matmul_T_flat,
+            "int8_stacked_fwd": int8_stacked_fwd, "int8_stacked_bwd": int8_stacked_bwd,
+            "fused_mlp_stacked": fused_mlp_stacked}
 
 
 def log(msg: str) -> None:
@@ -270,10 +322,24 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def graph_time_ms(fn, iters: int = 10) -> float:
+    """Mean device ms of fn() replayed from a CUDA graph captured after one
+    eager call: a chain of many small launches timed without the host's
+    launch rate in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_time_ms(lambda _: graph.replay(), iters=iters, warmup=2)
+
+
+def bound(nbytes: float, flops: float, f32_flops: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the (bf16) operations over the tensor cores' peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+    and the operations over their type's peak rate (bf16 products on the
+    tensor cores, `f32_flops` of f32 products outside them)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = (flops / BF16_FLOP_S + f32_flops / F32_FLOP_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -309,17 +375,17 @@ def _check(name, got, want, dtype, rows):
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
 
 
-def _check_int4(name, got, want, dtype, rows):
+def _check_int4(name, got, want, dtype, rows, tol=INT4_TOL):
     got, want = got.float(), want.float()
     ymax = float(want.abs().max())
     err = (got - want).abs()
-    limit = INT4_TOL[dtype] * ymax
+    limit = tol[dtype] * ymax
     if dtype == torch.bfloat16:
         limit = limit + 2.0 ** -7 * want.abs()
     ok = bool(torch.isfinite(got).all()) and bool((err <= limit).all())
     rows.append(float(err.max()))
     log(f"  {name} {str(dtype).split('.')[-1]}: max_abs_err={rows[-1]:.3e} "
-        f"= {rows[-1] / ymax:.2e} x max|y| (tol {INT4_TOL[dtype]:.0e} x max|y|"
+        f"= {rows[-1] / ymax:.2e} x max|y| (tol {tol[dtype]:.0e} x max|y|"
         f"{' + one bf16 step' if dtype == torch.bfloat16 else ''}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
@@ -479,10 +545,17 @@ def check_decode_attention_q() -> dict:
     ms = cuda_time_ms(lambda i: decode_attention_stacked_q(q1, *ct, i % Lt, n, blocks=bl))
     plain_ms = cuda_time_ms(
         lambda i: decode_attention_stacked_q_ref(q1, *ct, i % Lt, n, blocks=bl), iters=20)
+    # the library call: sdpa over the cache dequantized to bf16 outside the loop
+    deq = [(ct[0][i, :, :n].float() * ct[2][i, :, :, :n].transpose(1, 2)[..., None]).to(
+        torch.bfloat16) for i in range(Lt)]
+    deq = [(kd, (ct[1][i, :, :n].float() * ct[3][i, :, :, :n].transpose(1, 2)[..., None]).to(
+        torch.bfloat16)) for i, kd in enumerate(deq)]
+    library_ms = cuda_time_ms(lambda i: _sdpa(q1, *deq[i % Lt]))
+    del deq
     bound_ms, bound_by = bound(2 * n * K * D + 2 * n * K * 4 + 2 * H * D * 2, 4 * n * H * D)
     log(f"  B6 time (B=1 H=K=32 D=128 S=520 len={n}, int8 cache, bf16 q, {Lt} layers "
-        f"cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa over the "
+        f"dequantized bf16 cache) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     qw = _rand(gen, (B, SPEC_K + 1, H, D), torch.bfloat16)
     w_ms = cuda_time_ms(lambda i: decode_attention_stacked_q(qw, *ct, i % Lt, n, blocks=bl))
     log(f"  B6 time at the verify window (T={SPEC_K + 1}, same cache): kernel {w_ms:.4f} ms")
@@ -492,7 +565,7 @@ def check_decode_attention_q() -> dict:
         "replaces": "handsonvlm_tpu/ops/decode_attention.py:341",
         "max_abs_err": max(errs[torch.bfloat16]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": library_ms,
     }
 
 
@@ -625,9 +698,9 @@ def _int4_stack(din, dout, layers, gen):
 
 def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows=0) -> dict:
     """Check `wrapper` against `ref` at the four 7B projections for each m
-    in rows_checked (bf16 and fp32), then time kernel, plain and a bf16
-    torch.mm over the dequantized weight (another function: the weight is
-    not int4) at m = rows_timed, cycling over TIMING_LAYERS layers;
+    in rows_checked (bf16 and fp32), then time kernel, plain and the library
+    call, torch.mm over the weight dequantized to bf16 (outside the timed
+    loop), at m = rows_timed, cycling over TIMING_LAYERS layers;
     `window_rows` also times the kernel at that m (a verify window)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = int4_projection_shapes(get_config("7b").llama)
@@ -649,9 +722,8 @@ def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows
         t_mm = cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
         nbytes = w4t[0].numel() + gst[0].numel() * 4 + m * (din + dout) * 2
         log(f"  {name} time {proj} ({din}->{dout}, m={m}, bf16, {Lt} layers cycled): "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-            f"{bound(nbytes, 2 * m * din * dout)[0]:.4f} ms; "
-            f"torch.mm over the bf16 dequantized weight (a different function) {t_mm:.4f} ms")
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_mm:.4f} ms, bound "
+            f"{bound(nbytes, 2 * m * din * dout)[0]:.4f} ms")
         ms, plain_ms, mm_ms = ms + t_k, plain_ms + t_p, mm_ms + t_mm
         bound_bytes += nbytes
         flops += 2 * m * din * dout
@@ -661,13 +733,13 @@ def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows
         del w4t, gst, w_dense
     bound_ms, bound_by = bound(bound_bytes, flops)
     log(f"  {name}: the four projections of one layer at m={rows_timed}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"bf16 torch.mm (different function) {mm_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
+        f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if window_rows:
         log(f"  {name}: the same four projections at the verify window (m={window_rows}): "
             f"kernel {window_ms:.4f} ms")
     return {"max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": mm_ms}
 
 
 def check_int4_gemv() -> dict:
@@ -780,7 +852,7 @@ def check_int4_flat() -> list:
     gen = torch.Generator(device="cuda").manual_seed(12)
     Lt = TIMING_LAYERS
     errs = {k: {torch.bfloat16: [], torch.float32: []} for k in ("B4c", "B5a", "B4a")}
-    times = {k: [0.0] * 4 for k in errs}  # kernel, plain, bytes, flops
+    times = {k: [0.0] * 5 for k in errs}  # kernel, plain, bytes, flops, library
     for proj, (din, dout) in int4_projection_shapes(get_config("7b").llama).items():
         w4t, gst = _int4_stack(din, dout, Lt, gen)
         w4, gs = untile_int4_stacked(w4t, gst)
@@ -800,6 +872,7 @@ def check_int4_flat() -> list:
                     if not same:
                         raise AssertionError(f"{name} differs from the tiled kernel")
         nbytes = w4t[0].numel() + gst[0].numel() * 4
+        w_dense = [dequantize_tiled(w4t, gst, i).to(torch.bfloat16) for i in range(Lt)]
         for name, fn, ref, m in (("B4c", int4_gemv_flat, int4_gemv_flat_ref, 1),
                                  ("B5a", int4_matmul_prefill, int4_matmul_prefill_ref,
                                   PREFILL_ROWS)):
@@ -809,7 +882,8 @@ def check_int4_flat() -> list:
             t[1] += cuda_time_ms(lambda i: ref(x, w4, gs, i % Lt), iters=5, warmup=1)
             t[2] += _mm_bytes(m, din, dout, nbytes)
             t[3] += 2 * m * din * dout
-        del w4t, gst, w4, gs
+            t[4] += cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
+        del w4t, gst, w4, gs, w_dense
     b4a_prefill = 0.0
     for proj, (din, dout) in projection_shapes(get_config("7b").llama).items():
         packed = [quantize_int4(0.02 * torch.randn((din, dout), generator=gen, device="cuda"))
@@ -825,6 +899,9 @@ def check_int4_flat() -> list:
         t[1] += cuda_time_ms(lambda i: int4_matmul_ref(x, *packed[i % Lt]), iters=5, warmup=1)
         t[2] += _mm_bytes(1, din, dout, packed[0][0].numel() + packed[0][1].numel() * 4)
         t[3] += 2 * din * dout
+        w_dense = [dequantize_int4(*p).to(torch.bfloat16) for p in packed]
+        t[4] += cuda_time_ms(lambda i: torch.mm(x, w_dense[i % Lt]))
+        del w_dense
         xp = _rand(gen, (PREFILL_ROWS, din), torch.bfloat16)
         b4a_prefill += cuda_time_ms(lambda i: int4_matmul(xp, *packed[i % Lt]), iters=5, warmup=1)
         del packed
@@ -835,17 +912,18 @@ def check_int4_flat() -> list:
              "int4_matmul_prefill"),
             ("B4a", "the seven per-projection matrices at m=1", "int8_matmul.py:413",
              "int4_matmul")):
-        ms, plain_ms, nbytes, flops = times[name]
+        ms, plain_ms, nbytes, flops, library_ms = times[name]
         bound_ms, bound_by = bound(nbytes, flops)
         log(f"  {name} time, {what} (bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         out.append({"name": fn, "route": "cuda",
                     "source": "handsonvlm_torch/csrc/" + (
                         "int4_prefill.cu" if name == "B5a" else "int4_gemv.cu"),
                     "replaces": "handsonvlm_tpu/ops/" + site,
                     "max_abs_err": max(errs[name][torch.bfloat16]),
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None})
+                    "library_ms": library_ms})
     log(f"  B4a at a prefill (m={PREFILL_ROWS}, the seven projections, one row per block): "
         f"{b4a_prefill:.4f} ms a layer")
     return out
@@ -1144,12 +1222,159 @@ def check_int4_transpose() -> list:
     return out
 
 
+def check_qlora_fused() -> list:
+    """B10a (int8_stacked_fwd) and B10b (int8_stacked_bwd) through their
+    autograd fronts at the seven 7B projections, m = 16 and 2048, bf16 and
+    fp32 x and dy, r = 0 (no epilogue), 5 and 128: the forward output and dx
+    of the kernel route against the plain route (`plain=True`). Both kernels
+    round their output to bf16 whatever the input's dtype (the Pallas
+    kernels' contract), so both dtypes take the bf16 gate. Then each kernel
+    timed over a layer's seven projections at m = 2048, r = 128, against its
+    plain version and the library calls (torch.mm over the weight upcast to
+    bf16 outside the timed loop, plus the LoRA delta), TIMING_LAYERS layers
+    cycled."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    shapes = projection_shapes(get_config("7b").llama)
+    Lt, m_t, r_t, ls = TIMING_LAYERS, TRAIN_ROWS, LORA_R, LORA_ALPHA / LORA_R
+    errs = {"B10a": [], "B10b": []}
+    t = {k: [0.0] * 6 for k in errs}  # kernel, plain, library, bytes, bf16 flops, f32 flops
+    for proj, (din, dout) in shapes.items():
+        w8, sc = quantize_stacked_int8(0.02 * torch.randn((Lt, din, dout), generator=gen,
+                                                          device="cuda"))
+        for m in QLORA_ROWS:
+            for r in QLORA_RANKS:
+                a, b = (0.02 * torch.randn((din, r), generator=gen, device="cuda"),
+                        0.02 * torch.randn((r, dout), generator=gen, device="cuda"))
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, dy, i = _rand(gen, (m, din), dtype), _rand(gen, (m, dout), dtype), m % Lt
+                    out = {}
+                    for plain in (False, True):
+                        xg = x.clone().requires_grad_()
+                        y = (int8_lora_matmul_stacked(xg, w8, sc, a, b, ls, i, plain=plain) if r
+                             else int8_matmul_stacked(xg, w8, sc, i, plain=plain))
+                        out[plain] = (y.detach(), torch.autograd.grad(y, xg, dy)[0])
+                    what = f"{proj} {din}->{dout} m={m} r={r} {str(dtype).split('.')[-1]} in"
+                    _check_int4(f"B10a {what}", out[False][0], out[True][0], torch.bfloat16,
+                                errs["B10a"])
+                    _check_int4(f"B10b dx {what}", out[False][1], out[True][1],
+                                torch.bfloat16, errs["B10b"])
+        x2 = _rand(gen, (m_t, din), torch.bfloat16)
+        g2 = _rand(gen, (m_t, dout), torch.bfloat16)
+        a = 0.02 * torch.randn((din, r_t), generator=gen, device="cuda")
+        b = 0.02 * torch.randn((r_t, dout), generator=gen, device="cuda")
+        u_s = mm_f32(x2, a.to(torch.bfloat16)) * ls
+        v_s = mm_f32(g2, b.to(torch.bfloat16).t()) * ls
+        w_up = [w8[i].to(torch.bfloat16) for i in range(Lt)]
+        w_dq = [w8[i].to(torch.bfloat16) * sc[i].to(torch.bfloat16) for i in range(Lt)]
+        for k, fn, ref, lib, lhs, lora in (
+                ("B10a", int8_stacked_fwd, int8_stacked_fwd_ref,
+                 lambda i: torch.mm(x2, w_up[i % Lt], out_dtype=torch.float32) * sc[i % Lt]
+                 + u_s @ b, x2, (u_s, b)),
+                ("B10b", int8_stacked_bwd, int8_stacked_bwd_ref,
+                 lambda i: torch.mm(g2, w_dq[i % Lt].t(), out_dtype=torch.float32)
+                 + v_s @ a.t(), g2, (v_s, a))):
+            row = t[k]
+            row[0] += cuda_time_ms(lambda i: fn(lhs, w8, sc, i % Lt, *lora), iters=10)
+            row[1] += cuda_time_ms(lambda i: ref(lhs, w8, sc, i % Lt, *lora), iters=3, warmup=1)
+            row[2] += cuda_time_ms(lib, iters=10)
+            row[3] += (din * dout + dout * 4 + m_t * (din + dout) * 2 + m_t * r_t * 4
+                       + r_t * (dout if k == "B10a" else din) * 4)
+            row[4] += 2 * m_t * din * dout
+            row[5] += 2 * m_t * r_t * (dout if k == "B10a" else din)
+        del w8, sc, w_up, w_dq
+        torch.cuda.empty_cache()
+    out = []
+    for k, fn, site in (("B10a", int8_stacked_fwd, "qlora_fused.py:212"),
+                        ("B10b", int8_stacked_bwd, "qlora_fused.py:306")):
+        ms, plain_ms, library_ms, nbytes, flops, f32_flops = t[k]
+        bound_ms, bound_by = bound(nbytes, flops, f32_flops)
+        log(f"  {k} ({fn.__name__}) time, a layer's seven projections at m={m_t}, r={r_t} "
+            f"(bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch.mm over the upcast weight + the LoRA delta) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP bf16 + "
+            f"{f32_flops / 1e9:.1f} GFLOP f32); {100 * bound_ms / ms:.1f}% of the bound, "
+            f"{(flops + f32_flops) / ms / 1e9:.1f} TFLOP/s")
+        out.append({"name": fn.__name__, "route": "cuda",
+                    "source": "handsonvlm_torch/csrc/qlora_fused.cu",
+                    "replaces": "handsonvlm_tpu/ops/" + site,
+                    "max_abs_err": max(errs[k]), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
+def mlp_weights(cfg_llama, layers, gen):
+    """A stack of 7B-shaped int4 MLP weights: the int4 decoder's fused,
+    tiled gate|up leaf and w_down, and the gate / up split that B11 takes."""
+    d, f = cfg_llama.hidden_size, cfg_llama.intermediate_size
+    wgu = dict(zip(("w4t", "gst"), _int4_stack(d, 2 * f, layers, gen)))
+    wd = dict(zip(("w4t", "gst"), _int4_stack(f, d, layers, gen)))
+    wg, wu = split_wgu_tiled(wgu, f)
+    return wgu, wg, wu, wd
+
+
+def unfused_mlp(h, nrm, wgu, wd, layer, eps):
+    """The int4 decoder's MLP half as the port runs it: rms_norm, B4b over
+    the fused gate|up, silu(gate) * up, B4b over w_down, the residual."""
+    gu = int4_gemv_tiled(rms_norm(h, nrm[layer], eps), wgu["w4t"], wgu["gst"], layer)
+    f = gu.shape[-1] // 2
+    return h + int4_gemv_tiled(F.silu(gu[..., :f]) * gu[..., f:], wd["w4t"], wd["gst"], layer)
+
+
+def check_fused_mlp() -> dict:
+    """B11 (fused_mlp_stacked) at a 7B int4 layer's MLP half (d 4096, f
+    11008: gate / up in 43 tiles of 256 columns, w_down in 16), B = 1 and 8
+    rows, bf16 and fp32 rows, against its plain version by B11_TOL (the int4
+    gate in bf16; in fp32 3e-4 x max|y|, as both versions round xn and act
+    to bf16 whatever the rows' dtype and a flip of act moves an fp32 output
+    by a bf16 step of act); timed at
+    B = 1 against the plain version and the port's unfused chain
+    (rms_norm, B4b over the fused gate|up, silu * up, B4b over w_down, the
+    residual: no single PyTorch call computes it), TIMING_LAYERS layers
+    cycled."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    lcfg = get_config("7b").llama
+    d, f, eps, Lt = lcfg.hidden_size, lcfg.intermediate_size, lcfg.rms_norm_eps, TIMING_LAYERS
+    wgu, wg, wu, wd = mlp_weights(lcfg, Lt, gen)
+    nrm = (1.0 + 0.1 * torch.randn((Lt, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in MLP_ROWS:
+            h, i = _rand(gen, (b, d), dtype), b % Lt
+            _check_int4(f"B11 B={b} {str(dtype).split('.')[-1]} rows",
+                        fused_mlp_stacked(h, nrm, wg, wu, wd, i, eps),
+                        fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i, eps), dtype,
+                        errs[dtype], B11_TOL)
+    times = {}
+    for b in MLP_ROWS:
+        h = _rand(gen, (b, d), torch.bfloat16)
+        times[b] = (cuda_time_ms(lambda i: fused_mlp_stacked(h, nrm, wg, wu, wd, i % Lt, eps)),
+                    cuda_time_ms(lambda i: fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i % Lt, eps),
+                                 iters=5, warmup=1),
+                    cuda_time_ms(lambda i: unfused_mlp(h, nrm, wgu, wd, i % Lt, eps)))
+    weight_bytes = sum(w[k][0].numel() * w[k].element_size() for w in (wg, wu, wd)
+                       for k in ("w4t", "gst"))
+    for b, (ms, plain_ms, chain_ms) in times.items():
+        bound_ms, bound_by = bound(weight_bytes + 2 * b * d * 2, 2 * 3 * b * d * f)
+        log(f"  B11 time, a 7B layer's MLP half at B={b} (bf16, {Lt} layers cycled): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the unfused chain (library none) "
+            f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{weight_bytes / 1e6:.1f} MB of weights and scales)")
+    ms, plain_ms, _ = times[1]
+    bound_ms, bound_by = bound(weight_bytes + 2 * d * 2, 2 * 3 * d * f)
+    return {"name": "fused_mlp_stacked", "route": "cuda",
+            "source": "handsonvlm_torch/csrc/fused_decode.cu",
+            "replaces": "handsonvlm_tpu/ops/fused_decode.py:159",
+            "max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def phase_kernels() -> list:
     log("phase 2: kernels against their plain versions")
     return [check_decode_attention(), check_vit_attention(), check_int4_gemv(),
             check_int4_prefill(), check_decode_attention_q(), check_gather_cache_blocks(),
             check_flash_attention(), check_decode_attention_single(), check_int8_matmul(),
-            *check_int4_flat(), check_flash_attention_bwd(), *check_int4_transpose()]
+            *check_int4_flat(), check_flash_attention_bwd(), *check_int4_transpose(),
+            *check_qlora_fused(), check_fused_mlp()]
 
 
 def reset_launches() -> None:
@@ -2005,6 +2230,174 @@ def phase_flat_int4(model, cfg, tokenizer, video, frame_map):
     return counts, proj
 
 
+def phase_fused_mlp(model, cfg, rows: int = 1) -> dict:
+    """13c: B11 over the int4 model's own weights, the MLP half of every
+    layer for one decode token (the JAX package's tools/perf_fused_mlp.py
+    chain): each layer's fused gate|up leaf split into gate and up tiles of
+    256 columns, the gate opened (HANDSONVLM_FUSED_MLP=1, `fused_mlp_ok`),
+    `rows` random hidden rows through the 32 fused layers with the launch
+    counts set to 0 before and read after. Held by phase 4's rule: the chain
+    in bf16 through B11 may lie at most BF16_VS_PLAIN x as far from the
+    plain chain with f32 rows as the plain chain in bf16 does. Then the
+    fused chain and the port's unfused chain (B4b) timed. Returns the
+    counts."""
+    llama, lcfg = model.llama, cfg.llama
+    d, f, eps = lcfg.hidden_size, lcfg.intermediate_size, lcfg.rms_norm_eps
+    wgu = {"w4t": llama.int4["wgu"].w4t, "gst": llama.int4["wgu"].gst}
+    wd = {"w4t": llama.int4["w_down"].w4t, "gst": llama.int4["w_down"].gst}
+    wg, wu = split_wgu_tiled(wgu, f)
+    nrm = torch.stack([lp.post_attention_layernorm.weight for lp in llama.layers])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    h0 = torch.randn((rows, d), generator=gen, device="cuda")
+    previous = os.environ.get("HANDSONVLM_FUSED_MLP")
+    os.environ["HANDSONVLM_FUSED_MLP"] = "1"
+    try:
+        if not fused_mlp_ok({"wg": wg, "wu": wu, "w_down": wd}, d, 1, rows):
+            raise AssertionError("13c: fused_mlp_ok refuses the int4 model's split weights")
+    finally:
+        if previous is None:
+            os.environ.pop("HANDSONVLM_FUSED_MLP")
+        else:
+            os.environ["HANDSONVLM_FUSED_MLP"] = previous
+
+    def chain(h, fn):
+        for i in range(lcfg.num_layers):
+            h = fn(h, i)
+        return h
+
+    with torch.inference_mode():
+        reset_launches()
+        h_k = chain(h0.to(torch.bfloat16), lambda h, i: fused_mlp_stacked(h, nrm, wg, wu, wd, i,
+                                                                          eps))
+        torch.cuda.synchronize()
+        counts = read_launches()
+
+        def ref(h, i):
+            return fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i, eps)
+
+        h_p, h_32 = chain(h0.to(torch.bfloat16), ref), chain(h0, ref)
+        h_u = chain(h0.to(torch.bfloat16), lambda h, i: unfused_mlp(h, nrm, wgu, wd, i, eps))
+        expect_launches(counts, {"fused_mlp_stacked": lcfg.num_layers})
+        d_k, d_p = _rel(h_k, h_32), _rel(h_p, h_32)
+        log(f"  13c the {lcfg.num_layers}-layer MLP chain, {rows} row(s): relative L2 from the "
+            f"plain chain in f32: B11 {d_k:.3e}, plain bf16 {d_p:.3e} (ratio "
+            f"{d_k / d_p if d_p else float('nan'):.3f}, limit {BF16_VS_PLAIN}); the unfused "
+            f"chain (B4b) {_rel(h_u, h_32):.3e}")
+        if not (np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p):
+            raise AssertionError(f"13c: B11's chain lies {d_k:.3e} from the f32 chain, limit "
+                                 f"{BF16_VS_PLAIN * d_p:.3e}")
+        h = h0.to(torch.bfloat16)
+        chains = {"fused": lambda: chain(h, lambda x, i: fused_mlp_stacked(
+                      x, nrm, wg, wu, wd, i, eps)),
+                  "unfused": lambda: chain(h, lambda x, i: unfused_mlp(x, nrm, wgu, wd, i, eps))}
+        graph = {k: graph_time_ms(fn) for k, fn in chains.items()}
+        eager = {k: cuda_time_ms(lambda _: fn(), iters=10, warmup=2) for k, fn in chains.items()}
+    log(f"  13c time, the {lcfg.num_layers}-layer MLP chain at B={rows} (bf16), fused (B11, "
+        f"{lcfg.num_layers} launches) / unfused (rms_norm, B4b, silu * up, B4b, the residual): "
+        f"replayed from a CUDA graph (device time) {graph['fused']:.4f} / "
+        f"{graph['unfused']:.4f} ms; issued eagerly (the host's launch rate may bound it) "
+        f"{eager['fused']:.4f} / {eager['unfused']:.4f} ms")
+    del wg, wu
+    return counts
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def phase_cli(device: str = "cuda", preset: str = "7b", r: int = LORA_R, steps: int = 2) -> dict:
+    """15: the training CLI (`handsonvlm_torch.train.train`) at `preset`:
+    `--qlora int8_fused --lora-r r --synthetic 4 --samples-per-epoch 4
+    --batch-size 1 --max-steps steps --log-every 1` into a temporary
+    directory, in this process (its returned state kept); the checkpoint
+    restored into a fresh template must be bit-equal to it. Then the same
+    command with `--max-steps steps + 1` as its own process must print
+    `resumed from step <steps>` and run one step; its checkpoint's bytes and
+    its save and restore seconds are printed. The LoRA artifact loaded by
+    the builder (merged into the base) answers one chat turn. The directory
+    is removed. Returns the launches of B10a / B10b in the first run."""
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="handsonvlm_train_")
+    log(f"  15 output directory {out}: {shutil.disk_usage(out).free / 2**30:.1f} GiB free")
+    argv = ["--model-path", f"random:{preset}", "--preset", preset, "--qlora", "int8_fused",
+            "--lora-r", str(r), "--synthetic", "4", "--samples-per-epoch", "4",
+            "--batch-size", "1", "--log-every", "1", "--output-dir", out, "--device", device]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = train_cli.main(argv + ["--max-steps", str(steps)])
+        counts = read_launches()
+        log(f"  15 first run: {steps} steps in {time.perf_counter() - t0:.2f} s (model built, "
+            f"steps, checkpoint and artifacts); launches {({k: v for k, v in counts.items() if v})}")
+        if device == "cuda" and not (counts["int8_stacked_fwd"] and counts["int8_stacked_bwd"]):
+            raise AssertionError("15: the CLI's int8_fused steps did not run B10a / B10b")
+        template_model, cfg, _ = load_pretrained_model(f"random:{preset}", preset, device,
+                                                       quantize="int8_fused")
+        template_model.lora = init_lora(torch.Generator(device=device).manual_seed(0), cfg.llama,
+                                        r, LORA_ALPHA, device=device)
+        template = create_train_state(template_model, make_optimizer(
+            template_model, TRAIN_LR, freeze_top_keys=("vision", "llama")))
+        t0 = time.perf_counter()
+        restore_train_state(os.path.join(out, "checkpoints"), template)
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        want, got = first.model.state_dict(), template.model.state_dict()
+        w_opt = first.optimizer.state_dict()["state"]
+        g_opt = template.optimizer.state_dict()["state"]
+        same = (template.step == first.step == steps and sorted(got) == sorted(want)
+                and all(torch.equal(got[k], want[k]) for k in want)
+                and template.optimizer.count == first.optimizer.count
+                and sorted(w_opt) == sorted(g_opt)
+                and all(torch.equal(g_opt[i][k], w_opt[i][k]) for i in w_opt for k in w_opt[i]))
+        nbytes = _dir_bytes(os.path.join(out, "checkpoints", str(steps)))
+        log(f"  15 checkpoint {steps}: {nbytes} bytes ({nbytes / 2**30:.3f} GiB), restored into a "
+            f"fresh template in {restore_s:.3f} s, bit-equal to the saved state (model "
+            f"{len(want)} tensors, optimizer {len(w_opt)} moments): {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("15: the restored train state differs from the saved one")
+        del first, template, template_model, want, got, w_opt, g_opt
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        cmd = [sys.executable, "-m", "handsonvlm_torch.train.train", *argv,
+               "--max-steps", str(steps + 1)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"    | {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"15: the resumed CLI run exited {proc.returncode}")
+        steps_run = [json.loads(line)["step"] for line in proc.stdout.splitlines()
+                     if line.startswith("{")]
+        if f"resumed from step {steps}" not in proc.stdout or steps_run != [steps + 1]:
+            raise AssertionError(f"15: the second run did not resume from step {steps} and run "
+                                 f"one step (steps logged {steps_run})")
+        log(f"  15 second run (its own process, {wall:.2f} s): resumed from step {steps}, ran "
+            f"step {steps + 1}")
+
+        model, cfg, tokenizer = load_pretrained_model(out, preset, device)
+        video, frame_map = random_video(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        turn = chat_turn(model, cfg, tokenizer, new_conversation(),
+                         "What is the person doing in this video?", video, frame_map, gen,
+                         max_new_tokens=8, temperature=0.5, top_p=0.9)
+        n = int(turn.num_tokens[0])
+        toks = turn.sequences[0, :n]
+        if n < 1 or toks.min() < 0 or toks.max() >= cfg.llama.vocab_size:
+            raise AssertionError(f"15: the trained model's chat turn gave bad tokens {toks}")
+        log(f"  15 the LoRA artifact merged into random:{preset} by the builder answers a chat "
+            f"turn: {n} tokens {tokenizer.decode(toks)[:80]!r}")
+        del model
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {k: counts[k] for k in ("int8_stacked_fwd", "int8_stacked_bwd")}
+
+
 def _host_copy(module) -> dict:
     """The module's tensors copied to the host: the bit-identity check's
     reference, kept off the card so the steps' peak memory is their own."""
@@ -2041,13 +2434,14 @@ def _train_launches(cfg, rows, **extra) -> dict:
 def _train_steps(model, cfg, opt, batch, steps: int, want: dict, label: str, remat="full"):
     """`steps` train steps (attn_impl="auto"), each with the launch counts
     set to 0 before it and held to `want` after it; per step the loss, wall
-    ms, tokens/s and peak device memory. Returns (metrics, last counts)."""
+    ms, tokens/s and peak device memory. Returns (metrics, last counts,
+    per-step (wall ms, peak GiB))."""
     device = model.llama.embed_tokens.weight.device
     cuda = device.type == "cuda"
     rows = batch["input_ids"].shape[1] + cfg.num_visual_tokens - 1
     step = make_train_step(cfg, opt, attn_impl="auto", remat=remat)
     state = create_train_state(model, opt)
-    out = []
+    out, stats = [], []
     for i in range(steps):
         reset_launches()
         if cuda:
@@ -2069,7 +2463,8 @@ def _train_steps(model, cfg, opt, batch, steps: int, want: dict, label: str, rem
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"{label}: metrics not finite: {m}")
         out.append(m)
-    return out, counts
+        stats.append((wall, peak))
+    return out, counts, stats
 
 
 def _lora_grads(model, cfg, batch, eps, impl) -> torch.Tensor:
@@ -2141,7 +2536,7 @@ def phase_train(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
         f"remat full, {steps} steps")
     opt, b0 = adapters()
     frozen = {name: _host_copy(getattr(model, name)) for name in freeze}
-    _, c = _train_steps(model, cfg, opt, batch, steps, _train_launches(cfg, rows), "14a")
+    _, c, _ = _train_steps(model, cfg, opt, batch, steps, _train_launches(cfg, rows), "14a")
     for name in freeze:
         _bit_identical(getattr(model, name), frozen[name], f"14a {name}")
     del frozen
@@ -2158,7 +2553,7 @@ def phase_train(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
         torch.cuda.empty_cache()
     opt, b0 = adapters()
     packed = _host_copy(model.llama.int4)
-    _, c = _train_steps(model, cfg, opt, batch, steps, _train_launches(
+    _, c, _ = _train_steps(model, cfg, opt, batch, steps, _train_launches(
         cfg, rows, int4_matmul_prefill_tiled=8, int4_matmul_T_tiled=4), "14b")
     _bit_identical(model.llama.int4, packed, "14b packed int4 weights")
     _moved(model, b0, "14b")
@@ -2171,7 +2566,7 @@ def phase_train(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
     model.llama.int4 = flat_int4(model.llama, cfg.llama)
     del packed
     opt, b0 = adapters()
-    _, c = _train_steps(model, cfg, opt, batch, 1, _train_launches(
+    _, c, _ = _train_steps(model, cfg, opt, batch, 1, _train_launches(
         cfg, rows, int4_matmul_prefill=8, int4_matmul_T_flat=4), "14c")
     _moved(model, b0, "14c")
     counts["int4_matmul_T_flat"] = c["int4_matmul_T_flat"]
@@ -2181,10 +2576,11 @@ def phase_train(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
 
 
 def phase_train_int8(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
-                     alpha: float = LORA_ALPHA) -> None:
+                     alpha: float = LORA_ALPHA) -> list:
     """14d: QLoRA int8 (the JAX package's 7B recommendation): one step over
     the int8 decoder, B9 seven times per layer in the forward and its
-    recompute, the plain backward; the int8 weights bit-identical."""
+    recompute, the plain backward; the int8 weights bit-identical. Returns
+    the step's (wall ms, peak GiB)."""
     device = model.llama.embed_tokens.weight.device
     log(f"phase 14d: QLoRA int8, r={r}, {rows} rows, one step")
     model.lora = init_lora(torch.Generator(device=device).manual_seed(2), cfg.llama, r, alpha,
@@ -2193,7 +2589,8 @@ def phase_train_int8(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
     opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=("vision", "llama"))
     packed = _host_copy(model.llama.proj)
     batch = train_batch(cfg, rows)
-    _train_steps(model, cfg, opt, batch, 1, _train_launches(cfg, rows, int8_matmul=14), "14d")
+    _, _, stats = _train_steps(model, cfg, opt, batch, 1,
+                               _train_launches(cfg, rows, int8_matmul=14), "14d")
     _bit_identical(model.llama.proj, packed, "14d int8 weights")
     _moved(model, b0, "14d")
     log("phase 14e-int8: one step's adapter gradients over the int8 base, kernel route (B9, "
@@ -2201,6 +2598,47 @@ def phase_train_int8(model, cfg, rows: int = TRAIN_ROWS, r: int = LORA_R,
     phase_train_grads(model, cfg, batch, quantize="int8", label="14e-int8")
     model.lora = None
     model.requires_grad_(False)
+    return stats
+
+
+def phase_train_int8_fused(model, cfg, unfused: list, rows: int = TRAIN_ROWS, r: int = LORA_R,
+                           alpha: float = LORA_ALPHA, steps: int = 3) -> dict:
+    """14f: QLoRA int8_fused over the same int8 weights (`--qlora
+    int8_fused`): `steps` steps with every projection through B10a (the
+    forward and its recompute) and B10b, B9 never; the int8 weights
+    bit-identical, the adapters' b moved; step ms, tokens/s and peak beside
+    14d's unfused step (`unfused`: its (wall ms, peak GiB)). Then
+    14e-int8-fused: one step's adapter gradients through B10a / B10b against
+    the fused plain route, phase 4's rule, the fp32 unfused plain route on
+    the same int8 weights the reference. Returns B10a / B10b's launches of
+    the last step."""
+    device = model.llama.embed_tokens.weight.device
+    log(f"phase 14f: QLoRA int8_fused, r={r} alpha={alpha:g}, {rows} rows, remat full, "
+        f"{steps} steps")
+    model.llama.quantize = "int8_fused"  # the int8 layout, routed through B10a / B10b
+    model.lora = init_lora(torch.Generator(device=device).manual_seed(3), cfg.llama, r, alpha,
+                           device=device)
+    b0 = model.lora.adapters["wq"].b.detach().clone()
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=("vision", "llama"))
+    packed = _host_copy(model.llama.proj)
+    batch = train_batch(cfg, rows)
+    _, counts, stats = _train_steps(
+        model, cfg, opt, batch, steps,
+        _train_launches(cfg, rows, int8_stacked_fwd=14, int8_stacked_bwd=7), "14f")
+    _bit_identical(model.llama.proj, packed, "14f int8 weights")
+    _moved(model, b0, "14f")
+    wall, peak = min(w for w, _ in stats[1:] or stats), max(p for _, p in stats)
+    log(f"  14f int8_fused step {wall:.1f} ms ({rows / wall * 1e3:.1f} tokens/s, best of the "
+        f"steps after the first), peak {peak:.3f} GiB; 14d unfused int8 step "
+        f"{unfused[0][0]:.1f} ms ({rows / unfused[0][0] * 1e3:.1f} tokens/s), peak "
+        f"{unfused[0][1]:.3f} GiB")
+    log("phase 14e-int8-fused: one step's adapter gradients through B10a / B10b against the "
+        "plain route (the fp32 unfused int8 route the reference)")
+    phase_train_grads(model, cfg, batch, quantize="int8", label="14e-int8-fused")
+    model.lora = None
+    model.requires_grad_(False)
+    model.llama.quantize = "int8"
+    return {k: counts[k] for k in ("int8_stacked_fwd", "int8_stacked_bwd")}
 
 
 def model_bytes(model) -> int:
@@ -2287,6 +2725,8 @@ def main() -> int:
     log("phase 13a: the fused int4 projections in the flat layout (B4c, B5a) against the tiled")
     counts, proj = phase_flat_int4(model, cfg, tokenizer, video, frame_map)
     launches.update({k: counts[k] for k in ("int4_gemv_flat", "int4_matmul_prefill")})
+    log("phase 13c: B11 (the fused decode MLP) over the int4 model's 32 layers, one token")
+    launches["fused_mlp_stacked"] = phase_fused_mlp(model, cfg)["fused_mlp_stacked"]
     log("phase 6 and 13b: int4 + kv8 kernel path against plain path at 7B, chat and long "
         "prompt, tiled; chat prompt, per-projection flat leaves (B4a)")
     counts = phase_quant_kernel_vs_plain(
@@ -2305,7 +2745,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s: {model_bytes(model) / 2**30:.3f} GiB on the card "
         f"(decoder int8 projections {model_bytes(model.llama.proj) / 2**30:.3f} GiB, "
         f"int8 head {model_bytes(model.llama.lm_head) / 2**30:.3f} GiB)")
-    phase_train_int8(model, cfg)
+    unfused = phase_train_int8(model, cfg)
+    launches.update(phase_train_int8_fused(model, cfg, unfused))
     log("phase 11a: 7B int8 chat on the card, bf16 cache")
     run = phase_chat(model, cfg, tokenizer, video, frame_map)
     expect_launches(run["launches"], serving_launches(model, cfg, None, run["decode_steps"],
@@ -2317,6 +2758,12 @@ def main() -> int:
     phase_eval_batched(model, cfg, tokenizer)
     log("phase 12: int8 kernel path against plain path at 7B")
     phase_kernel_vs_plain(model, cfg, tokenizer, video, frame_map)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 15: the training CLI at 7B, --qlora int8_fused, LoRA r=128: 2 steps, a "
+        "checkpoint, a resumed run, the adapter in a chat turn")
+    phase_cli()
 
     launches["flash_attention"] += train.pop("flash_attention")
     launches.update(train)

@@ -20,12 +20,17 @@ bytes, stacked over layers, and load into a model built with the
   `w8`/`scale` (`quantize_llama`, `init_llama_int8`) ->
   `model.proj.<name>.{w8,scale}` ("int8"), flat int4 `w4`/`gscale` ->
   `model.proj.<name>.{w4,gscale}` ("int4_proj");
+- the fused-QLoRA stack under `layers["int8"]` (`stack_llama_int8`: the
+  seven int8 `w8`/`scale` leaves) -> `model.proj.<name>.{w8,scale}`, the
+  "int8" layout; the caller builds the model with `quantize="int8_fused"`
+  to run it through the fused route, as the JAX package's `apply_llama`
+  does with that tree;
 - an int8 head `w8`/`scale` -> `lm_head.{w8,scale}` (transposed to (V, d),
   the vocab cut to `vocab_size`);
 - LoRA adapters under `params["lora"]` (`init_lora`) ->
   `lora.adapters.<target>.{a,b}` in the JAX layout and `lora.scale`, which
   load into a model whose `lora` is a `models.lora.LoRA` of that rank.
-Any other decoder leaf (the fused-QLoRA `layers["int8"]` stack) is refused.
+Any other decoder leaf is refused.
 """
 
 from __future__ import annotations
@@ -126,9 +131,12 @@ def _llama_names(p, vocab_size: int, prefix: str = "model.") -> Dict[str, np.nda
     # the JAX package may pad the vocab for its sharding layout: cut it
     sd[prefix + "embed_tokens.weight"] = _np(p["embed"]["weight"])[:vocab_size]
     layers = p["layers"]
-    unknown = sorted(set(layers) - {"attn", "mlp", "int4", "attn_norm", "mlp_norm"})
+    unknown = sorted(set(layers) - {"attn", "mlp", "int4", "int8", "attn_norm", "mlp_norm"})
     if unknown:
         raise ValueError(f"decoder layers {unknown}: no known weight layout")
+    if "int8" in layers and {"attn", "mlp", "int4"} & set(layers):
+        raise ValueError("decoder layers mix the fused int8 stack with other projections: "
+                         "no known weight layout")
     L = layers["attn_norm"]["scale"].shape[0]
     for i in range(L):
         lp = prefix + f"layers.{i}."
@@ -142,6 +150,11 @@ def _llama_names(p, vocab_size: int, prefix: str = "model.") -> Dict[str, np.nda
             sd.update(_quant_leaf(prefix + f"proj.{key}", layers[grp][key]))
     for name, leaf in layers.get("int4", {}).items():
         sd.update(_quant_leaf(prefix + f"int4.{name}", leaf))
+    for name, leaf in layers.get("int8", {}).items():
+        if not isinstance(leaf, Mapping) or set(leaf) != {"w8", "scale"}:
+            raise ValueError(f"int8/{name}: no known weight layout (the fused stack holds "
+                             f"int8 w8 / scale leaves)")
+        sd.update(_quant_leaf(prefix + f"proj.{name}", leaf))
     sd[prefix + "norm.weight"] = _np(p["final_norm"]["scale"])
     head = p.get("lm_head")
     if head is not None and "w8" in head:
@@ -172,12 +185,14 @@ def _clip_names(p, prefix: str) -> Dict[str, np.ndarray]:
     return sd
 
 
-def quantize_mode(sd: Mapping[str, object]) -> Optional[str]:
-    """The `quantize` mode of the model that state dict `sd` (names as
-    `from_jax_params` gives them) loads into."""
-    for key, mode in (("model.int4.wqkv.w4t", "int4"), ("model.int4.wqkv.w4", "int4_flat"),
-                      ("model.proj.wq.w8", "int8"), ("model.proj.wq.w4", "int4_proj")):
-        if key in sd:
+def quantize_mode(sd: Mapping[str, object], prefix: str = "model.") -> Optional[str]:
+    """The `quantize` mode whose layout state dict `sd` holds: names as
+    `from_jax_params` gives them, or with `prefix="llama."` a model's own
+    state dict. The int8 stacks are "int8" whichever route ran them
+    ("int8_fused" is that layout's fused route, the caller's choice)."""
+    for key, mode in (("int4.wqkv.w4t", "int4"), ("int4.wqkv.w4", "int4_flat"),
+                      ("proj.wq.w8", "int8"), ("proj.wq.w4", "int4_proj")):
+        if prefix + key in sd:
             return mode
     return None
 

@@ -1,7 +1,7 @@
 """Where a chat turn's time goes: torch.profiler over one prefill and a
 window of decode steps, after a warm-up turn.
 
-    python -m handsonvlm_torch.infer.profile [--quantize int4|int8] [--kv-int8] \
+    python -m handsonvlm_torch.infer.profile [--quantize int4|int8|int8_fused] [--kv-int8] \
         [--preset 7b] [--device cuda] [--steps 16] [--spec K] [--prompt-rows N]
 
 For each part it prints the host (wall) ms of a run without the profiler,
@@ -18,8 +18,8 @@ positions (every draft rejected, one token kept per forward, the cache
 index set back each time), beside the one-token decode step they replace.
 `--train` profiles a LoRA train step instead (r=128, alpha=256, remat
 "full", batch 1, one synthetic sample of --prompt-rows rows, 2048 by
-default; with --quantize the frozen base is int4 or int8: QLoRA), after a
-warm-up step. `--device cpu` runs the same control flow on the CPU (no
+default; with --quantize the frozen base is int4, int8 or int8_fused (the
+fused int8 + LoRA-epilogue kernels): QLoRA), after a warm-up step. `--device cpu` runs the same control flow on the CPU (no
 device numbers) to rehearse it.
 """
 
@@ -142,7 +142,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="7b")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--quantize", choices=["int4", "int8"], default=None)
+    ap.add_argument("--quantize", choices=["int4", "int8", "int8_fused"], default=None)
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--steps", type=int, default=16, help="decode steps traced")
     ap.add_argument("--spec", type=int, default=0, metavar="K",

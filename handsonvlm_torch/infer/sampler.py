@@ -132,7 +132,7 @@ def prefill(
         positions = (torch.cumsum(sp.attn_mask.long(), dim=1) - 1).clamp(min=0)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
                                 attn_mask=cache_mask, positions=positions, kv_cache=cache,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, lora=model.lora)
     if kv_quant == "int8":
         cache = quantize_kv_cache(cache)
     return hidden[:, -1, :], cache, cache_mask
@@ -166,7 +166,8 @@ def decode_step(
     <hand_traj>), sample the next token. Returns (token, waypoint, cache)."""
     emb = embed_next_token(model, cfg, cur_token, cur_waypoint)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=emb[:, None, :],
-                                attn_mask=cache_mask, kv_cache=cache, attn_impl=attn_impl)
+                                attn_mask=cache_mask, kv_cache=cache, attn_impl=attn_impl,
+                                lora=model.lora)
     token, waypoint = _sample_and_hook(model, cfg, hidden[:, 0], generator,
                                        temperature, top_p, z)
     return token, waypoint, cache

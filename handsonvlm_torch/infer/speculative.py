@@ -268,7 +268,7 @@ def generate_spec(
         index = cache.index
         hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=embs,
                                     attn_mask=cache_mask, kv_cache=cache,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, lora=model.lora)
         logits = lm_logits(model.llama, cfg.llama, hidden)[0]  # (k_run + 1, V)
         emitted, n_emit = spec_verify(logits, draft, temperature, top_p, cfg.hand_token_id,
                                       eos_token_id, generator=generator)

@@ -30,7 +30,13 @@ and the head as int8 (`Int8Head`):
   w_down) as stacked int8 w8 (L, din, dout) with f32 scales (L, dout) under
   `Llama.proj`; `"int4_proj"` the same seven as flat int4 leaves. Both are
   read per layer through `ops.int8_matmul.maybe_int8_matmul` (kernels B9
-  and B4a), as the JAX package's per-projection branch does.
+  and B4a), as the JAX package's per-projection branch does;
+- `quantize="int8_fused"` (the fused QLoRA route, `--qlora int8_fused`):
+  the int8 stacks of "int8" (the leaves the JAX package's
+  `stack_llama_int8` moves under `layers["int8"]`), read through
+  `ops.qlora_fused` (kernels B10a, B10b): a projection with an adapter
+  accumulates its low-rank delta in the kernel's output tile instead of
+  adding a separate delta, as the JAX package's `proj8` does.
 The int8 decode cache (`QuantKVCache`) holds int8 k/v with per-(token, kv
 head) f32 scales; decode quantizes each step's rows in place and attends
 through kernel B6. `attn_impl="xla"` runs every op's plain version instead
@@ -70,6 +76,7 @@ from handsonvlm_torch.ops.int8_matmul import (
     tile_int4_stacked,
     tiled_shapes,
 )
+from handsonvlm_torch.ops.qlora_fused import int8_lora_matmul_stacked, int8_matmul_stacked
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +251,7 @@ class Int8Head(nn.Module):
                                                   device=device))
 
 
-QUANTIZE_MODES = (None, "int4", "int4_flat", "int8", "int4_proj")
+QUANTIZE_MODES = (None, "int4", "int4_flat", "int8", "int4_proj", "int8_fused")
 
 
 class Llama(nn.Module):
@@ -252,8 +259,11 @@ class Llama(nn.Module):
 
     A `quantize` mode builds its layout directly (an `Int8Head`, and the
     projections under `int4`: "int4" tiled, "int4_flat" flat; or under
-    `proj`: "int8", "int4_proj" flat int4), as the quantizers leave a dense
-    model and the JAX package's trees load."""
+    `proj`: "int8" and "int8_fused", "int4_proj" flat int4), as the
+    quantizers leave a dense model and the JAX package's trees load.
+    `quantize` keeps the mode, which the quantizers update: "int8" and
+    "int8_fused" share a layout and differ in route only, so switching
+    between them is a change of `quantize` alone."""
 
     def __init__(self, cfg: LlamaConfig, quantize: Optional[str] = None, **factory):
         super().__init__()
@@ -268,10 +278,12 @@ class Llama(nn.Module):
         self.int4 = None if quantize not in ("int4", "int4_flat") else nn.ModuleDict({
             name: Int4Weight(din, dout, L, device=device, flat=quantize == "int4_flat")
             for name, (din, dout) in int4_projection_shapes(cfg).items()})
-        self.proj = None if quantize not in ("int8", "int4_proj") else nn.ModuleDict({
-            name: (Int8Weight(din, dout, L, device) if quantize == "int8"
-                   else Int4Weight(din, dout, L, device=device, flat=True))
-            for name, (din, dout) in projection_shapes(cfg).items()})
+        self.proj = None if quantize not in ("int8", "int4_proj", "int8_fused") else (
+            nn.ModuleDict({
+                name: (Int4Weight(din, dout, L, device=device, flat=True)
+                       if quantize == "int4_proj" else Int8Weight(din, dout, L, device))
+                for name, (din, dout) in projection_shapes(cfg).items()}))
+        self.quantize = quantize
         if cfg.tie_word_embeddings:
             self.lm_head = None
         elif dense:
@@ -376,17 +388,20 @@ def quantize_llama_int4(llama: Llama, cfg: LlamaConfig, group: int = INT4_GROUP)
         lp.self_attn = None
         lp.mlp = None
     _quantize_head(llama, device)
+    llama.quantize = "int4"
     return llama
 
 
 @torch.no_grad()
-def quantize_llama(llama: Llama, cfg: LlamaConfig) -> Llama:
+def quantize_llama(llama: Llama, cfg: LlamaConfig, mode: str = "int8") -> Llama:
     """Quantize a dense decoder in place into the int8 layout (the JAX
     package's `quantize_llama`): per layer, each of the seven projections
     to int8 with one scale per output column into the stacked buffers, its
     dense weight freed at once (the peak is the dense model plus the int8
     buffers); then the head to int8. Norms and the embedding keep their
-    dtype."""
+    dtype. `mode` is "int8" or "int8_fused" (the route)."""
+    if mode not in ("int8", "int8_fused"):
+        raise ValueError(f"quantize_llama makes the int8 layout, not {mode!r}")
     device = llama.embed_tokens.weight.device
     llama.proj = nn.ModuleDict({
         name: Int8Weight(din, dout, cfg.num_layers, device)
@@ -401,6 +416,7 @@ def quantize_llama(llama: Llama, cfg: LlamaConfig) -> Llama:
         lp.self_attn = None
         lp.mlp = None
     _quantize_head(llama, device)
+    llama.quantize = mode
     return llama
 
 
@@ -435,6 +451,7 @@ def dequantize_llama(llama: Llama, cfg: LlamaConfig, dtype) -> Llama:
                 lin.weight.copy_(w[:, start:start + lin.out_features].t())
                 start += lin.out_features
     llama.int4 = llama.proj = None
+    llama.quantize = None
     if isinstance(llama.lm_head, Int8Head):
         head = llama.lm_head
         lin = nn.Linear(head.w8.shape[1], head.w8.shape[0], bias=False, device=device,
@@ -481,17 +498,27 @@ def _layer(
     lora_layer=None,
     lora_scale=0.0,
 ) -> torch.Tensor:
-    """One decoder block, dense, fused int4 (`Llama.int4`) or per
-    projection int8 / flat int4 (`Llama.proj`). With a cache (bf16/f32
-    `KVCache` or int8 `QuantKVCache`), this layer's k/v rows are written at
-    `kv_cache.index` before attention reads them; a decode window attends
-    over the forward's compacted block list `blocks`. `lora_layer` (the
-    layer's adapter views, `LoRA.layer(i)`) adds each target's low-rank
-    delta where the JAX package's `_layer` adds it."""
+    """One decoder block, dense, fused int4 (`Llama.int4`), per projection
+    int8 / flat int4 (`Llama.proj`) or fused QLoRA int8 (`Llama.proj` under
+    `quantize="int8_fused"`). With a cache (bf16/f32 `KVCache` or int8
+    `QuantKVCache`), this layer's k/v rows are written at `kv_cache.index`
+    before attention reads them; a decode window attends over the forward's
+    compacted block list `blocks`. `lora_layer` (the layer's adapter views,
+    `LoRA.layer(i)`) adds each target's low-rank delta where the JAX
+    package's `_layer` adds it (on the fused route, inside the kernel)."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     int4, proj = llama.int4, llama.proj
     plain = attn_impl == "xla"
+    fused = llama.quantize == "int8_fused"
+
+    def fproj(x, name):  # the fused QLoRA route, the JAX package's proj8
+        w = proj[name]
+        if lora_layer is not None and name in lora_layer:
+            ad = lora_layer[name]
+            return int8_lora_matmul_stacked(x, w.w8, w.scale, ad["a"], ad["b"], lora_scale,
+                                            layer_idx, plain=plain)
+        return int8_matmul_stacked(x, w.w8, w.scale, layer_idx, plain=plain)
 
     def iproj(x, name):
         return int4_matmul_stacked(x, *int4[name].packed(), layer_idx, plain=plain)
@@ -514,8 +541,10 @@ def _layer(
 
     x = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
     qkv_widths = [h * hd, k * hd, k * hd]
-    dqkv = lora_delta_multi(lora_layer, ("wq", "wk", "wv"), x, lora_scale)
-    if int4 is not None:
+    dqkv = None if fused else lora_delta_multi(lora_layer, ("wq", "wk", "wv"), x, lora_scale)
+    if fused:
+        q, kx, vx = (fproj(x, n) for n in ("wq", "wk", "wv"))
+    elif int4 is not None:
         qkv = iproj(x, "wqkv")
         if not isinstance(dqkv, tuple):  # one concatenated delta, or none
             qkv, dqkv = _add(qkv, dqkv), (0.0, 0.0, 0.0)
@@ -558,6 +587,11 @@ def _layer(
             causal=True, q_offset=idx, impl=impl, decode_length=idx + t, blocks=blocks)
     out = out.reshape(b, t, h * hd)
     f = cfg.intermediate_size
+    if fused:
+        hidden = hidden + fproj(out, "wo")
+        x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
+        gu = F.silu(fproj(x, "w_gate")) * fproj(x, "w_up")
+        return hidden + fproj(gu, "w_down")
     if int4 is not None:
         hidden = _add(hidden + iproj(out, "wo"), lora_delta(lora_layer, "wo", out, lora_scale))
         x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)

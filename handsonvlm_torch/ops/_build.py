@@ -55,6 +55,9 @@ SIGNATURES = {
     "hv_int4_prefill": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_int4_transpose": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
+    "hv_qlora_fwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "hv_qlora_bwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "hv_fused_mlp": ([_P] * 10 + [_I] * 6 + [_F, _P], _I),
     "hv_error_string": ([_I], ctypes.c_char_p),
 }
 

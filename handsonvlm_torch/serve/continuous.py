@@ -330,7 +330,7 @@ class ContinuousEngine:
             hidden, _ = apply_llama(self.model.llama, self.cfg.llama,
                                     inputs_embeds=emb[:, None, :], attn_mask=mask,
                                     positions=positions, kv_cache=self.cache,
-                                    attn_impl=self.attn_impl)
+                                    attn_impl=self.attn_impl, lora=self.model.lora)
             h = hidden[:, 0]
             logits = lm_logits(self.model.llama, self.cfg.llama, h)
             ntok = sample_rows(logits, self.temps, self.top_ps, u)

@@ -1,0 +1,229 @@
+"""SFT / LoRA / QLoRA training entry point.
+
+Port of `handsonvlm_tpu/train/train.py` (the reference's
+`handsonvlm/train/train.py` + `handsonvlm_trainer.py`) on one device: the
+model from the builder, adapters and freezing as the JAX CLI sets them up,
+the cosine schedule and clipped AdamW of `train/train_state.py`, the train
+step of `train/step.py`, the prefetching loader, checkpoints with
+auto-resume, the adapter artifacts the builder loads, one JSON metrics line
+per logged step and `metrics.jsonl` (utils/metrics_writer.py).
+
+Usage (recipe defaults mirror scripts/finetune.sh):
+  python -m handsonvlm_torch.train.train --model-path random:7b --preset 7b \\
+      --qlora int8_fused --lora-r 128 --output-dir ./runs/h7b --synthetic 4 \\
+      --samples-per-epoch 4 --batch-size 1 --max-steps 2
+
+Every JAX flag is here. Until their ROADMAP items land, these refuse with
+SystemExit instead of running without them: `--model-axis` or
+`--seq-parallel` above 1 (A11, parallelism), the `--tasks` data paths
+without `--synthetic` (A4 rest, the EK / LITA data modules) and
+`--eval-every` (A4 rest: it needs the EK validation set). `--device`
+(default cuda) picks the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model-path", default="random:tiny",
+                   help="HF init checkpoint dir, a directory of this trainer, or "
+                        "random:<preset>")
+    p.add_argument("--preset", default="7b")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--num-frames", type=int, default=0,
+                   help="override the preset's video frame slots (0 = preset)")
+    p.add_argument("--max-len", type=int, default=0,
+                   help="context length budget (0 = preset, 2048 like the reference's "
+                        "model_max_length); RoPE is computed from positions, so more works")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--ek-version", default="ek100")
+    p.add_argument("--epochs", type=int, default=40)
+    p.add_argument("--samples-per-epoch", type=int, default=48296)
+    p.add_argument("--batch-size", type=int, default=128, help="global batch")
+    p.add_argument("--learning-rate", type=float, default=2e-5)
+    p.add_argument("--warmup-ratio", type=float, default=0.03)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--model-axis", type=int, default=1,
+                   help="tensor-parallel degree (waits for ROADMAP A11)")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="sequence-parallel degree (waits for ROADMAP A11)")
+    p.add_argument("--lora-r", type=int, default=0,
+                   help="enable LoRA with this rank (reference: 128)")
+    p.add_argument("--lora-alpha", type=float, default=256.0)
+    p.add_argument("--lora-bf16", action="store_true",
+                   help="run the adapter matmuls in bf16 (f32 master weights and "
+                        "optimizer unchanged)")
+    p.add_argument("--remat-policy", default="full",
+                   choices=["full", "dots", "dots_nobatch", "save_lora"],
+                   help="what each decoder layer's recompute keeps: full = nothing "
+                        "(least memory, the reference recipe), dots = the matmul "
+                        "outputs, save_lora = the LoRA first-stage outputs")
+    p.add_argument("--mu-bf16", action="store_true",
+                   help="bf16 Adam first moment (halves its memory)")
+    p.add_argument("--qlora", choices=["int8", "int8_fused", "int4"], default=None,
+                   help="quantize the frozen decoder base (requires --lora-r): int8 "
+                        "(kernel B9, plain backward), int8_fused (the fused int8 + "
+                        "LoRA-epilogue kernels B10a / B10b) or int4 (tiled, B5b / B7b)")
+    p.add_argument("--tune-mm-mlp-adapter", action="store_true",
+                   help="train only the mm_projector and save adapter-only artifacts "
+                        "(reference train.py:104-122 mm_projector.bin)")
+    p.add_argument("--rephrase-rate", type=float, default=0.3)
+    p.add_argument("--use-percentage", type=float, default=1.0)
+    p.add_argument("--save-every", type=int, default=0, help="steps; 0 = per epoch")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="steps between generate+ADE/FDE evals (0 = off; waits for "
+                        "ROADMAP A4 rest)")
+    p.add_argument("--eval-samples", type=int, default=64)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--max-steps", type=int, default=0, help="0 = epochs*spe/bs")
+    p.add_argument("--tasks", default="epic_kitchen",
+                   help="|| separated task mixture (the data paths wait for ROADMAP A4 "
+                        "rest; run with --synthetic)")
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--task-sample-rates", default=None)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic samples (smoke runs without EK data)")
+    return p.parse_args(argv)
+
+
+def _refuse_waiting_flags(args) -> None:
+    if args.model_axis > 1 or args.seq_parallel > 1:
+        raise SystemExit("--model-axis / --seq-parallel above 1 wait for ROADMAP A11 "
+                         "(parallelism): the port trains on one device")
+    if args.eval_every:
+        raise SystemExit("--eval-every waits for ROADMAP A4 rest (the EK validation set)")
+    if not args.synthetic:
+        raise SystemExit(f"--tasks {args.tasks}: the EK / LITA data paths wait for ROADMAP "
+                         "A4 rest; train on --synthetic N")
+    if args.qlora and not args.lora_r:
+        raise SystemExit("--qlora requires --lora-r (the base is frozen)")
+    if args.tune_mm_mlp_adapter and args.lora_r:
+        raise SystemExit("--tune-mm-mlp-adapter is exclusive with --lora-r")
+
+
+def main(argv=None):
+    """Run the CLI; returns the final TrainState (tests read it)."""
+    args = parse_args(argv)
+    _refuse_waiting_flags(args)
+
+    import torch
+
+    from handsonvlm_torch.core.checkpoint import (
+        latest_step,
+        restore_train_state,
+        save_artifact,
+        save_train_state,
+    )
+    from handsonvlm_torch.data.hybrid_dataset import Collator, HybridDataset
+    from handsonvlm_torch.data.synthetic import SyntheticConversationDataset
+    from handsonvlm_torch.infer.builder import load_pretrained_model
+    from handsonvlm_torch.models import lora as lora_mod
+    from handsonvlm_torch.train.loader import PrefetchLoader
+    from handsonvlm_torch.train.step import make_train_step
+    from handsonvlm_torch.train.train_state import (
+        cosine_schedule,
+        create_train_state,
+        make_optimizer,
+    )
+    from handsonvlm_torch.utils.metrics_writer import MetricsWriter
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    device = torch.device(args.device)
+    model, cfg, tokenizer = load_pretrained_model(args.model_path, args.preset, device,
+                                                  quantize=args.qlora)
+    if args.num_frames:
+        cfg = dataclasses.replace(cfg, num_frames=args.num_frames)
+    if args.max_len:
+        cfg = dataclasses.replace(cfg, max_length=args.max_len, llama=dataclasses.replace(
+            cfg.llama, max_position_embeddings=max(args.max_len,
+                                                   cfg.llama.max_position_embeddings)))
+        tokenizer.model_max_length = args.max_len
+    freeze = ("vision",)
+    if args.lora_r:
+        if args.lora_bf16:
+            lora_mod.LORA_COMPUTE_BF16 = True
+        model.lora = lora_mod.init_lora(torch.Generator(device=device).manual_seed(42),
+                                        cfg.llama, r=args.lora_r, alpha=args.lora_alpha,
+                                        device=device)
+        freeze = ("vision", "llama")  # adapters + projector + traj head train
+    if args.tune_mm_mlp_adapter:
+        freeze = tuple(name for name, child in model.named_children()
+                       if child is not None and name != "projector")
+
+    def save_adapters(model):
+        """Adapter-only artifacts beside the checkpoints: the builder's
+        adapter path loads them."""
+        if args.tune_mm_mlp_adapter:
+            save_artifact(args.output_dir, "mm_projector", model.projector.state_dict(),
+                          meta={"base": args.model_path, "preset": args.preset})
+        if args.lora_r:
+            save_artifact(args.output_dir, "lora", model.lora.state_dict(),
+                          meta={"base": args.model_path, "preset": args.preset,
+                                "r": args.lora_r, "alpha": args.lora_alpha,
+                                "qlora": args.qlora})
+            save_artifact(args.output_dir, "non_lora_trainables",
+                          {"projector": model.projector.state_dict(),
+                           "traj": model.traj.state_dict()})
+
+    steps_per_epoch = max(args.samples_per_epoch // args.batch_size, 1)
+    total_steps = args.max_steps or args.epochs * steps_per_epoch
+    sched = cosine_schedule(args.learning_rate, total_steps, args.warmup_ratio)
+    opt = make_optimizer(model, sched, weight_decay=args.weight_decay, freeze_top_keys=freeze,
+                         mu_dtype=torch.bfloat16 if args.mu_bf16 else None)
+    state = create_train_state(model, opt)
+
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    t0 = time.perf_counter()
+    if restore_train_state(ckpt_dir, state) is not None:
+        print(f"resumed from step {state.step} (restored in "
+              f"{time.perf_counter() - t0:.3f} s)", flush=True)
+
+    hybrid = HybridDataset(
+        task_datasets=[[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic)]],
+        task_sample_rate=[1.0], samples_per_epoch=args.samples_per_epoch)
+    collate = Collator(pad_token_id=tokenizer.pad_token_id, model_max_length=cfg.max_length,
+                       num_frames=cfg.num_frames, seq_multiple=args.seq_parallel,
+                       splice_extra=cfg.num_visual_tokens - 1)
+    loader = PrefetchLoader(hybrid, collate, args.batch_size,
+                            num_steps=max(total_steps - state.step, 0), device=device)
+    step_fn = make_train_step(cfg, opt, remat=args.remat_policy)
+    save_every = args.save_every or steps_per_epoch
+    writer = MetricsWriter(args.output_dir)
+
+    def save(step):
+        t = time.perf_counter()
+        nbytes = save_train_state(ckpt_dir, state, step)
+        save_adapters(state.model)
+        print(f"saved checkpoint at step {step} ({nbytes} bytes in "
+              f"{time.perf_counter() - t:.3f} s)", flush=True)
+
+    t0 = time.time()
+    for batch in loader:
+        metrics = step_fn(state, batch, 0)
+        step = state.step
+        if step % args.log_every == 0:
+            m = dict(metrics, lr=sched(step),
+                     sec_per_step=(time.time() - t0) / max(args.log_every, 1))
+            t0 = time.time()
+            print(json.dumps(dict(m, step=step)), flush=True)
+            writer.log(m, step)
+        if step % save_every == 0 or step >= total_steps:
+            save(step)
+        if step >= total_steps:
+            break
+    if latest_step(ckpt_dir) != state.step:
+        save(state.step)
+    writer.close()
+    print("training complete", flush=True)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -110,6 +110,30 @@ class AdamW(torch.optim.Optimizer):
         self.count = count
         return norm
 
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def state_dict(self) -> dict:
+        """optax's state: the count and each parameter's moments (by its
+        index over the param groups), in their own dtypes."""
+        return {"count": self.count,
+                "state": {i: dict(self.state[p]) for i, p in enumerate(self._params())
+                          if self.state[p]}}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """The inverse of `state_dict` into an optimizer over the same
+        parameters: the moments copied to each parameter's device, their
+        dtypes kept (torch's own loader would cast a bf16 first moment to
+        the parameter's dtype)."""
+        params = self._params()
+        for i, st in state_dict["state"].items():
+            p = params[int(i)]
+            if any(v.shape != p.shape for v in st.values()):
+                raise ValueError(f"optimizer state {i}: shapes {[tuple(v.shape) for v in st.values()]} "
+                                 f"do not fit the parameter {tuple(p.shape)}")
+            self.state[p] = {k: v.to(p.device, copy=True) for k, v in st.items()}
+        self.count = int(state_dict["count"])
+
 
 def make_optimizer(
     model: nn.Module,

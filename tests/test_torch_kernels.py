@@ -16,7 +16,11 @@ GEMV's rows (B4b, B9) are bit-equal alone and in a window. The backward
 kernels: B3b's gradients within 2e-2 (bf16) or 1e-4 (fp32) of max|want|
 (p and ds are rounded as in the plain version, the sums taken in another
 order), B7a / B7b under the int4 rule, and every wrapper on an input that
-requires grad either carries the plain version's gradient or raises.
+requires grad either carries the plain version's gradient or raises. The
+fused QLoRA matmuls B10a / B10b round their outputs to bf16 whatever the
+input dtype, so they take the int4 rule in bf16 for every input. The fused
+decode MLP B11 rounds xn and act to bf16 but keeps an fp32 residual: bf16
+rows take the int4 rule, fp32 rows 3e-4 x max|y| with no per-element term.
 """
 
 import numpy as np
@@ -64,6 +68,19 @@ from handsonvlm_torch.ops.int8_matmul import (
     quantize_stacked_int8,
     tile_int4_stacked,
     untile_int4_stacked,
+)
+from handsonvlm_torch.ops.fused_decode import (
+    fused_mlp_stacked,
+    fused_mlp_stacked_ref,
+    split_wgu_tiled,
+)
+from handsonvlm_torch.ops.qlora_fused import (
+    int8_lora_matmul_stacked,
+    int8_matmul_stacked,
+    int8_stacked_bwd,
+    int8_stacked_bwd_ref,
+    int8_stacked_fwd,
+    int8_stacked_fwd_ref,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 
@@ -535,6 +552,9 @@ def _grad_cases(device):
     x16, x200 = rnd(16, 128), rnd(200, 128)
     q1 = q[:, :1].contiguous()
     k8, v8, ks, vs = quantize_cache(ck, cv)
+    a8, b8 = 0.02 * rnd(128, 8), 0.1 * rnd(8, 256)
+    wg, wu, wd = mlp_weights(256, 512, device, seed=2)
+    nrm = torch.ones((2, 256), device=device)
     return {
         "vit_attention": (lambda a, b, c: vit_attention(a, b, c),
                           lambda a, b, c: vit_attention_ref(a, b, c), (q, k, v)),
@@ -557,6 +577,14 @@ def _grad_cases(device):
                                 (x200,)),
         "int8_matmul": (lambda a: int8_matmul(a, w8[0], sc[0]),
                         lambda a: int8_matmul_ref(a, w8[0], sc[0]), (x16,)),
+        # the fused QLoRA fronts: B10a forward, B10b backward (the plain
+        # route: the plain versions of both)
+        "int8_matmul_stacked": (lambda a: int8_matmul_stacked(a, w8, sc, 0),
+                                lambda a: int8_matmul_stacked(a, w8, sc, 0, plain=True), (x200,)),
+        "int8_lora_matmul_stacked": (
+            lambda x, a, b: int8_lora_matmul_stacked(x, w8, sc, a, b, 2.0, 0),
+            lambda x, a, b: int8_lora_matmul_stacked(x, w8, sc, a, b, 2.0, 0, plain=True),
+            (x200, a8, b8)),
         # no backward: decoding and cache ops, and the backward kernels
         "decode_attention_stacked": (
             lambda a: decode_attention_stacked(a, ck, cv, 1, 30), None, (q1,)),
@@ -574,6 +602,12 @@ def _grad_cases(device):
                                 (rnd(16, 256),)),
         "int4_matmul_T_flat": (lambda a: int4_matmul_T_flat(a, w4, gs, 1), None,
                                (rnd(16, 256),)),
+        "int8_stacked_fwd": (lambda a: int8_stacked_fwd(a.to(torch.bfloat16), w8, sc, 0), None,
+                             (x16,)),
+        "int8_stacked_bwd": (lambda a: int8_stacked_bwd(a.to(torch.bfloat16), w8, sc, 0), None,
+                             (rnd(16, 256),)),
+        "fused_mlp_stacked": (lambda a: fused_mlp_stacked(a, nrm, wg, wu, wd, 1), None,
+                              (rnd(2, 256),)),
     }
 
 
@@ -581,7 +615,12 @@ GRAD_WRAPPERS = ("vit_attention", "flash_attention", "int4_gemv_tiled", "int4_ge
                  "int4_matmul", "int4_matmul_prefill_tiled", "int4_matmul_prefill",
                  "int8_matmul", "decode_attention_stacked", "decode_attention_stacked_q",
                  "decode_attention", "gather_cache_blocks", "flash_attention_bwd",
-                 "int4_matmul_T_tiled", "int4_matmul_T_flat")
+                 "int4_matmul_T_tiled", "int4_matmul_T_flat", "int8_matmul_stacked",
+                 "int8_lora_matmul_stacked", "int8_stacked_fwd", "int8_stacked_bwd",
+                 "fused_mlp_stacked")
+# wrappers whose gradient is rounded to bf16 by the contract (B10b's dx):
+# held by the int4 / int8 rule in bf16, not the f32 gradient rule
+BF16_GRADS = ("int8_matmul_stacked", "int8_lora_matmul_stacked")
 
 
 @pytest.mark.cuda
@@ -607,7 +646,10 @@ def test_kernel_wrapper_carries_or_refuses_grad(cuda, name):
     ref_leaves = [x.detach().clone().requires_grad_() for x in inputs]
     want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, dy)
     for g, w in zip(got, want):
-        assert_grad_close(g, w, torch.float32, name)
+        if name in BF16_GRADS:
+            assert_int4_close(g, w, torch.bfloat16)
+        else:
+            assert_grad_close(g, w, torch.float32, name)
 
 
 SINGLE_CASES = {name: c for name, c in DECODE_CASES.items() if c[6] == 1}
@@ -795,3 +837,98 @@ def test_int4_matmul_kernel(cuda, shape, m, dtype):
     assert int4_matmul.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == (m, dout)
     assert_int4_close(got, int4_matmul_ref(x, w4, gs), dtype)
+
+
+# ---------------------------------------------------------------------------
+# B10a / B10b: the fused QLoRA matmuls; B11: the fused decode MLP
+# ---------------------------------------------------------------------------
+
+
+def _qlora_operands(shape, m, r, device, seed, backward):
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 2, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn((m, dout if backward else din), generator=gen, device=device)
+    lhs = rhs = None
+    if r:
+        lhs = 0.1 * torch.randn((m, r), generator=gen, device=device)
+        rhs = 0.1 * torch.randn((din, r) if backward else (r, dout), generator=gen,
+                                device=device)
+    return x.to(torch.bfloat16), w8, sc, lhs, rhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 5, 128], ids=["base", "r5", "r128"])
+@pytest.mark.parametrize("m", [1, 200])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_gate", "7b_w_down", "ragged"])
+def test_qlora_fwd_kernel(cuda, shape, m, r):
+    """B10a, with and without the LoRA epilogue (an odd rank and the
+    reference's 128), on either side of the 64-row tile, ragged n."""
+    x2, w8, sc, u_s, b = _qlora_operands(shape, m, r, cuda, m + r, backward=False)
+    before = int8_stacked_fwd.LAUNCHES
+    got = int8_stacked_fwd(x2, w8, sc, 1, u_s, b)
+    torch.cuda.synchronize()
+    assert int8_stacked_fwd.LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, w8.shape[2])
+    assert_int4_close(got, int8_stacked_fwd_ref(x2, w8, sc, 1, u_s, b), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 5, 128], ids=["base", "r5", "r128"])
+@pytest.mark.parametrize("m", [1, 200])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_gate", "7b_w_down", "ragged"])
+def test_qlora_bwd_kernel(cuda, shape, m, r):
+    """B10b: g @ (bf16(w8) * bf16(s))^T with the v_s @ a^T epilogue."""
+    g2, w8, sc, v_s, a = _qlora_operands(shape, m, r, cuda, m + r + 7, backward=True)
+    before = int8_stacked_bwd.LAUNCHES
+    got = int8_stacked_bwd(g2, w8, sc, 1, v_s, a)
+    torch.cuda.synchronize()
+    assert int8_stacked_bwd.LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, w8.shape[1])
+    assert_int4_close(got, int8_stacked_bwd_ref(g2, w8, sc, 1, v_s, a), torch.bfloat16)
+
+
+# B11's fp32 rows: a share of max|y| alone (see test_fused_mlp_kernel)
+B11_FP32_TOL = 3e-4
+
+
+def mlp_weights(d, f, device, seed, layers=2):
+    """A layer stack's MLP weights as the fused decode kernel takes them:
+    the int4 decoder's fused gate|up leaf split into gate and up tiles of
+    256 columns, and w_down tiled."""
+    w4t, gst = int4_weights(d, 2 * f, layers, device, seed=seed)
+    wg, wu = split_wgu_tiled({"w4t": w4t, "gst": gst}, f)
+    w4t, gst = int4_weights(f, d, layers, device, seed=seed + 1)
+    return wg, wu, {"w4t": w4t, "gst": gst}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 2, 3, 8])
+@pytest.mark.parametrize("shape", ["small", "7b"])
+def test_fused_mlp_kernel(cuda, shape, b, dtype):
+    """B11 over a layer's MLP half: 1-8 rows (the kernel's row count rounds
+    up to 1, 2, 4 or 8), at a small width and at 7B (d 4096, f 11008). Both
+    versions round xn and act to bf16 whatever h's dtype, so an f32 row
+    differs where an act element's f32 sum, taken in another order, lands
+    on the other side of a rounding boundary: a bf16 step of that element
+    times its down weights (at 7B, B = 8: 1.1e-4 x max|y| on an H100). The
+    fp32 gate, B11_FP32_TOL x max|y| and no per-element term, fails a kernel
+    that rounds the residual h to bf16 (2^-9 x |h|)."""
+    d, f = {"small": (256, 512), "7b": (4096, 11008)}[shape]
+    wg, wu, wd = mlp_weights(d, f, cuda, seed=b)
+    gen = torch.Generator(device=cuda).manual_seed(b + 1)
+    h = torch.randn((b, d), generator=gen, device=cuda).to(dtype)
+    nrm = (1.0 + 0.1 * torch.randn((2, d), generator=gen, device=cuda)).to(torch.bfloat16)
+    before = fused_mlp_stacked.LAUNCHES
+    got = fused_mlp_stacked(h, nrm, wg, wu, wd, 1)
+    torch.cuda.synchronize()
+    assert fused_mlp_stacked.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    want = fused_mlp_stacked_ref(h, nrm, wg, wu, wd, 1)
+    if dtype == torch.bfloat16:
+        assert_int4_close(got, want, torch.bfloat16)
+    else:
+        err = float((got - want).abs().max())
+        assert bool(torch.isfinite(got).all())
+        assert err <= B11_FP32_TOL * float(want.abs().max()), err

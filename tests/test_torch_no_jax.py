@@ -40,6 +40,14 @@ MODULES = [
     "handsonvlm_torch.eval.evaluator",
     "handsonvlm_torch.train.train_state",
     "handsonvlm_torch.train.step",
+    "handsonvlm_torch.train.loader",
+    "handsonvlm_torch.train.train",
+    "handsonvlm_torch.core.checkpoint",
+    "handsonvlm_torch.data.synthetic",
+    "handsonvlm_torch.data.hybrid_dataset",
+    "handsonvlm_torch.ops.qlora_fused",
+    "handsonvlm_torch.ops.fused_decode",
+    "handsonvlm_torch.utils.metrics_writer",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -231,6 +239,48 @@ def test_chip_smoke_train_phases_run_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "phase 14 ran" in proc.stdout and "FAIL" not in proc.stdout
     assert proc.stdout.count("bit-identical after the steps: ok") == 4
+
+
+def test_chip_smoke_fused_qlora_and_cli_phases_run_without_jax():
+    """chip_smoke's phase 14f (QLoRA int8_fused steps over the int8 model's
+    weights, after 14d, and the gradient check 14e-int8-fused) and phase 15
+    (the training CLI: two steps, the checkpoint restored bit-equal, a
+    resumed run in its own process, the LoRA artifact merged by the builder
+    answering a chat turn) at the tiny preset on the CPU, jax-free."""
+    code = ("import chip_smoke as cs\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu',\n"
+            "                                           quantize='int8')\n"
+            "stats = cs.phase_train_int8(model, cfg, rows=140, r=2, alpha=4.0)\n"
+            "counts = cs.phase_train_int8_fused(model, cfg, stats, rows=140, r=2, alpha=4.0,\n"
+            "                                   steps=2)\n"
+            "assert sorted(counts) == ['int8_stacked_bwd', 'int8_stacked_fwd'], counts\n"
+            "assert model.llama.quantize == 'int8' and model.lora is None\n"
+            "cs.phase_cli(device='cpu', preset='tiny', r=2)\n"
+            "print('phases 14f and 15 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = proc.stdout
+    assert "phases 14f and 15 ran" in out and "FAIL" not in out
+    assert "14f int8 weights bit-identical after the steps: ok" in out
+    assert "resumed from step 2" in out and "bit-equal to the saved state" in out
+
+
+def test_profile_cli_train_int8_fused_rehearses_on_cpu():
+    """The profiler's CLI with `--train --quantize int8_fused` at the tiny
+    preset on the CPU, jax-free."""
+    code = ("import json, sys, runpy, io, contextlib\n"
+            "sys.argv = ['profile', '--preset', 'tiny', '--device', 'cpu', '--quantize',\n"
+            "            'int8_fused', '--train', '--prompt-rows', '140']\n"
+            "out = io.StringIO()\n"
+            "with contextlib.redirect_stdout(out):\n"
+            "    runpy.run_module('handsonvlm_torch.infer.profile', run_name='__main__')\n"
+            "res = json.loads(out.getvalue().strip().splitlines()[-1])\n"
+            "assert res['quantize'] == 'int8_fused' and res['train_step']['wall_ms'] > 0, res\n"
+            + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_profile_cli_rehearses_on_cpu():
