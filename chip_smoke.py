@@ -5,14 +5,17 @@
 Phases (each prints its lines; the last line is the JSON status):
 
 1. the card (`nvidia-smi` name and power limit) and the kernels' build:
-   every `handsonvlm_torch/csrc/*.cu` compiled by nvcc for sm_90a;
+   every `handsonvlm_torch/csrc/*.cu` (and their shared `mma.cuh`)
+   compiled by nvcc for sm_90a;
 2. each hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with kernel, plain and library times from CUDA events
    after warm-up, and the least time the card could take (`bound_ms`); B9
    (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2379,
    its window rows bit-equal to single rows and its GEMV / tensor-core
    crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
-   on the same weights, B4a (one flat matrix) at m = 1 and 391; B10a /
+   on the same weights, B5b and B5a also timed at m = 2048 beside torch.mm,
+   B2 and the int4 products with their share of the bound and their ratio
+   to the library call; B4a (one flat matrix) at m = 1 and 391; B10a /
    B10b (the fused QLoRA matmuls) through their autograd fronts at the
    seven 7B projections, m = 16 and 2048, r = 0, 5 and 128, bf16 and fp32
    inputs; B11 (the fused decode MLP) at a 7B int4 layer's MLP half, B = 1
@@ -486,7 +489,8 @@ def check_vit_attention() -> dict:
     b, t, h, d = shape
     bound_ms, bound_by = bound(4 * b * t * h * d * 2, 4 * b * h * t * t * d)
     log(f"  B2 time ((10,257,16,64) bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"library (sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{_shares(ms, bound_ms, library_ms)}")
     return {
         "name": "vit_attention", "route": "cuda",
         "source": "handsonvlm_torch/csrc/vit_attention.cu",
@@ -696,16 +700,51 @@ def _int4_stack(din, dout, layers, gen):
                              torch.stack([p[1] for p in packed]))
 
 
-def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows=0) -> dict:
+def _shares(ms: float, bound_ms: float, library_ms) -> str:
+    """A kernel's time as a share of its bound and as a multiple of the
+    library call's."""
+    lib = "" if library_ms is None else f", {ms / library_ms:.2f}x the library's time"
+    return f"{bound_ms / ms:.1%} of the bound{lib}"
+
+
+def _also_timed(name, wrapper, x, w, s, dense, what, times) -> None:
+    """Time `wrapper` and torch.mm over the dequantized bf16 weights at one
+    more row count (x's), cycling the layers; add (kernel, library, bytes,
+    flops) into `times` and print the projection's line."""
+    Lt = len(dense)
+    m, din = x.shape[-2:]
+    dout = dense[0].shape[1]
+    t_k = cuda_time_ms(lambda i: wrapper(x, w, s, i % Lt), iters=20)
+    t_mm = cuda_time_ms(lambda i: torch.mm(x[0], dense[i % Lt]), iters=20)
+    nbytes = _mm_bytes(m, din, dout, w[0].numel() + s[0].numel() * 4)
+    log(f"  {name} time {what} ({din}->{dout}, m={m}, bf16, {Lt} layers cycled): "
+        f"kernel {t_k:.4f} ms, library {t_mm:.4f} ms, bound "
+        f"{bound(nbytes, 2 * m * din * dout)[0]:.4f} ms")
+    for i, v in enumerate((t_k, t_mm, nbytes, 2 * m * din * dout)):
+        times[i] += v
+
+
+def _log_also_timed(name, m, times) -> None:
+    ms, mm_ms, nbytes, flops = times
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"  {name}: the four projections of one layer at m={m}: kernel {ms:.4f} ms, library "
+        f"(torch.mm over the dequantized bf16 weight) {mm_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); {_shares(ms, bound_ms, mm_ms)}")
+
+
+def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows=0,
+                 also_rows=0) -> dict:
     """Check `wrapper` against `ref` at the four 7B projections for each m
     in rows_checked (bf16 and fp32), then time kernel, plain and the library
     call, torch.mm over the weight dequantized to bf16 (outside the timed
     loop), at m = rows_timed, cycling over TIMING_LAYERS layers;
-    `window_rows` also times the kernel at that m (a verify window)."""
+    `window_rows` also times the kernel at that m (a verify window),
+    `also_rows` the kernel and the library call at that m."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = int4_projection_shapes(get_config("7b").llama)
     errs = {torch.bfloat16: [], torch.float32: []}
     ms = plain_ms = mm_ms = bound_bytes = flops = window_ms = 0.0
+    also = [0.0] * 4
     for proj, (din, dout) in shapes.items():
         w4t, gst = _int4_stack(din, dout, TIMING_LAYERS, gen)
         for dtype in (torch.bfloat16, torch.float32):
@@ -730,11 +769,17 @@ def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows
         if window_rows:
             xw = _rand(gen, (1, window_rows, din), torch.bfloat16)
             window_ms += cuda_time_ms(lambda i: wrapper(xw, w4t, gst, i % Lt))
+        if also_rows:
+            _also_timed(name, wrapper, _rand(gen, (1, also_rows, din), torch.bfloat16), w4t,
+                        gst, w_dense, proj, also)
         del w4t, gst, w_dense
     bound_ms, bound_by = bound(bound_bytes, flops)
     log(f"  {name}: the four projections of one layer at m={rows_timed}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
-        f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{_shares(ms, bound_ms, mm_ms)}")
+    if also_rows:
+        _log_also_timed(name, also_rows, also)
     if window_rows:
         log(f"  {name}: the same four projections at the verify window (m={window_rows}): "
             f"kernel {window_ms:.4f} ms")
@@ -752,7 +797,7 @@ def check_int4_gemv() -> dict:
 
 def check_int4_prefill() -> dict:
     row = _int4_kernel("B5b", int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref,
-                       (128, PREFILL_ROWS, 500), PREFILL_ROWS, 5)
+                       (128, PREFILL_ROWS, 500), PREFILL_ROWS, 5, also_rows=TRAIN_ROWS)
     return {"name": "int4_matmul_prefill_tiled", "route": "cuda",
             "source": "handsonvlm_torch/csrc/int4_prefill.cu",
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:704", **row}
@@ -853,6 +898,7 @@ def check_int4_flat() -> list:
     Lt = TIMING_LAYERS
     errs = {k: {torch.bfloat16: [], torch.float32: []} for k in ("B4c", "B5a", "B4a")}
     times = {k: [0.0] * 5 for k in errs}  # kernel, plain, bytes, flops, library
+    b5a_train = [0.0] * 4  # B5a at TRAIN_ROWS: kernel, library, bytes, flops
     for proj, (din, dout) in int4_projection_shapes(get_config("7b").llama).items():
         w4t, gst = _int4_stack(din, dout, Lt, gen)
         w4, gs = untile_int4_stacked(w4t, gst)
@@ -861,7 +907,7 @@ def check_int4_flat() -> list:
                     ("B4c", int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref,
                      (1, SPEC_K + 1, 8, 127)),
                     ("B5a", int4_matmul_prefill, int4_matmul_prefill_tiled,
-                     int4_matmul_prefill_ref, (128, PREFILL_ROWS))):
+                     int4_matmul_prefill_ref, (128, PREFILL_ROWS, TRAIN_ROWS))):
                 for m in ms_:
                     x, i = _rand(gen, (1, m, din), dtype), m % Lt
                     got = flat(x, w4, gs, i)
@@ -883,6 +929,8 @@ def check_int4_flat() -> list:
             t[2] += _mm_bytes(m, din, dout, nbytes)
             t[3] += 2 * m * din * dout
             t[4] += cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
+        _also_timed("B5a", int4_matmul_prefill, _rand(gen, (1, TRAIN_ROWS, din), torch.bfloat16),
+                    w4, gs, w_dense, proj, b5a_train)
         del w4t, gst, w4, gs, w_dense
     b4a_prefill = 0.0
     for proj, (din, dout) in projection_shapes(get_config("7b").llama).items():
@@ -916,7 +964,10 @@ def check_int4_flat() -> list:
         bound_ms, bound_by = bound(nbytes, flops)
         log(f"  {name} time, {what} (bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{_shares(ms, bound_ms, library_ms)}")
+        if name == "B5a":
+            _log_also_timed(name, TRAIN_ROWS, b5a_train)
         out.append({"name": fn, "route": "cuda",
                     "source": "handsonvlm_torch/csrc/" + (
                         "int4_prefill.cu" if name == "B5a" else "int4_gemv.cu"),

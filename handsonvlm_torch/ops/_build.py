@@ -52,7 +52,7 @@ SIGNATURES = {
     "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hv_int4_gemv": ([_P] * 5 + [_I] * 9 + [_P], _I),
     "hv_int8_matmul": ([_P] * 5 + [_I] * 8 + [_P], _I),
-    "hv_int4_prefill": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "hv_int4_prefill": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "hv_int4_transpose": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "hv_qlora_fwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
@@ -80,7 +80,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their shared headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhandsonvlm_torch_{h.hexdigest()[:16]}.so"

@@ -377,23 +377,56 @@ def _launch_gemv(x, w, s, layer_idx, counter):
     return out.reshape(*x.shape[:-1], n)
 
 
+def _slot_use(blocks: int, n_sm: int) -> float:
+    """The share of the card's block slots (one block an SM) that `blocks`
+    blocks fill over the waves they take."""
+    return blocks / (-(-blocks // n_sm) * n_sm)
+
+
+def prefill_split(m: int, n: int, groups: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, groups per split) of the prefill matmul's contraction. The
+    kernel's 7B tiles (128 rows, 256 columns) take one block an SM;
+    splitting the groups (at least four a split, at most eight splits)
+    multiplies the blocks, and the split count that fills the waves best
+    wins, each split past the first charged 0.1 of the slots for writing
+    and summing its f32 partials (in split order). It reads (m, n, G) alone,
+    so the tiled and the flat layout of one weight split alike and give the
+    same bits."""
+    blocks = -(-m // 128) * -(-n // 256)
+    best, score = 1, _slot_use(blocks, n_sm)
+    for splits in range(2, min(8, groups // 4) + 1):
+        use = _slot_use(blocks * splits, n_sm) - 0.1 * (splits - 1)
+        if use > score:
+            best, score = splits, use
+    per = -(-groups // best)
+    return -(-groups // per), per
+
+
 def _launch_prefill(x, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library
 
     flat, nb, G, half, bn = _int4_geometry(x, w, s, layer_idx, "int4 prefill")
     if flat:  # the flat layout is the tiled one with a single tile of n columns
         nb, bn = 1, nb * bn
-    if bn % 64 or half % 8 or 2 * half > 128:
+    if bn % 64 or half % 32:
         raise ValueError(f"int4 prefill needs a tile width that is a multiple of 64 "
-                         f"and a group of 16..128 in steps of 16, got {bn}, {2 * half}")
+                         f"and a group that is a multiple of 64, got {bn}, {2 * half}")
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x2 = x2.clone()
     m, n = x2.shape[0], nb * bn
+    splits, per = prefill_split(m, n, G, _num_sms(x.device.index))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    xb = (torch.empty(x2.shape, dtype=torch.bfloat16, device=x.device)
+          if x.dtype != torch.bfloat16 else None)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     lib = load_library()
     with torch.cuda.device(x.device):
         status = lib.hv_int4_prefill(
-            x2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
-            out.data_ptr(), int(x.dtype == torch.bfloat16), m, nb, G, half, bn,
+            x2.data_ptr(), None if xb is None else xb.data_ptr(), w[layer_idx].data_ptr(),
+            s[layer_idx].data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), int(x.dtype == torch.bfloat16), m, nb, G, half, bn, splits, per,
             torch.cuda.current_stream().cuda_stream)
     check(status, counter.__name__)
     counter.LAUNCHES += 1

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 HEAD_DIM = 64
+BF16_MAX_TOKENS = 832  # the bf16 kernel keeps all of a (frame, head)'s keys in shared memory
 
 
 def vit_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -53,6 +54,8 @@ def _launch(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     b, t, h, d = q.shape
+    if q.dtype == torch.bfloat16 and t > BF16_MAX_TOKENS:
+        raise ValueError(f"vit attention in bf16 takes up to {BF16_MAX_TOKENS} tokens, got {t}")
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):

@@ -64,6 +64,7 @@ from handsonvlm_torch.ops.int8_matmul import (
     int8_matmul,
     int8_matmul_ref,
     maybe_int8_matmul,
+    prefill_split,
     quantize_int4,
     quantize_stacked_int8,
     tile_int4_stacked,
@@ -228,6 +229,35 @@ def test_vit_attention_kernel(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [2, 16])
+@pytest.mark.parametrize("t", [1, 17, 50, 64, 65, 257])
+def test_vit_attention_kernel_tile_edges(cuda, t, heads, dtype):
+    """B2 where its tiles are ragged: one key, a tail of keys past a 16- or
+    64-key chunk, query slices past T, and the main path's 10 frames."""
+    shape = (10 if t == 257 else 3, t, heads, 64)
+    gen = torch.Generator(device=cuda).manual_seed(t + heads)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    before = vit_attention.LAUNCHES
+    got = vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES == before + 1
+    assert got.shape == shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), vit_attention_ref(q, k, v).float(),
+                               **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_vit_attention_kernel_refuses_bf16_past_resident_keys(cuda):
+    """The bf16 kernel holds every key of a (frame, head) in shared memory:
+    past 832 tokens the wrapper refuses; f32 streams its keys at any T."""
+    q = torch.zeros((1, 833, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="832"):
+        vit_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert vit_attention(q, q, q).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", list(DECODE_CASES), ids=list(DECODE_CASES))
 def test_decode_attention_q_kernel(cuda, case, dtype):
     L, B, S, H, K, D, T, layer, length, mask_kind = DECODE_CASES[case]
@@ -262,7 +292,7 @@ def test_int4_gemv_kernel(cuda, shape, m, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [128, 200, 391])
+@pytest.mark.parametrize("m", [128, 129, 200, 391, 2048])
 @pytest.mark.parametrize("shape", list(INT4_SHAPES))
 def test_int4_prefill_kernel(cuda, shape, m, dtype):
     w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=m)
@@ -819,6 +849,40 @@ def test_int4_flat_kernels_are_bit_equal_to_tiled(cuda, shape, dtype):
         assert flat.LAUNCHES == before + 1
         assert torch.equal(got, tiled(x, w4t, gst, 1))
         assert_int4_close(got, ref(x, w4, gs, 1), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [128, 129, 200, 391, 2048])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_int4_prefill_flat_is_bit_equal_to_tiled(cuda, shape, m, dtype):
+    """B5a gives B5b's bits on the same weight at every split count and
+    tile width (64, 128 or 256 columns)."""
+    w4t, gst = int4_weights(*INT4_SHAPES[shape], 2, cuda, seed=m + 3)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    gen = torch.Generator(device=cuda).manual_seed(m + 4)
+    x = torch.randn((m, INT4_SHAPES[shape][0]), generator=gen, device=cuda).to(dtype)
+    before = int4_matmul_prefill.LAUNCHES
+    got = int4_matmul_prefill(x, w4, gs, 0)
+    torch.cuda.synchronize()
+    assert int4_matmul_prefill.LAUNCHES == before + 1
+    assert torch.equal(got, int4_matmul_prefill_tiled(x, w4t, gst, 0))
+    assert_int4_close(got, int4_matmul_prefill_ref(x, w4, gs, 0), dtype)
+
+
+@pytest.mark.parametrize("n", [64, 192, 4096, 12288, 22016])
+@pytest.mark.parametrize("groups", [1, 32, 86])
+@pytest.mark.parametrize("m", [128, 129, 200, 391, 2048, 2379])
+def test_prefill_split_covers_the_groups(m, groups, n):
+    """The prefill matmul's split-K plan (CPU): every group in exactly one
+    split, at most eight splits of at least four groups, and a split only
+    where it fills the card's block slots better than one pass."""
+    splits, per = prefill_split(m, n, groups, 132)
+    assert 1 <= splits <= 8 and (splits - 1) * per < groups <= splits * per
+    assert splits == 1 or per >= 4
+    blocks = -(-m // 128) * -(-n // 256)
+    use = [b / (-(-b // 132) * 132) for b in (blocks, blocks * splits)]
+    assert splits == 1 or use[1] > use[0] + 0.1 * (splits - 1)
 
 
 @pytest.mark.cuda
