@@ -394,10 +394,31 @@ def _check_int4(name, got, want, dtype, rows, tol=INT4_TOL):
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
 
 
-def _sdpa(q, k, v):
-    """scaled_dot_product_attention on (B, T, H, D) layouts (views)."""
+def _sdpa(q, k, v, mask=None):
+    """scaled_dot_product_attention on (B, T, H, D) layouts (views); `mask`
+    a bool (B or 1, 1, T, S) of the pairs attended."""
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2))
+                                          v.transpose(1, 2), attn_mask=mask)
+
+
+def _window_mask(tw, n):
+    """(1, 1, tw, n) bool: window row tq attends keys < n - (tw - 1) + tq."""
+    keys = torch.arange(n, device="cuda")
+    return (keys[None, :] < (n - (tw - 1) + torch.arange(tw, device="cuda"))[:, None])[None, None]
+
+
+def _log_window(name, attend, q, planes, dense, lt, n, bl, nbytes):
+    """Time a decode kernel at the verify window (q's T rows over the first
+    n keys, `lt` layers cycled) beside sdpa over the same keys with the
+    window's causal mask (`dense(i)`: layer i's bf16 k, v), with its bound."""
+    tw, h, d = q.shape[1], q.shape[2], q.shape[3]
+    w_ms = cuda_time_ms(lambda i: attend(q, *planes, i % lt, n, blocks=bl))
+    mask = _window_mask(tw, n)
+    lib_ms = cuda_time_ms(lambda i: _sdpa(q, *dense(i % lt), mask))
+    bound_ms, bound_by = bound(nbytes + 2 * tw * h * d * 2, 4 * n * tw * h * d)
+    log(f"  {name} time at the verify window (T={tw}, same cache): kernel {w_ms:.4f} ms, "
+        f"library (sdpa, the window's causal mask) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); {_shares(w_ms, bound_ms, lib_ms)}")
 
 
 def check_decode_attention() -> dict:
@@ -439,7 +460,7 @@ def check_decode_attention() -> dict:
     # a fragmented 7B serving cache (4 layers, 1.07 GB)
     frag = [_rand(gen, (4, SERVE_SLOTS, SERVE_LEN, K, D), torch.bfloat16) for _ in range(2)]
     _fragmented_decode("B1", decode_attention_stacked, decode_attention_stacked_ref, frag, 4,
-                       errs, 2 * D * 2)
+                       errs, 2 * D * 2, lambda i: (frag[0][i], frag[1][i]))
     del frag
 
     # time at the 7B decode shape: one query, length 450, the layers cycled
@@ -457,10 +478,10 @@ def check_decode_attention() -> dict:
     bound_ms, bound_by = bound(2 * n * K * D * 2 + 2 * H * D * 2, 4 * n * H * D)
     log(f"  B1 time (B=1 H=K=32 D=128 S=520 len={n} bf16, {Lt} layers cycled): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"bound {bound_ms:.4f} ms ({bound_by}); {_shares(ms, bound_ms, library_ms)}")
     qw = _rand(gen, (B, SPEC_K + 1, H, D), torch.bfloat16)
-    w_ms = cuda_time_ms(lambda i: decode_attention_stacked(qw, ck, cv, i % Lt, n, blocks=bl))
-    log(f"  B1 time at the verify window (T={SPEC_K + 1}, same cache): kernel {w_ms:.4f} ms")
+    _log_window("B1", decode_attention_stacked, qw, (ck, cv),
+                lambda i: (ck[i, :, :n], cv[i, :, :n]), Lt, n, bl, 2 * n * K * D * 2)
     return {
         "name": "decode_attention_stacked", "route": "cuda",
         "source": "handsonvlm_torch/csrc/decode_attention.cu",
@@ -539,7 +560,7 @@ def check_decode_attention_q() -> dict:
 
     frag = cache(SERVE_SLOTS, K, 4, SERVE_LEN)
     _fragmented_decode("B6", decode_attention_stacked_q, decode_attention_stacked_q_ref, frag,
-                       4, errs, 2 * (D + 4))
+                       4, errs, 2 * (D + 4), lambda i: _dequantized(frag, i))
     del frag
 
     Lt, n = 16, DECODE_LEN
@@ -555,14 +576,15 @@ def check_decode_attention_q() -> dict:
     deq = [(kd, (ct[1][i, :, :n].float() * ct[3][i, :, :, :n].transpose(1, 2)[..., None]).to(
         torch.bfloat16)) for i, kd in enumerate(deq)]
     library_ms = cuda_time_ms(lambda i: _sdpa(q1, *deq[i % Lt]))
-    del deq
     bound_ms, bound_by = bound(2 * n * K * D + 2 * n * K * 4 + 2 * H * D * 2, 4 * n * H * D)
     log(f"  B6 time (B=1 H=K=32 D=128 S=520 len={n}, int8 cache, bf16 q, {Lt} layers "
         f"cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa over the "
-        f"dequantized bf16 cache) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"dequantized bf16 cache) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{_shares(ms, bound_ms, library_ms)}")
     qw = _rand(gen, (B, SPEC_K + 1, H, D), torch.bfloat16)
-    w_ms = cuda_time_ms(lambda i: decode_attention_stacked_q(qw, *ct, i % Lt, n, blocks=bl))
-    log(f"  B6 time at the verify window (T={SPEC_K + 1}, same cache): kernel {w_ms:.4f} ms")
+    _log_window("B6", decode_attention_stacked_q, qw, ct, lambda i: deq[i], Lt, n, bl,
+                2 * n * K * D + 2 * n * K * 4)
+    del deq
     return {
         "name": "decode_attention_stacked_q", "route": "cuda",
         "source": "handsonvlm_torch/csrc/decode_attention.cu",
@@ -586,11 +608,18 @@ def fragmented_mask(b, s, length, device="cuda"):
     return mask
 
 
-def _fragmented_decode(name, attend, ref, cache, lt, tol_errs, key_bytes):
+def _dequantized(cache, i):
+    """Layer i of an int8 (k8, v8, ks, vs) cache as bf16 (B, S, K, D) k, v."""
+    return tuple((c[i].float() * sc[i].transpose(1, 2)[..., None]).to(torch.bfloat16)
+                 for c, sc in ((cache[0], cache[2]), (cache[1], cache[3])))
+
+
+def _fragmented_decode(name, attend, ref, cache, lt, tol_errs, key_bytes, dense):
     """The decode kernel over a fragmented 7B serving cache (SERVE_SLOTS
     rows of SERVE_LEN positions): checked against its plain version in bf16
     and fp32 queries, then timed (bf16, `lt` layers cycled) against the
-    plain version and the bound of the bytes its valid keys need
+    plain version, sdpa over the whole rows with the key mask (`dense(i)`:
+    layer i's bf16 k, v) and the bound of the bytes its valid keys need
     (`key_bytes` per key and kv head: k, v and their scales)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     b, s, h, d = SERVE_SLOTS, SERVE_LEN, 32, 128
@@ -615,11 +644,16 @@ def _fragmented_decode(name, attend, ref, cache, lt, tol_errs, key_bytes):
     plain_ms = cuda_time_ms(lambda i: ref(q, *cache, i % lt, FRAG_LEN, key_mask=mask, blocks=bl),
                             iters=5, warmup=1)
     list_ms = cuda_time_ms(lambda i: block_list(mask, FRAG_LEN, b, s, "cuda"))
+    layers = [dense(i) for i in range(lt)]
+    keep = mask[:, None, None, :]
+    library_ms = cuda_time_ms(lambda i: _sdpa(q, *layers[i % lt], keep), iters=20)
+    del layers
     keys = int(mask[:, :FRAG_LEN].sum())
     bound_ms, bound_by = bound(keys * kh * key_bytes + 2 * b * h * d * 2, 4 * keys * h * d)
     log(f"  {name} time fragmented (slots={b} S={s} len={FRAG_LEN}, {keys} valid keys, bf16 q, "
-        f"{lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); the block list, built once per forward, "
+        f"{lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa, "
+        f"the key mask) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{_shares(ms, bound_ms, library_ms)}; the block list, built once per forward, "
         f"{list_ms:.4f} ms")
 
 
@@ -994,12 +1028,35 @@ def _prefill_case(gen, t, s, dtype, pad=0, layers=1):
     return q, ck, cv, mask
 
 
+def _flash_long_prompt_time(gen, lt) -> None:
+    """B3 at the long prompt's shape (LONG_ROWS rows at cache index 0 over
+    2560 positions, a 37-key left pad) beside sdpa with the same pairs as a
+    boolean mask; the bound counts the pairs and keys this mask leaves."""
+    t, s, pad, h, d = LONG_ROWS, 2560, 37, 32, 128
+    q, ck, cv, mask = _prefill_case(gen, t, s, torch.bfloat16, pad, layers=lt)
+    keys = torch.arange(s, device="cuda")
+    pairs_ok = (keys[None, :] <= torch.arange(t, device="cuda")[:, None]) & mask
+    ms = cuda_time_ms(lambda i: flash_attention(q, ck[i % lt], cv[i % lt], key_mask=mask),
+                      iters=20)
+    library_ms = cuda_time_ms(
+        lambda i: _sdpa(q, ck[i % lt], cv[i % lt], pairs_ok[None, None]), iters=20)
+    pairs, n_keys = int(pairs_ok.sum()), int(mask.sum())
+    bound_ms, bound_by = bound(2 * t * h * d * 2 + 2 * n_keys * h * d * 2 + 4 * h * t,
+                               4 * pairs * h * d)
+    log(f"  B3 time at the long prompt (T={t} over S={s}, pad {pad}, H=K=32 D=128 bf16, {lt} "
+        f"layers cycled): kernel {ms:.4f} ms, library (sdpa, the boolean mask) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{4 * pairs * h * d / ms / 1e9:.1f} TFLOP/s, {_shares(ms, bound_ms, library_ms)}")
+
+
 def check_flash_attention() -> dict:
     """B3 against its plain version at the long prompt's shapes (output and
     logsumexp; a left-pad row gives 0 / NEG_INF in both), then timed at
     T = S = 4096 causal against the plain version and sdpa, and the
     crossover the dispatch rests on: kernel, the plain route (attention_xla)
-    and sdpa at T = S = 512 .. 4096."""
+    and sdpa at T = S = 512 .. 4096; the share of the bound and the ratio
+    to sdpa at a training sample's 2048 rows, at 4096, and at the long
+    prompt's shape (LONG_ROWS over 2560 keys, a left pad)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     errs = {torch.bfloat16: [], torch.float32: []}
     for t, s, pad, dtype in ((LONG_ROWS, 2560, 37, torch.bfloat16),
@@ -1038,13 +1095,16 @@ def check_flash_attention() -> dict:
                                     iters=3, warmup=1)
         del q, ck, cv
         torch.cuda.empty_cache()
-    t, h, d = 4096, 32, 128
-    pairs = t * (t + 1) // 2  # (query, key) pairs under the causal mask
-    bound_ms, bound_by = bound(4 * t * h * d * 2 + 4 * h * t, 4 * pairs * h * d)
-    ms, library_ms = rows[t]
-    log(f"  B3 time (T=S={t} causal, H=K=32 D=128 bf16, {Lt} layers cycled): kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, library (sdpa, causal) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); {4 * pairs * h * d / ms / 1e9:.1f} TFLOP/s")
+    h, d = 32, 128
+    for t in (TRAIN_ROWS, 4096):  # a training sample's rows, then the reported shape
+        pairs = t * (t + 1) // 2  # (query, key) pairs under the causal mask
+        bound_ms, bound_by = bound(4 * t * h * d * 2 + 4 * h * t, 4 * pairs * h * d)
+        ms, library_ms = rows[t]
+        log(f"  B3 time (T=S={t} causal, H=K=32 D=128 bf16, {Lt} layers cycled): kernel "
+            f"{ms:.4f} ms{f', plain {plain_ms:.4f} ms' if t == 4096 else ''}, library (sdpa, "
+            f"causal) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{4 * pairs * h * d / ms / 1e9:.1f} TFLOP/s, {_shares(ms, bound_ms, library_ms)}")
+    _flash_long_prompt_time(gen, Lt)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "handsonvlm_torch/csrc/flash_attention.cu",
@@ -1090,7 +1150,7 @@ def check_decode_attention_single() -> dict:
         bound_ms, bound_by = bound(2 * n * K * D * 2 + 2 * H * D * 2, 4 * n * H * D)
         log(f"  B12 time (B=1 H=K=32 D=128 S={S} len={n} bf16, {Lt} layers cycled): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"bound {bound_ms:.4f} ms ({bound_by}); {_shares(ms, bound_ms, library_ms)}")
         row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms}
     # the row reported is the long prompt's decode shape (the last)
@@ -2729,6 +2789,8 @@ def main() -> int:
     n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
     log("phase 3: 7B bf16 chat on the card")
     run = phase_chat(model, cfg, tokenizer, video, frame_map)
+    # a decode-attention call is one launch: its splits merge in the same
+    # launch (a thread block cluster), so the wrapper's count is its calls
     check_launches(run, {"decode_attention_stacked": (n_layers, "decode_steps"),
                          "vit_attention": (n_clip, "clip_calls")})
     launches.update({k: run["launches"][k] for k in ("decode_attention_stacked",

@@ -25,31 +25,53 @@
 // the cache's capacity.
 //
 // Two kernels:
-// - bf16, D in {64, 128, 256}: the tensor cores through mma.sync
-//   (m16n8k16, f32 accumulators). A block of four warps takes 64 query
-//   rows (16 per warp) and walks key tiles of 64. Q, K and V tiles are
-//   staged in shared memory by 16-byte loads (row stride D + 8 elements, so
-//   the fragment loads hit distinct banks). S = Q K^T leaves each thread
-//   with its rows' scores in registers; the online softmax runs there
-//   (row max and sum over the four lanes of a quad), and the rounded
-//   probabilities are reused as the A fragments of P.V, whose B fragments
-//   come from the V tile through ldmatrix.trans. m, l and the (16, D)
-//   output accumulator of a warp stay in registers for the whole sweep.
+// - bf16, D in {64, 128, 256}: wgmma, warp-specialised. Bound: operations.
+//   A causal prefill of T = S = 4096 rows at 32 heads of 128 is 4 * T * S /
+//   2 * H * D = 137 GFLOP a layer, 0.139 ms at 989 TFLOP/s bf16, against
+//   0.1 GB of q, k, v and the output (0.04 ms at 3.35 TB/s); only wgmma
+//   reaches the tensor cores' full rate, and K and V must reach shared
+//   memory without the threads that multiply stalling on them. The design:
+//   - A block per (128 query rows, head, batch row), the heaviest query
+//     tiles first: two consumer warpgroups of 64 rows each (232 registers
+//     a thread after setmaxnreg) and one producer warpgroup (40).
+//   - The producer reads each key tile's mask bytes (one key a thread, a
+//     ballot a warp), skips a tile with no valid key, and hands the tile's
+//     valid-key words and first key to the consumers with K and V: TMA
+//     copies of [keys][64 features] boxes of the cache layer in place (a
+//     4-d tensor map over its strides, keys past S zero-filled), 128-byte
+//     swizzled, into a two-stage ring; a stage's full barrier counts the
+//     producer warps' arrivals and the TMA bytes, its empty barrier the
+//     consumer warps'. Key tiles of 128 (64 at D = 256, to fit the
+//     registers: O alone is 128 a thread there).
+//   - S = Q K^T by wgmma from shared memory (Q staged once by cp.async,
+//     both operands K-major); the softmax in registers (base 2: the scale
+//     times log2 e inside the exponent's FMA; masked scores -inf, so their
+//     p is exactly 0; the causal compare only where the tile reaches past
+//     the warpgroup's first row, the key mask only where a tile has a
+//     masked key); O += P V by wgmma with P rounded to bf16 as the
+//     register A operand and V as the MN-major B operand, one n64 wgmma per
+//     64 output columns. m, l and O stay in registers for the sweep.
+//   At T = S = 4096 it runs at about half of its bound, 1.2x sdpa's time
+//   (PERF.md). What holds it is not pinned down (no profiler of the SMs on
+//   the card's machine): each warpgroup waits on its own products (the two
+//   warpgroups overlap each other, not a warpgroup's softmax with its own
+//   products), yet a version that overlapped them (two P register
+//   sets, the next tile's Q K^T issued with the last tile's P V, three
+//   stages) was slower, and a three-stage ring or 64-key tiles alone
+//   gained nothing. Staging K and V by cp.async from the producer's 128
+//   threads instead of TMA was about half again as slow, and issuing the
+//   two warpgroups' products in strict turns on named barriers (ping-pong)
+//   slower still. Untried: three consumer warpgroups, a persistent schedule.
 // - any other case (f32, or another head size up to 256): f32 FMA on the
 //   CUDA cores (TF32 would change an f32 caller's numbers). A block of
 //   four warps takes 32 query rows (8 per warp) and key tiles of 32, one
 //   key per lane in the softmax, as the ViT kernel does.
-//
-// Bound: operations. A causal prefill of T = S = 4096 rows at 32 heads of
-// 128 is 4 * T * S / 2 * H * D = 137 GFLOP per layer, 0.139 ms at 989
-// TFLOP/s bf16, against 0.1 GB of q, k, v and the output, 0.04 ms at 3.35
-// TB/s. mma.sync reaches about half of the wgmma rate at best, and this
-// first version neither overlaps its loads with its products (cp.async or
-// TMA into a ring of tiles) nor uses wgmma: both are the later work
-// toward the bound.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "mma.cuh"
@@ -116,179 +138,289 @@ __device__ __forceinline__ int key_tiles(const Args& a, int q0, int rows, int ti
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaQ = 64;   // query rows per block, 16 per warp
-constexpr int kMmaK = 64;   // keys per tile
-
+using hv::ex2;
+using hv::kLog2e;
 using hv::ldmatrix_x4_trans;
 using hv::mma_bf16;
 using hv::pack_bf16;
 
-// rows [r0, r0 + 64) x D of a (.., token, head, D) tensor -> smem[64][D + 8],
-// rows at or past `limit` as zeros
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The block of the wgmma forward for head size D: kWG consumer warpgroups
+// of 64 query rows each and one producer warpgroup; key tiles of kBK keys
+// in a ring of kStages stages.
 template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int64_t token_stride, int r0, int limit) {
-  constexpr int kLd = D + 8;
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = i % kVecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * token_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
-  }
+struct Fwd {
+  static constexpr int kWG = 2;
+  static constexpr int kBM = 64 * kWG;            // query rows a block
+  static constexpr int kBK = D == 256 ? 64 : 128;  // keys a tile
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kWords = kBK / 32;          // mask words a tile
+  static constexpr int kQBytes = 64 * D * 2;       // one warpgroup's rows
+  static constexpr int kKVBytes = kBK * D * 2;     // one K or V tile
+  static constexpr int kStageOff = kWG * kQBytes;
+  static constexpr int kBarOff = kStageOff + kStages * 2 * kKVBytes;
+  // full[s], empty[s] (8 bytes each), k0[s], bits[s][4], the producer's
+  // double-buffered tile words [2][4]
+  static constexpr int kSmem = kBarOff + 16 * kStages + 4 * kStages + 16 * kStages + 32 +
+                               1024;  // + slack to align the base to 1024
+  static constexpr int kProducerBar = 1 + kWG;     // named barrier ids: 1..kWG consumers
+};
+
+// 16-byte chunk `ch` of row r in a [D / 64][rows][64] tile with the
+// 128-byte swizzle (TMA's): bytes from the tile's base
+__device__ __forceinline__ int swz_off(int rows, int r, int ch) {
+  return (ch >> 3) * rows * 128 + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Args a) {
-  constexpr int kLd = D + 8;       // bf16 elements per staged row
-  constexpr int kDT = D / 8;       // n-tiles of the output
-  constexpr int kKT = kMmaK / 8;   // n-tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + kMmaQ * kLd;
-  __nv_bfloat16* sv = sk + kMmaK * kLd;
-  uint8_t* sok = reinterpret_cast<uint8_t*>(sv + kMmaK * kLd);
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
+    flash_fwd_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v) {
+  using F = Fwd<D>;
+  constexpr int BK = F::kBK;
+  constexpr int NT = BK / 8;   // n8 tiles of the scores
+  constexpr int NC = D / 64;   // 64-wide column blocks of the output
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hv::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::kBarOff);
+  uint64_t* empty = full + F::kStages;
+  int* s_k0 = reinterpret_cast<int*>(empty + F::kStages);
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(s_k0 + F::kStages);  // [stage][4]
+  uint32_t* s_pwords = s_bits + 4 * F::kStages;                        // [2][4]
 
   // the last query tiles have the most keys under causal masking: first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F::kBM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (a.H / a.K);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;   // the fragment's row (and row + 8)
-  const int tq = lane & 3;   // the fragment's column pair
+  const int wg = threadIdx.x >> 7;
+  const int n_tiles = key_tiles(a, q0, F::kBM, BK);
 
-  const __nv_bfloat16* qb =
-      static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
-  const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(a.k) + (int64_t)b * a.k_sb + (int64_t)kh * D;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + (int64_t)b * a.v_sb + (int64_t)kh * D;
-  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
-
-  stage_tile<D>(sq, qb, a.q_st, q0, a.T);
-
-  float o[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m_lo = kNegInf, m_hi = kNegInf;  // rows g and g + 8 of the warp's 16
-  float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the row sums
-
-  const int row_lo = q0 + warp * 16 + g;
-  const int qpos_lo = row_lo + a.q_offset;
-  const int qpos_hi = qpos_lo + 8;
-  const int n_tiles = key_tiles(a, q0, kMmaQ, kMmaK);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kMmaK;
-    bool key_ok = false;
-    if (tid < kMmaK) {
-      const int p = k0 + tid;
-      key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::kStages; ++s) {
+      // one from each producer warp (after its mask word); the TMA bytes
+      hv::mbar_init(&full[s], 4);
+      hv::mbar_init(&empty[s], 4 * F::kWG);  // one from each consumer warp
     }
-    // also the barrier that ends the previous tile's reads of sk, sv, sok
-    if (!__syncthreads_or(key_ok)) continue;
-    if (tid < kMmaK) sok[tid] = key_ok;
-    stage_tile<D>(sk, kb, a.k_st, k0, a.S);
-    stage_tile<D>(sv, vb, a.v_st, k0, a.S);
-    __syncthreads();
+    hv::mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[kKT][4];
+  if (wg == F::kWG) {
+    // ---- producer: K and V tiles by TMA, the mask read with them ----
+    hv::reg_dealloc<40>();
+    const int ptid = threadIdx.x - 128 * F::kWG;
+    const int pwarp = ptid >> 5, lane = ptid & 31;
+    const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * BK;
+      // one key a thread: valid below S and under the mask
+      const int p = k0 + ptid;
+      const bool ok = ptid < BK && p < a.S && (mrow == nullptr || mrow[p]);
+      const uint32_t word = __ballot_sync(0xffffffffu, ok);
+      uint32_t* pw = s_pwords + 4 * (kt & 1);
+      if (lane == 0) pw[pwarp] = word;
+      hv::named_bar_sync(F::kProducerBar, 128);
+      uint32_t any = 0;
 #pragma unroll
-    for (int i = 0; i < kKT; ++i)
+      for (int w = 0; w < F::kWords; ++w) any |= pw[w];
+      if (any == 0) continue;  // a tile with no valid key is never staged
+      hv::mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0 && pwarp < F::kWords) s_bits[4 * stage + pwarp] = word;
+      if (ptid == 0) s_k0[stage] = k0;
+      if (ptid == 0) {
+        // [BK keys][64 features] boxes with the 128-byte swizzle, one per 64
+        // features of K and of V; keys past S arrive as zeros. This thread's
+        // arrival (warp 0's) also expects their bytes.
+        unsigned char* sk = smem + F::kStageOff + stage * 2 * F::kKVBytes;
+        hv::mbar_arrive_expect_tx(&full[stage], 2 * F::kKVBytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t fa[4];
-      const __nv_bfloat16* qa = sq + (warp * 16 + g) * kLd + kc * 16 + 2 * tq;
-      fa[0] = *reinterpret_cast<const uint32_t*>(qa);
-      fa[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * kLd);
-      fa[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      fa[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * kLd + 8);
-#pragma unroll
-      for (int nt = 0; nt < kKT; ++nt) {
-        const __nv_bfloat16* kp = sk + (nt * 8 + g) * kLd + kc * 16 + 2 * tq;
-        mma_bf16(s[nt], fa, *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        for (int cb = 0; cb < D / 64; ++cb) {
+          hv::tma_load_4d(sk + cb * BK * 128, &tmap_k, 64 * cb, kh, k0, b, &full[stage]);
+          hv::tma_load_4d(sk + F::kKVBytes + cb * BK * 128, &tmap_v, 64 * cb, kh, k0, b,
+                          &full[stage]);
+        }
+      } else if (lane == 0) {
+        hv::mbar_arrive(&full[stage]);  // after its mask word
+      }
+      if (++stage == F::kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
+    // the end: a stage whose k0 is -1
+    hv::mbar_wait(&empty[stage], phase ^ 1);
+    if (ptid == 0) s_k0[stage] = -1;
+    if (lane == 0) hv::mbar_arrive(&full[stage]);
+    return;
+  }
 
-    // masks, then the online softmax on the registers
-    bool ok[kKT][4];
-    float mx_lo = kNegInf, mx_hi = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < kKT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = nt * 8 + 2 * tq + e;
-        const bool kv = sok[j];
-        const int kpos = k0 + j;
-        ok[nt][e] = kv && (!a.causal || kpos <= qpos_lo);
-        ok[nt][e + 2] = kv && (!a.causal || kpos <= qpos_hi);
-        s[nt][e] = ok[nt][e] ? s[nt][e] * a.scale : kNegInf;
-        s[nt][e + 2] = ok[nt][e + 2] ? s[nt][e + 2] * a.scale : kNegInf;
-        mx_lo = fmaxf(mx_lo, s[nt][e]);
-        mx_hi = fmaxf(mx_hi, s[nt][e + 2]);
-      }
+  // ---- consumers: warpgroup wg owns query rows [q0w, q0w + 64) ----
+  hv::reg_alloc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0w = q0 + 64 * wg;
+  unsigned char* sq = smem + wg * F::kQBytes;
+  {
+    const __nv_bfloat16* qb =
+        static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
+    for (int i = tid; i < 64 * (D / 8); i += 128) {
+      const int r = i / (D / 8), ch = i % (D / 8);
+      const bool in = q0w + r < a.T;
+      hv::cp_async16(sq + swz_off(64, r, ch),
+                     qb + (in ? (int64_t)(q0w + r) * a.q_st + ch * 8 : 0), in);
     }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = expf(m_lo - mn_lo), corr_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-    uint32_t pa[kKT][2];  // p rounded to bf16: [.][0] row g, [.][1] row g + 8
-#pragma unroll
-    for (int nt = 0; nt < kKT; ++nt) {
-      // masked probabilities are zeroed: a row whose keys are all masked so
-      // far has s == m == NEG_INF and would otherwise get exp(0) = 1
-      const float p0 = ok[nt][0] ? expf(s[nt][0] - mn_lo) : 0.f;
-      const float p1 = ok[nt][1] ? expf(s[nt][1] - mn_lo) : 0.f;
-      const float p2 = ok[nt][2] ? expf(s[nt][2] - mn_hi) : 0.f;
-      const float p3 = ok[nt][3] ? expf(s[nt][3] - mn_hi) : 0.f;
-      sum_lo += p0 + p1;
-      sum_hi += p2 + p3;
-      pa[nt][0] = pack_bf16(p0, p1);
-      pa[nt][1] = pack_bf16(p2, p3);
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int i = 0; i < kDT; ++i) {
-      o[i][0] *= corr_lo;
-      o[i][1] *= corr_lo;
-      o[i][2] *= corr_hi;
-      o[i][3] *= corr_hi;
-    }
+    hv::cp_async_commit();
+    hv::cp_async_wait<0>();
+    hv::fence_proxy_async();
+    hv::named_bar_sync(1 + wg, 128);
+  }
 
-    // O += P V: the score tiles 2kc and 2kc + 1 are the A fragment of keys
-    // [16 kc, 16 kc + 16)
+  float o[NC][32];
 #pragma unroll
-    for (int kc = 0; kc < kMmaK / 16; ++kc) {
-      const uint32_t fa[4] = {pa[2 * kc][0], pa[2 * kc][1], pa[2 * kc + 1][0],
-                              pa[2 * kc + 1][1]};
-      const __nv_bfloat16* vrow =
-          sv + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t fb[4];
-        ldmatrix_x4_trans(fb, vrow + dn * 16);
-        mma_bf16(o[2 * dn], fa, fb[0], fb[1]);
-        mma_bf16(o[2 * dn + 1], fa, fb[2], fb[3]);
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // rows g and g + 8 of the warp's 16
+  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sums
+  const int row_lo = q0w + 16 * warp + g;
+  const int pos_lo = row_lo + a.q_offset, pos_hi = pos_lo + 8;
+  const int first_pos = q0w + a.q_offset;  // the warpgroup's first row
+  const float scale2 = a.scale * kLog2e;
+  const uint64_t dq = hv::desc_sw128(sq);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    hv::mbar_wait(&full[stage], phase);
+    const int k0 = s_k0[stage];
+    if (k0 < 0) break;
+    // a tile wholly above the warpgroup's diagonal, or rows all past T
+    const bool active = q0w < a.T && (!a.causal || k0 <= first_pos + 63);
+    if (active) {
+      const unsigned char* sk = smem + F::kStageOff + stage * 2 * F::kKVBytes;
+      const unsigned char* sv = sk + F::kKVBytes;
+      const uint64_t dk = hv::desc_sw128(sk);
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      hv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // 16 features: column block kk / 4, 32 bytes (2 descriptor units) each
+        const uint64_t da = dq + (uint64_t)((kk >> 2) * 64 * 128 / 16 + 2 * (kk & 3));
+        const uint64_t db = dk + (uint64_t)((kk >> 2) * BK * 128 / 16 + 2 * (kk & 3));
+        if constexpr (BK == 128)
+          hv::wgmma_ss_n128(s, da, db, kk > 0);
+        else
+          hv::wgmma_ss_n64(s, da, db, kk > 0);
       }
+      hv::wgmma_commit();
+      hv::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) hv::fence_operand(s[i]);
+
+      // masks: the key mask where the tile has a masked key, the causal
+      // compare where the tile reaches past the warpgroup's first row
+      uint32_t bits[F::kWords];
+      uint32_t all = 0xffffffffu;
+#pragma unroll
+      for (int w = 0; w < F::kWords; ++w) {
+        bits[w] = s_bits[4 * stage + w];
+        all &= bits[w];
+      }
+      const bool need_causal = a.causal && k0 + BK - 1 > first_pos;
+      if (need_causal || all != 0xffffffffu) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * tq + e;
+            const bool kv = (bits[col >> 5] >> (col & 31)) & 1u;
+            const int kpos = k0 + col;
+            if (!(kv && (!a.causal || kpos <= pos_lo))) s[4 * j + e] = -INFINITY;
+            if (!(kv && (!a.causal || kpos <= pos_hi))) s[4 * j + 2 + e] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax in base 2, m kept scaled: p = 2^(s * scale2 - m)
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m_lo, mx_lo * scale2), mn_hi = fmaxf(m_hi, mx_hi * scale2);
+      // a row with no valid key so far keeps m = -inf: exponents against 0
+      const float mu_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+      const float mu_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+      const float corr_lo = ex2(m_lo - mu_lo), corr_hi = ex2(m_hi - mu_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float sum_lo = 0.f, sum_hi = 0.f;
+      uint32_t pa[NT][2];  // p rounded to bf16: [.][0] row g, [.][1] row g + 8
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // a masked score is -inf: exactly 0
+        const float p0 = ex2(fmaf(s[4 * j], scale2, -mu_lo));
+        const float p1 = ex2(fmaf(s[4 * j + 1], scale2, -mu_lo));
+        const float p2 = ex2(fmaf(s[4 * j + 2], scale2, -mu_hi));
+        const float p3 = ex2(fmaf(s[4 * j + 3], scale2, -mu_hi));
+        sum_lo += p0 + p1;
+        sum_hi += p2 + p3;
+        pa[j][0] = pack_bf16(p0, p1);
+        pa[j][1] = pack_bf16(p2, p3);
+      }
+      l_lo = l_lo * corr_lo + sum_lo;
+      l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j] *= corr_lo;
+          o[c][4 * j + 1] *= corr_lo;
+          o[c][4 * j + 2] *= corr_hi;
+          o[c][4 * j + 3] *= corr_hi;
+        }
+      }
+
+      // O += P V: score tiles 2kk and 2kk + 1 are the A fragment of keys
+      // [16 kk, 16 kk + 16); V is the MN-major B operand, 16 keys a step
+      // (2048 bytes), one wgmma per 64-wide column block
+      hv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t fa[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+                                pa[2 * kk + 1][1]};
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hv::wgmma_rs_n64_tb(o[c], fa, hv::desc_sw128_mn(sv + c * BK * 128 + kk * 2048), 1);
+      }
+      hv::wgmma_commit();
+      hv::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hv::fence_operand(o[c][i]);
+    }
+    __syncwarp();
+    if (lane == 0) hv::mbar_arrive(&empty[stage]);
+    if (++stage == F::kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 
@@ -296,42 +428,81 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Args a) {
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float ls_lo = l_lo == 0.f ? 1.f : l_lo, ls_hi = l_hi == 0.f ? 1.f : l_hi;
+  const float inv_lo = l_lo == 0.f ? 0.f : 1.f / l_lo;
+  const float inv_hi = l_hi == 0.f ? 0.f : 1.f / l_hi;
 
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + (int64_t)b * a.T * a.H * D +
                       (int64_t)h * D;
   const int64_t out_st = (int64_t)a.H * D;
   const int row_hi = row_lo + 8;
 #pragma unroll
-  for (int i = 0; i < kDT; ++i) {
-    const int c = i * 8 + 2 * tq;
-    if (row_lo < a.T)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_lo * out_st + c) =
-          __floats2bfloat162_rn(o[i][0] / ls_lo, o[i][1] / ls_lo);
-    if (row_hi < a.T)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * out_st + c) =
-          __floats2bfloat162_rn(o[i][2] / ls_hi, o[i][3] / ls_hi);
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * tq;
+      if (row_lo < a.T)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_lo * out_st + col) =
+            __floats2bfloat162_rn(o[c][4 * j] * inv_lo, o[c][4 * j + 1] * inv_lo);
+      if (row_hi < a.T)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row_hi * out_st + col) =
+            __floats2bfloat162_rn(o[c][4 * j + 2] * inv_hi, o[c][4 * j + 3] * inv_hi);
+    }
   }
   if (tq == 0) {
+    // logsumexp in natural units: m is scaled by log2 e
     float* lrow = a.lse + ((int64_t)b * a.H + h) * a.T;
-    if (row_lo < a.T) lrow[row_lo] = l_lo == 0.f ? kNegInf : m_lo + logf(l_lo);
-    if (row_hi < a.T) lrow[row_hi] = l_hi == 0.f ? kNegInf : m_hi + logf(l_hi);
+    if (row_lo < a.T) lrow[row_lo] = l_lo == 0.f ? kNegInf : m_lo * kLn2 + logf(l_lo);
+    if (row_hi < a.T) lrow[row_hi] = l_hi == 0.f ? kNegInf : m_hi * kLn2 + logf(l_hi);
   }
 }
 
-template <int D>
-size_t mma_smem_bytes() {
-  return (size_t)(kMmaQ + 2 * kMmaK) * (D + 8) * sizeof(__nv_bfloat16) + kMmaK;
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library needs no link against libcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a (B, S, K, D) bf16 tensor read in place (token and batch strides in
+// elements) as [rows][64 features] boxes of one head, 128-byte swizzled
+bool kv_tensor_map(CUtensorMap* map, const void* base, int B, int S, int K, int D,
+                   int64_t st, int64_t sb, int rows) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-cudaError_t launch_mma(const Args& a, int B, cudaStream_t stream) {
-  const size_t bytes = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kMmaQ - 1) / kMmaQ, a.H, B);
-  flash_fwd_mma_kernel<D><<<grid, kThreads, bytes, stream>>>(a);
+cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
+  using F = Fwd<D>;
+  CUtensorMap tmap_k, tmap_v;
+  if (!kv_tensor_map(&tmap_k, a.k, B, a.S, a.K, D, a.k_st, a.k_sb, F::kBK) ||
+      !kv_tensor_map(&tmap_v, a.v, B, a.S, a.K, D, a.v_st, a.v_sb, F::kBK))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((a.T + F::kBM - 1) / F::kBM, a.H, B);
+  flash_fwd_wgmma_kernel<D><<<grid, F::kThreads, F::kSmem, stream>>>(a, tmap_k, tmap_v);
   return cudaGetLastError();
 }
 
@@ -491,9 +662,9 @@ extern "C" int hv_flash_attention_fwd(
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
       (q_sb | q_st | k_sb | k_st | v_sb | v_st) % 8 == 0;
-  if (aligned && D == 64) return (int)launch_mma<64>(a, B, st);
-  if (aligned && D == 128) return (int)launch_mma<128>(a, B, st);
-  if (aligned && D == 256) return (int)launch_mma<256>(a, B, st);
+  if (aligned && D == 64) return (int)launch_wgmma<64>(a, B, st);
+  if (aligned && D == 128) return (int)launch_wgmma<128>(a, B, st);
+  if (aligned && D == 256) return (int)launch_wgmma<256>(a, B, st);
   return (int)launch_fma<__nv_bfloat16>(a, B, st);
 }
 

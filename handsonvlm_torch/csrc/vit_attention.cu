@@ -58,6 +58,8 @@
 namespace {
 
 using hv::cp_async16;
+using hv::ex2;
+using hv::kLog2e;
 using hv::cp_async_commit;
 using hv::cp_async_wait_dyn;
 using hv::ldmatrix_x4;
@@ -67,14 +69,6 @@ using hv::pack_bf16;
 
 constexpr int kD = 64;           // the only head size (the JAX kernel's rule too)
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the SFU alone (inputs here are <= 0; -1e30 gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores, all keys resident

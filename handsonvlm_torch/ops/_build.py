@@ -40,16 +40,15 @@ _F = ctypes.c_float
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
     "hv_decode_attention_stacked": (
-        [_P] * 9 + [_I] * 11 + [_F, _P], _I),
+        [_P] * 7 + [_I] * 11 + [_F, _P], _I),
     "hv_decode_attention_stacked_q": (
-        [_P] * 11 + [_I] * 11 + [_F, _P], _I),
-    "hv_decode_attention": ([_P] * 7 + [_I] * 8 + [_F, _P], _I),
+        [_P] * 9 + [_I] * 11 + [_F, _P], _I),
+    "hv_decode_attention": ([_P] * 5 + [_I] * 8 + [_F, _P], _I),
     "hv_flash_attention_fwd": (
         [_P] * 6 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
     "hv_flash_attention_bwd": (
         [_P] * 11 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _P], _I),
     "hv_gather_cache_blocks": ([_P, _P] + [_I] * 4 + [ctypes.c_int64] * 3 + [_I, _I, _P], _I),
-    "hv_decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hv_int4_gemv": ([_P] * 5 + [_I] * 9 + [_P], _I),
     "hv_int8_matmul": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "hv_int4_prefill": ([_P] * 6 + [_I] * 8 + [_P], _I),

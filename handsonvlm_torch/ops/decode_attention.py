@@ -29,7 +29,9 @@ The wrappers launch the hand-written Hopper kernel
 (`csrc/decode_attention.cu`, one templated body for the three entry
 points) for CUDA tensors and run their plain versions (`*_ref`) for CPU
 tensors. There is no fallback: on a CUDA tensor a wrapper launches the
-kernel or raises. Each wrapper's `LAUNCHES` counts its kernel launches.
+kernel or raises. Each wrapper's `LAUNCHES` counts its calls that
+launched the kernel: one launch a call, since the kernel merges a row's
+splits itself (they run as one thread block cluster).
 The kernels have no backward (the JAX package never differentiates decode
 attention): a CUDA input that requires grad under grad mode raises.
 """
@@ -48,7 +50,8 @@ from handsonvlm_torch.ops._build import refuse_grad
 NEG_INF = -1e30
 MAX_T_WINDOW = 8
 DEFAULT_BLOCK_K = 256
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+HEAD_SIZES = (16, 32, 64, 128, 256)  # the kernel's: a key's lanes form a shuffle subtree
+MAX_SPLITS = 8  # the splits of a row are one thread block cluster (the portable size)
 
 
 def pick_block_k(s: int) -> int:
@@ -121,6 +124,9 @@ def _attend_ref(q, k, v, blocks: BlockList, length, key_mask, ks=None, vs=None):
             valid = valid & key_mask[r].bool()[pos]
         pos = pos[valid]  # the row's valid keys alone, in position order
         valid = valid[valid]
+        if pos.numel() == 0:  # listed blocks whose valid keys lie past `length`
+            outs.append(torch.zeros((1, tw, h, d), dtype=q.dtype, device=dev))
+            continue
         kg, vg = k[r, pos].float(), v[r, pos].float()  # (N, K, D)
         # rows laid out (kv head, group, tq) as in the kernel
         qg = q[r].float().reshape(tw, kh, g, d)
@@ -188,6 +194,16 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def max_splits(n_sm: int, kh: int, b: int) -> int:
+    """Splits per (kv head, row) on a card of `n_sm` SMs: enough thread
+    blocks to cover every SM about twice (two or three blocks of four warps
+    fit an SM, each warp with a unit of its keys in flight, far more than
+    the ~25 KB an SM needs in flight at the card's memory rate), at most
+    MAX_SPLITS. The kernel cuts each row into at most this many splits,
+    sized from the row's own count, read on the device."""
+    return max(1, min(MAX_SPLITS, -(-2 * n_sm // (kh * b))))
+
+
 def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, blocks: BlockList,
             scales=None):
     """Launch B1, or B6 when `scales` (ks, vs) are given."""
@@ -213,8 +229,8 @@ def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, blocks: BlockList,
     if not 0 <= layer_idx < L or not 1 <= length <= s:
         raise ValueError(f"layer_idx {layer_idx} / length {length} out of "
                          f"range for L={L}, S={s}")
-    if d > 256:
-        raise ValueError(f"head size {d} > 256")
+    if d not in HEAD_SIZES:
+        raise ValueError(f"head size {d} not in {HEAD_SIZES}")
     bk = blocks.block_k
     nk = -(-s // bk)
     if (bk % 32 or blocks.table.dtype != torch.int32 or blocks.counts.dtype != torch.int32
@@ -233,21 +249,11 @@ def _launch(q, ck, cv, layer_idx: int, length: int, key_mask, blocks: BlockList,
                                  or tuple(key_mask.shape) != (b, s)):
         raise ValueError(f"key_mask must be bool (B, S)=({b}, {s})")
     lib = load_library()
-    if lib.hv_decode_attention_smem_bytes((h // kh) * tw, d) > _SMEM_LIMIT:
-        raise ValueError(f"{(h // kh) * tw} query rows per kv head at D={d} "
-                         "exceed one block's shared memory")
-
-    rows = (h // kh) * tw
-    # splits per (kv head, row): enough blocks to cover every SM about twice;
-    # the kernel sizes them from the largest count it reads on the device
-    max_splits = max(1, -(-2 * _num_sms(q.device.index) // (kh * b)))
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kh, max_splits, rows, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kh, max_splits, 2, rows), dtype=torch.float32, device=q.device)
     mask_ptr = key_mask.data_ptr() if key_mask is not None else None
     tail = (mask_ptr, blocks.table.data_ptr(), blocks.counts.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), int(q.dtype == torch.bfloat16), b, tw,
-            h, kh, d, s, length, nk, bk, max_splits, float(1.0 / (d ** 0.5)))
+            int(q.dtype == torch.bfloat16), b, tw, h, kh, d, s, length, nk, bk,
+            max_splits(_num_sms(q.device.index), kh, b), float(1.0 / (d ** 0.5)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if scales is None:
@@ -373,8 +379,8 @@ def _launch_single(q, k, v, length: int, key_mask):
                          f"v {tuple(v.shape)} do not fit")
     if not 1 <= length <= s:
         raise ValueError(f"length {length} out of range for S={s}")
-    if d > 256:
-        raise ValueError(f"head size {d} > 256")
+    if d not in HEAD_SIZES:
+        raise ValueError(f"head size {d} not in {HEAD_SIZES}")
     tensors = [q, k, v] + ([key_mask] if key_mask is not None else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, the cache and key_mask must be on one device")
@@ -384,21 +390,13 @@ def _launch_single(q, k, v, length: int, key_mask):
                                  or tuple(key_mask.shape) != (b, s)):
         raise ValueError(f"key_mask must be bool (B, S)=({b}, {s})")
     lib = load_library()
-    rows = h // kh
-    if lib.hv_decode_attention_smem_bytes(rows, d) > _SMEM_LIMIT:
-        raise ValueError(f"{rows} query heads per kv head at D={d} exceed one block's "
-                         "shared memory")
-    # splits per (kv head, row): enough blocks to cover every SM about twice
-    max_splits = max(1, -(-2 * _num_sms(q.device.index) // (kh * b)))
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kh, max_splits, rows, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, kh, max_splits, 2, rows), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         status = lib.hv_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), int(q.dtype == torch.bfloat16), b, h,
-            kh, d, s, length, max_splits, float(1.0 / (d ** 0.5)),
+            int(q.dtype == torch.bfloat16), b, h, kh, d, s, length,
+            max_splits(_num_sms(q.device.index), kh, b), float(1.0 / (d ** 0.5)),
             torch.cuda.current_stream().cuda_stream)
     check(status, "decode_attention")
     decode_attention.LAUNCHES += 1

@@ -30,12 +30,14 @@ import torch
 from handsonvlm_torch.models.llama import _quantize_kv_rows
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
 from handsonvlm_torch.ops.decode_attention import (
+    HEAD_SIZES,
     decode_attention,
     decode_attention_ref,
     decode_attention_stacked,
     decode_attention_stacked_q,
     decode_attention_stacked_q_ref,
     decode_attention_stacked_ref,
+    max_splits,
 )
 from handsonvlm_torch.ops.attention import attention_xla
 from handsonvlm_torch.ops.flash_attention import (
@@ -996,3 +998,163 @@ def test_fused_mlp_kernel(cuda, shape, b, dtype):
         err = float((got - want).abs().max())
         assert bool(torch.isfinite(got).all())
         assert err <= B11_FP32_TOL * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# Where the Hopper designs of B3 (wgmma: 128 query rows a block in two
+# warpgroups of 64, key tiles of 128, 64 at D = 256) and of the decode body
+# (units of 16 keys of a 128-wide bf16 cache, 32-key tiles, 128- or 256-key
+# listed blocks, splits, row groups of 8 query rows) cut their work.
+# ---------------------------------------------------------------------------
+
+
+def _flash_edge_cases():
+    cases = {}
+    for d in (64, 128, 256):
+        bk = 64 if d == 256 else 128
+        cases.update({
+            f"d{d}_t127_s{bk + 1}_gqa_right_pad": (1, 127, bk + 1, 8, 2, d, True, 2, "right_pad"),
+            f"d{d}_t129_s{2 * bk + 1}_off{bk - 37}_left_pad":
+                (2, 129, 2 * bk + 1, 4, 4, d, True, bk - 37, "left_pad"),
+            f"d{d}_t65_s{bk + 63}_noncausal_hole": (1, 65, bk + 63, 4, 4, d, False, 0, "hole"),
+            f"d{d}_t200_s265_off65_gqa_hole": (1, 200, 265, 8, 2, d, True, 65, "hole"),
+        })
+    return cases
+
+
+FLASH_EDGE_CASES = _flash_edge_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(FLASH_EDGE_CASES), ids=list(FLASH_EDGE_CASES))
+def test_flash_attention_kernel_tile_edges(cuda, case, dtype):
+    """B3 with T and S on either side of a query tile (128) and a key tile
+    (128, or 64 at D = 256), q_offset a multiple of neither, a left pad, a
+    right pad and an interior hole, GQA 4:1, D 64 / 128 / 256: output and
+    logsumexp against the plain version, at test_flash_attention_kernel's
+    tolerances; rows with no valid key give 0 / NEG_INF."""
+    B, T, S, H, K, D, causal, q_offset, mask_kind = FLASH_EDGE_CASES[case]
+    q, k, v, mask = flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed=len(case))
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = flash_attention.LAUNCHES
+    got, lse = flash_attention(q, k, v, key_mask=t_mask, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    want, want_lse = flash_attention_ref(q, k, v, key_mask=t_mask, causal=causal,
+                                         q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    dead = (want_lse <= -1e29).transpose(1, 2)  # (B, T, H)
+    assert not bool(got[dead].any()) and bool((lse[want_lse <= -1e29] <= -1e29).all())
+
+
+DECODE_EDGE_LENGTHS = [1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 1000]
+
+
+def _decode_edge_inputs(cuda, cache, b, s, h, kh, d, tw, seed):
+    """q (B, T, H, D) in the query dtype, the cache as the wrapper takes it
+    (bf16, f32, or int8 with its scales), and a mask with row 1 padded and
+    holed (row 0 unmasked)."""
+    q, ck, cv, _ = decode_inputs(2, b, s, h, kh, d, tw, None, seed=seed)
+    mask = np.ones((b, s), bool)
+    mask[1:, :5] = False
+    mask[1:, 20:26] = False
+    dtype = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.from_numpy(q).to(cuda, dtype)
+    if cache == "int8":
+        planes = [x.to(cuda) for x in quantize_cache(torch.from_numpy(ck), torch.from_numpy(cv))]
+    else:
+        planes = [torch.from_numpy(x).to(cuda, dtype) for x in (ck, cv)]
+    return q, planes, torch.from_numpy(mask).to(cuda), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("tw", [1, 5, 8])
+@pytest.mark.parametrize("length", DECODE_EDGE_LENGTHS)
+def test_decode_attention_kernel_tile_edges(cuda, length, tw, groups, cache):
+    """B1 (bf16, f32) and B6 (int8) with lengths on either side of a unit
+    (16 keys of a 128-wide bf16 key), a tile (32), a listed block (128 and
+    256) and across many splits (K = 2, B = 2: up to 66 splits of one
+    tile); windows of 1, 5 and 8 rows (8 rows of 4 groups: 32 query rows,
+    four row groups of a block each); G = 1 and 4. A window row whose keys
+    all lie past its causal limit gives 0, as in the plain version."""
+    B, S, K, D = 2, 1024, 2, 128
+    q, planes, mask, dtype = _decode_edge_inputs(cuda, cache, B, S, K * groups, K, D, tw,
+                                                 seed=length + tw)
+    attend, ref = ((decode_attention_stacked_q, decode_attention_stacked_q_ref)
+                   if cache == "int8" else (decode_attention_stacked, decode_attention_stacked_ref))
+    before = attend.LAUNCHES
+    got = attend(q, *planes, 1, length, key_mask=mask)
+    torch.cuda.synchronize()
+    assert attend.LAUNCHES == before + 1
+    want = ref(q, *planes, 1, length, key_mask=mask)
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("tw", range(1, 9))
+def test_decode_attention_kernel_windows(cuda, tw, groups, cache):
+    """B1 / B6 at every window size T = 1..8 (G x T query rows: one row
+    group of a block up to 8 rows, then two to four), 257 keys: one past a
+    listed block, across split boundaries."""
+    B, S, K, D, length = 2, 1024, 2, 128, 257
+    q, planes, mask, dtype = _decode_edge_inputs(cuda, cache, B, S, K * groups, K, D, tw,
+                                                 seed=tw + groups)
+    attend, ref = ((decode_attention_stacked_q, decode_attention_stacked_q_ref)
+                   if cache == "int8" else (decode_attention_stacked, decode_attention_stacked_ref))
+    got = attend(q, *planes, 0, length, key_mask=mask)
+    want = ref(q, *planes, 0, length, key_mask=mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("tw", [1, 4])
+@pytest.mark.parametrize("d", HEAD_SIZES)
+def test_decode_attention_kernel_head_sizes(cuda, d, tw, cache):
+    """B1 / B6 at every head size the body takes (a key is d / 8 lanes:
+    2 at d = 16, 32 at d = 256), GQA 2:1, a padded second row."""
+    B, S, K, length = 2, 600, 2, 555
+    q, planes, mask, dtype = _decode_edge_inputs(cuda, cache, B, S, 2 * K, K, d, tw, seed=d)
+    attend, ref = ((decode_attention_stacked_q, decode_attention_stacked_q_ref)
+                   if cache == "int8" else (decode_attention_stacked, decode_attention_stacked_ref))
+    got = attend(q, *planes, 0, length, key_mask=mask)
+    want = ref(q, *planes, 0, length, key_mask=mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("length", DECODE_EDGE_LENGTHS)
+def test_decode_attention_single_kernel_tile_edges(cuda, length, groups, dtype):
+    """B12 (no block table: every 32-key tile below `length`) at the same
+    lengths, G = 1 and 4, with a padded and holed second row."""
+    B, S, K, D = 2, 1024, 2, 128
+    q, (k, v), mask, _ = _decode_edge_inputs(cuda, "f32", B, S, K * groups, K, D, 1,
+                                             seed=length)
+    q, k, v = (x.to(dtype) for x in (q, k[1], v[1]))
+    before = decode_attention.LAUNCHES
+    got = decode_attention(q, k, v, length, key_mask=mask)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES == before + 1
+    want = decode_attention_ref(q, k, v, length, key_mask=mask)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.parametrize("kh,b", [(32, 1), (32, 8), (8, 1), (2, 2), (40, 16)])
+def test_decode_split_count_covers_the_card(kh, b):
+    """The decode body's split count: the fewest splits per (kv head, row)
+    whose blocks cover a 132-SM card twice, one where the (kv head, row)
+    pairs alone do, and never more than a cluster holds (8)."""
+    n = max_splits(132, kh, b)
+    assert 1 <= n <= 8
+    assert kh * b * n >= 2 * 132 or n == 8
+    assert n == 1 or kh * b * (n - 1) < 2 * 132
