@@ -5,14 +5,14 @@
 Phases (each prints its lines; the last line is the JSON status):
 
 1. the card (`nvidia-smi` name and power limit) and the kernels' build:
-   every `handsonvlm_torch/csrc/*.cu` (and their shared `mma.cuh`)
-   compiled by nvcc for sm_90a;
+   every `handsonvlm_torch/csrc/*.cu` (and their shared `mma.cuh` and
+   `weight_gemm.cuh`) compiled by nvcc for sm_90a;
 2. each hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with kernel, plain and library times from CUDA events
    after warm-up, and the least time the card could take (`bound_ms`); B9
-   (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2379,
-   its window rows bit-equal to single rows and its GEMV / tensor-core
-   crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
+   (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2048,
+   2379, its window rows bit-equal to single rows and its GEMV /
+   tensor-core crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
    on the same weights, B5b and B5a also timed at m = 2048 beside torch.mm,
    B2 and the int4 products with their share of the bound and their ratio
    to the library call; B4a (one flat matrix) at m = 1 and 391; B10a /
@@ -845,17 +845,22 @@ def _mm_bytes(m, din, dout, weight_bytes):
 def check_int8_matmul() -> dict:
     """B9 against its plain version at the seven 7B projections (f32 out
     for bf16 and f32 x, the JAX package's output; x's dtype out, the
-    decoder's call), the rows of a T = 5 window bit-equal to each row alone,
+    decoder's call, also checked to give the same bits twice), the rows of
+    a T = 5 window bit-equal to each row alone,
     then timed at each m against the plain version and torch.mm over the
     weight upcast to bf16 (outside the timed loop) with f32 output times the
     scale, TIMING_LAYERS layers cycled; and both of its paths, the GEMV and
     the tensor cores, forced at the m around the crossover that
     INT8_TC_MIN_M sets."""
+    if INT8_TC_MIN_M <= max(SPEC_K + 1, SERVE_SLOTS):
+        raise AssertionError(f"INT8_TC_MIN_M = {INT8_TC_MIN_M} would move a decode-time row "
+                             f"count (a verify window, a slot batch) off the GEMV")
     gen = torch.Generator(device="cuda").manual_seed(11)
     shapes = projection_shapes(get_config("7b").llama)
     errs = {torch.bfloat16: [], torch.float32: []}
-    Lt, rows = TIMING_LAYERS, (1, SPEC_K + 1, SERVE_SLOTS, PREFILL_ROWS, LONG_PROMPT_ROWS)
-    crossover = (8, 16, 24, 32, 48, 64, 96, 128)
+    Lt = TIMING_LAYERS
+    rows = (1, SPEC_K + 1, SERVE_SLOTS, PREFILL_ROWS, TRAIN_ROWS, LONG_PROMPT_ROWS)
+    crossover = (1, SPEC_K + 1, SERVE_SLOTS, INT8_TC_MIN_M, 16, 24, 32, 64, 128)
     times = {m: [0.0] * 5 for m in rows}  # kernel, plain, library, bytes, flops
     paths = {(m, tc): 0.0 for m in crossover for tc in (False, True)}
     for proj, (din, dout) in shapes.items():
@@ -867,10 +872,12 @@ def check_int8_matmul() -> dict:
                 _check_int4(f"B9 {proj} {din}->{dout} m={m} out f32",
                             int8_matmul(x, w8[i], sc[i]), int8_matmul_ref(x, w8[i], sc[i]),
                             torch.float32, errs[dtype])
-                if dtype == torch.bfloat16 and m in (1, PREFILL_ROWS):
-                    _check_int4(f"B9 {proj} {din}->{dout} m={m} out bf16",
-                                int8_matmul(x, w8[i], sc[i], dtype),
+                if dtype == torch.bfloat16 and m in (1, PREFILL_ROWS, TRAIN_ROWS):
+                    got = int8_matmul(x, w8[i], sc[i], dtype)
+                    _check_int4(f"B9 {proj} {din}->{dout} m={m} out bf16", got,
                                 int8_matmul_ref(x, w8[i], sc[i], dtype), dtype, errs[dtype])
+                    if not torch.equal(got, int8_matmul(x, w8[i], sc[i], dtype)):
+                        raise AssertionError(f"B9 {proj} m={m}: two calls differ")
             xw = _rand(gen, (SPEC_K + 1, din), dtype)
             window = int8_matmul(xw, w8[1], sc[1], dtype)
             same = all(torch.equal(int8_matmul(xw[r:r + 1], w8[1], sc[1], dtype)[0], window[r])
@@ -1273,7 +1280,8 @@ def check_flash_attention_bwd() -> dict:
 def check_int4_transpose() -> list:
     """B7b (tiled) and B7a (flat) against their plain versions at the four
     fused 7B projections, m = 16 and 2048 (bf16 and fp32 dy), the flat
-    kernel bit-equal to the tiled one on the same weight; then both timed
+    kernel bit-equal to the tiled one on the same weight and the tiled one
+    to itself called again; then both timed
     over a layer's four projections at m = 2048 and 16 against the plain
     version and torch.mm of dy with the dequantized bf16 weight
     (transposed; upcast outside the timed loop), TIMING_LAYERS layers
@@ -1299,6 +1307,8 @@ def check_int4_transpose() -> list:
                                 ref(dy, *weights[k], m % Lt), dtype, errs[dtype])
                 if not torch.equal(got["B7a"], got["B7b"]):
                     raise AssertionError(f"B7a {proj} m={m}: not bit-equal to B7b")
+                if not torch.equal(got["B7b"], int4_matmul_T_tiled(dy, w4t, gst, m % Lt)):
+                    raise AssertionError(f"B7b {proj} m={m}: two calls differ")
         w_dense = [dequantize_tiled(w4t, gst, i).to(torch.bfloat16) for i in range(Lt)]
         for m in T_ROWS:
             dy = _rand(gen, (1, m, dout), torch.bfloat16)

@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "weight_gemm.cuh"
 
 namespace {
 
@@ -86,20 +87,6 @@ using hv::cp_async_wait;
 constexpr int kStages = 4;
 constexpr int kAhead = kStages - 2;  // stages loaded ahead of the one multiplied
 constexpr int kKS = 32;              // packed rows a stage: four k16 steps
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-
-// two nibbles held as 128 + (value + 8) in the mantissas of a bf16 pair ->
-// bf16(value * scale): an exact value and one rounding of the exact product
-__device__ __forceinline__ uint32_t dequant2(uint32_t biased, __nv_bfloat162 scale) {
-  const __nv_bfloat162 v = __hsub2(as_bf162(biased), as_bf162(0x43084308u));  // - 136
-  return as_u32(__hmul2(v, scale));
-}
 
 // byte offset of column `col` in packed row r of a BNT-wide weight stage:
 // 16-byte chunks XOR-ed so that the four rows a warp reads at once (rows
@@ -133,20 +120,17 @@ __device__ __forceinline__ void dequant_step(uint32_t (&a)[4], const unsigned ch
   const uint32_t wb = *reinterpret_cast<const uint16_t*>(ws + wcol<BNT>(r0 + 1, col));
   const uint32_t p0 = __byte_perm(wa, wb, 0x4400);  // column col: rows r0, r0 + 1
   const uint32_t p1 = __byte_perm(wa, wb, 0x5511);  // column col + 1
-  a[0] = dequant2((p0 & 0x000F000Fu) | 0x43004300u, sc0);         // low nibbles
-  a[1] = dequant2((p1 & 0x000F000Fu) | 0x43004300u, sc1);
-  a[2] = dequant2(((p0 >> 4) & 0x000F000Fu) ^ 0x43084308u, sc0);  // high nibbles
-  a[3] = dequant2(((p1 >> 4) & 0x000F000Fu) ^ 0x43084308u, sc1);
+  a[0] = hv::dequant2(hv::low_nibbles(p0), sc0);
+  a[1] = hv::dequant2(hv::low_nibbles(p1), sc1);
+  a[2] = hv::dequant2(hv::high_nibbles(p0), sc0);
+  a[3] = hv::dequant2(hv::high_nibbles(p1), sc1);
 }
 
 template <int N>
 __device__ __forceinline__ void wgmma_step(float (&d)[N / 2], const uint32_t (&a)[4],
                                            uint64_t desc) {
   hv::wgmma_fence();
-  if constexpr (N == 128)
-    hv::wgmma_rs_n128(d, a, desc, 1);
-  else
-    hv::wgmma_rs_n104(d, a, desc, 1);
+  hv::wgmma_rs<N>(d, a, desc);
   hv::wgmma_commit();
 }
 
@@ -161,7 +145,7 @@ __global__ void __launch_bounds__(Tile<WG, N>::kThreads, WG == 4 ? 1 : 2)
   using L = Tile<WG, N>;
   constexpr int BNT = L::kBNT;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (hv::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = hv::smem_1024(smem_raw);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -270,58 +254,14 @@ __global__ void __launch_bounds__(Tile<WG, N>::kThreads, WG == 4 ? 1 : 2)
   }
 }
 
-// out = sum over s of part[s], s ascending, cast to the output dtype
-__global__ void merge_splits_kernel(const float4* __restrict__ part, void* __restrict__ out,
-                                    int out_bf16, int64_t vecs, int splits) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < vecs;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float4 a = part[i];
-    for (int s = 1; s < splits; ++s) {
-      const float4 b = part[(int64_t)s * vecs + i];
-      a.x += b.x;
-      a.y += b.y;
-      a.z += b.z;
-      a.w += b.w;
-    }
-    if (out_bf16) {
-      uint2 o;
-      o.x = hv::pack_bf16(a.x, a.y);
-      o.y = hv::pack_bf16(a.z, a.w);
-      static_cast<uint2*>(out)[i] = o;
-    } else {
-      static_cast<float4*>(out)[i] = a;
-    }
-  }
-}
-
-// f32 x -> bf16 (round to nearest even), 8 values a thread
-__global__ void to_bf16_kernel(const float4* __restrict__ x, uint4* __restrict__ xb,
-                               int64_t vecs) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < vecs;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const float4 a = x[2 * i], b = x[2 * i + 1];
-    xb[i] = make_uint4(hv::pack_bf16(a.x, a.y), hv::pack_bf16(a.z, a.w),
-                       hv::pack_bf16(b.x, b.y), hv::pack_bf16(b.z, b.w));
-  }
-}
-
-int grid_for(int64_t work) {
-  const int64_t blocks = (work + 255) / 256;
-  return (int)(blocks < 4096 ? blocks : 4096);
-}
-
 template <int WG, int N>
 cudaError_t launch(const __nv_bfloat16* x, const void* w4t, const void* gst, void* out,
                    float* part, int out_bf16, int m, int NB, int G, int half, int BN,
                    int splits, int per, cudaStream_t stream) {
   using L = Tile<WG, N>;
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int4_prefill_kernel<WG, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  const cudaError_t err = hv::allow_smem(int4_prefill_kernel<WG, N>, L::kSmem, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid((m + N - 1) / N, NB * BN / L::kBNT, splits);
   int4_prefill_kernel<WG, N><<<grid, L::kThreads, L::kSmem, stream>>>(
       x, static_cast<const int8_t*>(w4t), static_cast<const float*>(gst), out,
@@ -360,7 +300,7 @@ extern "C" int hv_int4_prefill(const void* x, void* xb, const void* w4t_layer,
   const __nv_bfloat16* xbf = static_cast<const __nv_bfloat16*>(x);
   if (!is_bf16) {
     const int64_t vecs = m * d / 8;
-    to_bf16_kernel<<<grid_for(vecs), 256, 0, st>>>(static_cast<const float4*>(x),
+    hv::to_bf16_kernel<<<hv::grid_for(vecs), 256, 0, st>>>(static_cast<const float4*>(x),
                                                   static_cast<uint4*>(xb), vecs);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -381,7 +321,7 @@ extern "C" int hv_int4_prefill(const void* x, void* xb, const void* w4t_layer,
                        BN, splits, per, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int64_t vecs = m * n / 4;
-  merge_splits_kernel<<<grid_for(vecs), 256, 0, st>>>(static_cast<const float4*>(part), out,
+  hv::merge_splits_kernel<<<hv::grid_for(vecs), 256, 0, st>>>(static_cast<const float4*>(part), out,
                                                      is_bf16, vecs, splits);
   return (int)cudaGetLastError();
 }

@@ -28,17 +28,44 @@
 // it). Each split writes its f32 partial sums; a second kernel adds the
 // splits in order, applies the column scale and casts.
 //
-// A bf16 x from INT8_TC_MIN_M rows: the tensor cores, as the int4 prefill
-// kernel (csrc/int4_prefill.cu). A block computes a 64 x 64 output tile with
-// four warps (32 x 32 each, WMMA bf16 16x16x16, f32 accumulators) and walks
-// d in 64-row steps: per step it stages x's 64 x 64 slice and the weight
-// tile's 64 x 64 bytes as bf16 (exact, no scale folded in), then runs the
-// fragments. The epilogue multiplies the f32 sums by the column scale (the
-// Pallas kernel's y * s) and casts. Ragged edges are masked (rows past m
-// or d load as 0, columns past n are not stored); w_down's d = 11008 is 172
-// steps, no padding copy. Not yet done, the later work toward the bound:
-// staged cp.async/TMA loads that overlap the products, wgmma, wider tiles
-// that reuse each weight tile for more rows, and fusing q|k|v and gate|up.
+// A bf16 x from INT8_TC_MIN_M rows: wgmma, the int4 prefill kernel's
+// transposed form (csrc/int4_prefill.cu) fed by TMA. Bound: operations from
+// ~295 rows (above); the weight bytes a FLOP are twice the int4 kernel's,
+// so the load path matters more. The design:
+// - y^T = W^T x^T: wgmma's A operand (64 weight columns x 16 rows of d, in
+//   registers) is the weight, made bf16 in registers; the B operand (16
+//   rows of d x N rows of m, wgmma's N: 16, 32, 64, 104 or 128, the
+//   wrapper's choice) is x, K-major with the 128-byte swizzle, read by
+//   wgmma where TMA put it. A byte b becomes an exact bf16 in three
+//   instructions a pair: b & 127 OR-ed into the mantissa of 128.0, less
+//   128.0, or 256.0 where b's sign bit is set (int8_pair).
+// - A block: two consumer warpgroups of 128 weight columns each (two
+//   64-column sub-tiles a warpgroup; 256 columns a block) and one producer
+//   warp. Thread (g, t) of warp q holds columns 32q + 4g .. + 3 of its
+//   warpgroup's 128: one 4-byte read a weight row gives all four, the A
+//   rows g and g + 8 of sub-tile 0 (columns +0, +1) and of sub-tile 1 (+2,
+//   +3). Two register sets alternate over the k16 steps.
+// - The producer keeps a six-stage ring full by TMA (an mbarrier a stage
+//   for the bytes, one for the consumer warps' release): a stage is 64 rows
+//   of d, x's [N][64] box and the weight's two [64][128] byte boxes, both
+//   with the 128-byte swizzle (so a warp's 4-byte reads of four rows fall on
+//   distinct banks). Rows of m and of d past their ends arrive as zeros: d
+//   a multiple of 8 but not of 64 needs no other mask; weight columns past
+//   n are never stored.
+// - The epilogue multiplies the f32 sums by the column scale (the Pallas
+//   kernel's y * s) and casts, straight from the accumulator registers:
+//   four adjacent columns a thread, one 16-byte (f32) or 8-byte (bf16)
+//   store a row.
+// - Split-K over d where the blocks would not fill the card: the wrapper
+//   picks (row tile, splits, rows of d a split) from (m, d, n) and the SM
+//   count alone; each split writes its f32 sums and the GEMV's merge kernel
+//   adds them in split order, scales and casts.
+// What holds it back (on an H100, a 7B layer's seven projections: 0.47 ms at
+// 391 rows, 1.4x torch.mm over the upcast weight, 1.58 ms at 2048, 1.1x;
+// PERF.md): as in the int4 transpose kernel, a stage takes a fixed ~0.55 us
+// a wave that the products do not hide, and at a few hundred rows the
+// blocks fill the card only with split-K, whose f32 partials cost 8 bytes
+// an output element a split.
 //
 // An f32 x takes the GEMV at any row count: its products are exact f32
 // FMAs. On the tensor cores it would have to be split into three bf16 parts
@@ -49,14 +76,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-namespace {
+#include "mma.cuh"
+#include "weight_gemm.cuh"
 
-using namespace nvcuda;
+namespace {
 
 // the GEMV
 constexpr int kGemvThreads = 256;
@@ -65,18 +92,23 @@ constexpr int kGemvCols = 256;                         // columns per block
 constexpr int kSlabs = kGemvCols / kCols;              // threads across a row: 16
 constexpr int kLanes = kGemvThreads / kSlabs;          // threads down the rows: 16
 
-// the tensor-core tile
-constexpr int kThreads = 128;  // four warps in a 2 x 2 arrangement
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 64;
-constexpr int kLdA = kBK + 8;  // bf16 elements per staged x row
-constexpr int kLdB = kBN + 8;  // bf16 elements per staged weight row
-constexpr int kLdC = kBN + 4;  // f32 elements per staged output row
-constexpr int kSmemA = kBM * kLdA * 2;
-constexpr int kSmemB = kBK * kLdB * 2;
-constexpr int kSmemC = kBM * kLdC * 4;
-constexpr int kSmemBytes = (kSmemA + kSmemB) > kSmemC ? (kSmemA + kSmemB) : kSmemC;
+// the tensor-core route
+constexpr int kTcWG = 2;                    // consumer warpgroups
+constexpr int kTcThreads = 128 * kTcWG + 32;  // and one producer warp
+constexpr int kTcCols = 128 * kTcWG;        // weight columns a block
+constexpr int kTcKS = 64;                   // rows of d a stage: four k16 steps
+constexpr int kTcWBytes = kTcKS * kTcCols;  // a stage's weight bytes: [64][128] boxes
+
+// N rows of m a block (wgmma's N)
+template <int N>
+struct TcTile {
+  static constexpr int kXBytes = N * 128;  // [N][64] bf16
+  static constexpr int kStage = kXBytes + kTcWBytes;
+  static constexpr int kStages = 6;
+  static constexpr int kBarOff = kStages * kStage;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;  // + slack to align to 1024
+  static_assert(kStage % 1024 == 0, "stages keep the 128-byte swizzle's alignment");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -155,113 +187,206 @@ __global__ void __launch_bounds__(kGemvThreads)
   out[i] = from_f32<To>(s * scale[i % n]);
 }
 
-template <typename To>
-__global__ void __launch_bounds__(kThreads)
-    int8_tc_kernel(const __nv_bfloat16* __restrict__ x,  // (m, d)
-                   const int8_t* __restrict__ w,         // (d, n)
-                   const float* __restrict__ scale,      // (n,)
-                   To* __restrict__ out,                 // (m, n)
-                   int m, int d, int n) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);           // [kBM][kLdA]
-  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + kSmemA);  // [kBK][kLdB]
-  float* sc = reinterpret_cast<float*>(smem);                           // [kBM][kLdC]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// A for one k16 step of rows r0 = 16s + 2t (+1, +8, +9) of the stage's
+// [64][128] weight box: this thread's four columns (byte `cb` of the box
+// row, 16-byte chunk c of row r at c ^ (r % 8)); a[0] sub-tile 0 (columns
+// +0 and +1 as A rows g and g + 8), a[1] sub-tile 1 (+2, +3)
+__device__ __forceinline__ void int8_step(uint32_t (&a)[2][4], const unsigned char* wb, int s,
+                                          int tq, int cb) {
+  const int r0 = 16 * s + 2 * tq;
+  uint32_t w[4];  // rows r0, r0 + 1, r0 + 8, r0 + 9
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) wmma::fill_fragment(acc[a][b], 0.f);
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    // w[k0:k0+64, n0:n0+64] -> sb as bf16 (exact), rows past d as 0
-    for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16), v = i % (kBN / 16);
-      const int col = n0 + v * 16;
-      uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < d && col < n)
-        wv = __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * n + col));
-      const uint32_t words[4] = {wv.x ^ 0x80808080u, wv.y ^ 0x80808080u,
-                                 wv.z ^ 0x80808080u, wv.w ^ 0x80808080u};
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2)
-          *reinterpret_cast<__nv_bfloat162*>(sb + r * kLdB + v * 16 + 4 * k + e) =
-              __floats2bfloat162_rn(byte_f32(words[k], e), byte_f32(words[k], e + 1));
-    }
-    // x[m0:m0+64, k0:k0+64] -> sa, rows past m and columns past d as 0
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), v = i % (kBK / 8);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < m && k0 + v * 8 < d)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * d + k0 + v * 8);
-      *reinterpret_cast<uint4*>(sa + r * kLdA + v * 8) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-        wmma::load_matrix_sync(fa[a], sa + (wm * 32 + a * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        wmma::load_matrix_sync(fb[b], sb + kk * kLdB + wn * 32 + b * 16, kLdB);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + (i & 1) + 8 * (i >> 1);
+    w[i] = *reinterpret_cast<const uint32_t*>(wb + r * 128 + (((cb >> 4) ^ (r & 7)) << 4) +
+                                              (cb & 15));
   }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    // column 2u + c of the four, rows (r0, r0 + 1) and (r0 + 8, r0 + 9)
+    const uint32_t lo = 0x4400u + 0x2222u * u, hi = lo + 0x1111u;
+    a[u][0] = hv::int8_pair(__byte_perm(w[0], w[1], lo));
+    a[u][1] = hv::int8_pair(__byte_perm(w[0], w[1], hi));
+    a[u][2] = hv::int8_pair(__byte_perm(w[2], w[3], lo));
+    a[u][3] = hv::int8_pair(__byte_perm(w[2], w[3], hi));
+  }
+}
 
-  // stage the f32 tile (the staging buffers are free after the last sync)
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-      wmma::store_matrix_sync(sc + (wm * 32 + a * 16) * kLdC + wn * 32 + b * 16, acc[a][b],
-                              kLdC, wmma::mem_row_major);
+template <int N, typename To>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    int8_tc_kernel(const __grid_constant__ CUtensorMap tm_x,  // (m, d) bf16
+                   const __grid_constant__ CUtensorMap tm_w,  // (d, n) bytes
+                   const float* __restrict__ scale,           // (n,)
+                   To* __restrict__ out,                      // (m, n)
+                   float* __restrict__ part,                  // (splits, m, n) or null
+                   int m, int n, int kt, int per) {
+  using L = TcTile<N>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hv::smem_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* empty = full + L::kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * N;
+  const int n0 = blockIdx.y * kTcCols;
+  const int k_begin = blockIdx.z * per;
+  const int total = min(kt, k_begin + per) - k_begin;
+  // the second warpgroup's columns may lie wholly past n: its box is not
+  // loaded and its columns not stored
+  const int boxes = n0 + 128 < n ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      hv::mbar_init(&full[s], 1);           // the producer's arrival and the TMA bytes
+      hv::mbar_init(&empty[s], 4 * kTcWG);  // one from each consumer warp
+    }
+    hv::mbar_init_fence();
+  }
   __syncthreads();
-  for (int i = tid; i < kBM * kBN; i += kThreads) {
-    const int r = i / kBN, c = i % kBN;
-    if (m0 + r < m && n0 + c < n)
-      out[(size_t)(m0 + r) * n + n0 + c] = from_f32<To>(sc[r * kLdC + c] * scale[n0 + c]);
+
+  if (warp == 4 * kTcWG) {
+    // ---- producer: x and the weight rows of each stage ----
+    if (lane == 0) {
+      hv::RingPos pos;
+      for (int t = 0; t < total; ++t) {
+        hv::mbar_wait(&empty[pos.stage], pos.phase ^ 1);
+        unsigned char* st = smem + pos.stage * L::kStage;
+        const int k0 = (k_begin + t) * kTcKS;
+        hv::mbar_arrive_expect_tx(&full[pos.stage], L::kXBytes + boxes * kTcKS * 128);
+        hv::tma_load_2d(st, &tm_x, k0, m0, &full[pos.stage]);
+        for (int b = 0; b < boxes; ++b)
+          hv::tma_load_2d(st + L::kXBytes + b * kTcKS * 128, &tm_w, n0 + 128 * b, k0,
+                          &full[pos.stage]);
+        pos.next(L::kStages);
+      }
+    }
+    return;
   }
+
+  // ---- consumers: warpgroup wg owns weight columns [128 wg, 128 wg + 128) ----
+  const int wg = warp >> 2, q = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int cb = 32 * q + 4 * g;  // this thread's first column in the warpgroup's box
+
+  float acc[2][N / 2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[u][i] = 0.f;
+
+  uint32_t a[2][2][4];  // [register set: even / odd k16 step][sub-tile][fragment]
+  hv::RingPos pos;
+  int prev = 0;
+  for (int t = 0; t < total; ++t) {
+    hv::mbar_wait(&full[pos.stage], pos.phase);
+    const unsigned char* st = smem + pos.stage * L::kStage;
+    const uint64_t desc = hv::desc_sw128(st);
+    const unsigned char* wb = st + L::kXBytes + wg * kTcKS * 128;
+#pragma unroll
+    for (int s = 0; s < kTcKS / 16; ++s) {
+      // the set written here was read by the products two steps back, which
+      // the wait after the last step's commit has seen done (four sets and
+      // three groups in flight were no faster)
+      uint32_t(&as)[2][4] = a[s & 1];
+      int8_step(as, wb, s, tq, cb);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) hv::fence_operand(as[i / 4][i % 4]);
+      hv::wgmma_fence();
+      hv::wgmma_rs<N>(acc[0], as[0], desc + 2 * s);
+      hv::wgmma_rs<N>(acc[1], as[1], desc + 2 * s);
+      hv::wgmma_commit();
+      hv::wgmma_wait<1>();
+    }
+    // every product of the last stage is done: hand it back (here, not
+    // between the k16 steps: a branch there makes ptxas serialise them)
+    __syncwarp();
+    if (lane == 0 && t > 0) hv::mbar_arrive(&empty[prev]);
+    prev = pos.stage;
+    pos.next(L::kStages);
+  }
+  hv::wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) hv::fence_operand(acc[u][i]);
+
+  // acc[u][4jj + e]: x row 8jj + 2t + (e & 1), column c + 2u + (e >> 1)
+  const int c = n0 + 128 * wg + cb;
+  if (c >= n) return;  // n is a multiple of 16: the four columns are in or out together
+  const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 8 * jj + 2 * tq + h;
+      if (row >= m) continue;
+      const float4 v = make_float4(acc[0][4 * jj + h], acc[0][4 * jj + 2 + h],
+                                   acc[1][4 * jj + h], acc[1][4 * jj + 2 + h]);
+      const int64_t off = (int64_t)row * n + c;
+      if (part != nullptr) {
+        *reinterpret_cast<float4*>(part + (int64_t)blockIdx.z * m * n + off) = v;
+      } else if constexpr (std::is_same<To, float>::value) {
+        *reinterpret_cast<float4*>(out + off) =
+            make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
+      } else {
+        *reinterpret_cast<uint2*>(out + off) = make_uint2(
+            hv::pack_bf16(v.x * sc.x, v.y * sc.y), hv::pack_bf16(v.z * sc.z, v.w * sc.w));
+      }
+    }
+  }
+}
+
+template <typename To, int N>
+cudaError_t launch_tc(const void* x, const void* w8, const float* scale, float* part, To* out,
+                      int m, int d, int n, int splits, int per, cudaStream_t stream) {
+  using L = TcTile<N>;
+  CUtensorMap tm_x, tm_w;
+  const uint64_t x_dims[2] = {(uint64_t)d, (uint64_t)m}, x_strides[1] = {(uint64_t)d * 2};
+  const uint32_t x_box[2] = {kTcKS, N};
+  const uint64_t w_dims[2] = {(uint64_t)n, (uint64_t)d}, w_strides[1] = {(uint64_t)n};
+  const uint32_t w_box[2] = {128, kTcKS};
+  if (!hv::tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides, x_box,
+                      CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hv::tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w8, w_dims, w_strides, w_box,
+                      CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  cudaError_t err = hv::allow_smem(int8_tc_kernel<N, To>, L::kSmem, configured);
+  if (err != cudaSuccess) return err;
+  const int kt = (d + kTcKS - 1) / kTcKS;
+  const dim3 grid((m + N - 1) / N, (n + kTcCols - 1) / kTcCols, splits);
+  int8_tc_kernel<N, To><<<grid, kTcThreads, L::kSmem, stream>>>(
+      tm_x, tm_w, scale, out, splits > 1 ? part : nullptr, m, n, kt, per / kTcKS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = (size_t)m * n;
+  int8_gemv_merge_kernel<To><<<(unsigned)((mn + kGemvThreads - 1) / kGemvThreads), kGemvThreads,
+                               0, stream>>>(part, scale, out, splits, n, mn);
+  return cudaGetLastError();
 }
 
 template <typename T, typename To>
 cudaError_t launch(const void* x, const void* w8, const void* scale, void* part, void* out,
                    int tensor_cores, int m, int d, int n, int n_split, int rows_per_split,
-                   cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const int8_t* wt = static_cast<const int8_t*>(w8);
+                   int rows_tile, cudaStream_t stream) {
   const float* st = static_cast<const float*>(scale);
+  float* pf = static_cast<float*>(part);
   To* ot = static_cast<To*>(out);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (tensor_cores) {
-      const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-      int8_tc_kernel<To><<<grid, kThreads, 0, stream>>>(xt, wt, st, ot, m, d, n);
-      return cudaGetLastError();
-    }
+    if (tensor_cores)
+      return hv::with_rows_tile(rows_tile, [&](auto rows) {
+        return launch_tc<To, decltype(rows)::value>(x, w8, st, pf, ot, m, d, n, n_split,
+                                                    rows_per_split, stream);
+      });
   }
   const dim3 grid((n + kGemvCols - 1) / kGemvCols, n_split, m);
-  int8_gemv_kernel<T><<<grid, kGemvThreads, 0, stream>>>(xt, wt, static_cast<float*>(part), m,
-                                                         d, n, rows_per_split);
+  int8_gemv_kernel<T><<<grid, kGemvThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w8), pf, m, d, n, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t mn = (size_t)m * n;
   int8_gemv_merge_kernel<To><<<(unsigned)((mn + kGemvThreads - 1) / kGemvThreads),
-                               kGemvThreads, 0, stream>>>(static_cast<const float*>(part), st,
-                                                          ot, n_split, n, mn);
+                               kGemvThreads, 0, stream>>>(pf, st, ot, n_split, n, mn);
   return cudaGetLastError();
 }
 
@@ -270,29 +395,35 @@ cudaError_t launch(const void* x, const void* w8, const void* scale, void* part,
 // x (m, d) bf16 (x_bf16 = 1) or f32, contiguous and 16-byte aligned; w8
 // (d, n) int8 and scale (n,) f32: views of one layer (16-byte aligned);
 // out (m, n) in f32 (out_f32 = 1) or x's dtype. d is a multiple of 8, n of
-// 16. tensor_cores = 0: the GEMV, with f32 scratch part (n_split, m, n),
-// split s covering rows [s*rows_per_split, (s+1)*rows_per_split) of d in
-// 256-column blocks; 1 (bf16 x only): the tensor cores (part unused).
+// 16. Split s covers rows [s*rows_per_split, (s+1)*rows_per_split) of d,
+// writing f32 sums to the scratch part (n_split, m, n) that a second kernel
+// adds in split order. tensor_cores = 0: the GEMV, 256-column blocks;
+// 1 (bf16 x only): wgmma, 256 columns x rows_tile rows a block (16, 32, 64,
+// 104 or 128), rows_per_split a multiple of 64, part unused for one split.
 // Returns cudaGetLastError().
 extern "C" int hv_int8_matmul(const void* x, const void* w8, const void* scale, void* part,
                               void* out, int x_bf16, int out_f32, int tensor_cores, int m,
-                              int d, int n, int n_split, int rows_per_split, void* stream) {
-  if (m < 1 || d < 8 || d % 8 || n < 16 || n % 16 || (!x_bf16 && (!out_f32 || tensor_cores)))
+                              int d, int n, int n_split, int rows_per_split, int rows_tile,
+                              void* stream) {
+  if (m < 1 || d < 8 || d % 8 || n < 16 || n % 16 || (!x_bf16 && (!out_f32 || tensor_cores)) ||
+      n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
+      (long long)(n_split - 1) * rows_per_split >= d || (long long)n_split * rows_per_split < d ||
+      (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (!tensor_cores && (m > 65535 || n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
-                        (long long)(n_split - 1) * rows_per_split >= d ||
-                        (long long)n_split * rows_per_split < d || part == nullptr))
+  if (!tensor_cores && (m > 65535 || part == nullptr)) return (int)cudaErrorInvalidValue;
+  if (tensor_cores && (rows_per_split % kTcKS || (n + kTcCols - 1) / kTcCols > 65535))
     return (int)cudaErrorInvalidValue;
-  if (tensor_cores && (m + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8)) % 16)
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8) |
+       reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!x_bf16)
     return (int)launch<float, float>(x, w8, scale, part, out, tensor_cores, m, d, n, n_split,
-                                     rows_per_split, st);
+                                     rows_per_split, rows_tile, st);
   if (out_f32)
     return (int)launch<__nv_bfloat16, float>(x, w8, scale, part, out, tensor_cores, m, d, n,
-                                             n_split, rows_per_split, st);
+                                             n_split, rows_per_split, rows_tile, st);
   return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, w8, scale, part, out, tensor_cores, m,
-                                                   d, n, n_split, rows_per_split, st);
+                                                   d, n, n_split, rows_per_split, rows_tile,
+                                                   st);
 }

@@ -1,8 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
 // (sm_90a): mma.sync m16n8k16 bf16 with f32 accumulators, ldmatrix, bf16
 // packing, 16-byte cp.async with commit groups, wgmma (register and shared
-// A operands, K- and MN-major B operands), mbarriers, named barriers and
-// register reallocation.
+// A operands, K- and MN-major B operands), mbarriers, TMA loads and tensor
+// maps, named barriers and register reallocation.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 // A (16 x 16, row-major) a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -13,6 +13,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,8 +136,65 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// keep the compiler from moving reads of an accumulator across a wait
+// keep the compiler from moving reads of an accumulator across a wait, or
+// the computation of a register A operand past the wgmma_fence before its
+// product (ptxas serialises the products of a group if an instruction
+// defines a register operand inside it)
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// scale_d 0 takes D as zero, 1 adds to it; K-major B (no transpose)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// scale_d 0 takes D as zero, 1 adds to it; K-major B (no transpose)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// scale_d 0 takes D as zero, 1 adds to it; K-major B (no transpose)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
 
 // scale_d 0 takes D as zero, 1 adds to it; K-major B (no transpose)
 __device__ __forceinline__ void wgmma_rs_n104(float (&d)[52], const uint32_t (&a)[4],
@@ -199,6 +258,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// D (64 x N) += A (64 x 16, registers) * B (16 x N, K-major, 128-byte
+// swizzle) for each N the weight-only matmuls tile rows by: the product
+// alone (the caller fences, commits and waits)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 104 || N == 128, "no wgmma for this N");
+  if constexpr (N == 16)
+    wgmma_rs_n16(d, a, desc, 1);
+  else if constexpr (N == 32)
+    wgmma_rs_n32(d, a, desc, 1);
+  else if constexpr (N == 64)
+    wgmma_rs_n64(d, a, desc, 1);
+  else if constexpr (N == 104)
+    wgmma_rs_n104(d, a, desc, 1);
+  else
+    wgmma_rs_n128(d, a, desc, 1);
 }
 
 // descriptor of an MN-major bf16 operand (N contiguous) with the 128-byte
@@ -321,6 +399,28 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// a TMA copy of one box of a 2-d / 3-d tensor map at coordinates (c0
+// innermost) into shared memory, counted against the barrier's expected bytes
+__device__ __forceinline__ void tma_load_2d(void* smem_dst, const void* tmap, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(smem_dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* smem_dst, const void* tmap, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_addr(smem_dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // a TMA copy of one box of a 4-d tensor map at coordinates (c0 innermost)
 // into shared memory, counted against the barrier's expected bytes
 __device__ __forceinline__ void tma_load_4d(void* smem_dst, const void* tmap, int c0, int c1,
@@ -358,6 +458,46 @@ __device__ __forceinline__ void reg_alloc() {
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps (host)
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library needs no link against libcuda
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a tensor of `rank` dimensions (dims[0] innermost, strides in bytes of
+// dimensions 1.., each a multiple of 16) read as boxes of `box` elements;
+// elements outside the tensor arrive as zeros
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], step[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    step[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  return encode(map, type, rank, const_cast<void*>(base), d, s, b, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hv

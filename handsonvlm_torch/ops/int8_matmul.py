@@ -62,12 +62,13 @@ INT4_GROUP = 128  # contraction-group size of the int4 scales
 INT4_PREFILL_MIN_M = 128  # rows from which the prefill matmul serves a projection
 INT4_GEMV_BN = 512  # widest weight tile (columns) of the tiled layout
 # rows from which B9 runs a bf16 x on the tensor cores (below, and for an
-# f32 x at any m: the GEMV). The GEMV re-reads the weights once per row; on
-# an H100 the seven 7B projections of a layer take as long on either path at
-# 24 rows (1.20 vs 1.24 ms) and 21% less on the tensor cores at 32 (1.25 vs
-# 1.57 ms; chip_smoke.py phase 2 times both). Decode windows and slot
-# batches (<= 8 rows) stay on the GEMV, whose rows sum alone
-INT8_TC_MIN_M = 25
+# f32 x at any m: the GEMV). On an H100 the wgmma route takes a 7B layer's
+# seven projections in 0.13 ms at 8 rows against the GEMV's 0.47 (which
+# re-reads the weights once a row; chip_smoke.py's B9 crossover table), so
+# the threshold is the least row count above every decode-time one: verify
+# windows (SPEC_K + 1 = 5 rows) and slot batches (8) stay on the GEMV, whose
+# rows sum alone
+INT8_TC_MIN_M = 9
 INT8_GEMV_BN = 256  # columns of one B9 GEMV block (csrc/int8_matmul.cu kGemvCols)
 
 
@@ -402,6 +403,61 @@ def prefill_split(m: int, n: int, groups: int, n_sm: int) -> Tuple[int, int]:
     return -(-groups // per), per
 
 
+# wgmma's N, the rows of m a block of B7 (int4 transpose) and B9's tensor
+# cores takes (csrc/weight_gemm.cuh with_rows_tile)
+ROW_TILES = (16, 32, 64, 104, 128)
+WGMMA_K_STAGE = 64  # contraction rows (B9) or columns (B7) a stage of their rings
+WGMMA_BLOCK = 256  # weight columns (B9) or rows of d (B7) a block
+# The time model their plans minimise, fitted to B7's and B9's times at the
+# 7B projections on an H100 (PERF.md, section 6): a wave of blocks takes a
+# 64-deep stage in STAGE_S + STAGE_ROW_S x (row tile) seconds, or in the
+# time its weight bytes take at STAGE_BYTES_S; split-K adds 8 bytes an
+# output element a split (f32 partials written, then read by the merge) at
+# SPLIT_BYTES_S, and the merge's launch.
+STAGE_S, STAGE_ROW_S, STAGE_BYTES_S = 0.55e-6, 3.3e-9, 3.0e12
+SPLIT_BYTES_S, MERGE_S = 2.0e12, 2e-6
+
+
+def wgmma_plan(m: int, outs: int, stages: int, n_sm: int,
+               stage_bytes: int) -> Tuple[int, int, int]:
+    """(row tile, splits, stages per split) for m rows, `outs` output
+    columns in blocks of WGMMA_BLOCK and a contraction of `stages` stages
+    of `stage_bytes` weight bytes a block, one block an SM: the plan of
+    least modelled time, up to 16 splits of at least four stages each.
+    Split s takes the stages [s * per, (s + 1) * per)."""
+    best = None
+    for rows in ROW_TILES:
+        blocks = -(-m // rows) * -(-outs // WGMMA_BLOCK)
+        for want in range(1, max(1, min(16, stages // 4)) + 1):
+            per = -(-stages // want)
+            splits = -(-stages // per)
+            stage_s = max(STAGE_S + STAGE_ROW_S * rows,
+                          min(blocks * splits, n_sm) * stage_bytes / STAGE_BYTES_S)
+            t = -(-blocks * splits // n_sm) * per * stage_s
+            if splits > 1:
+                t += 8 * splits * m * outs / SPLIT_BYTES_S + MERGE_S
+            if best is None or t < best[0]:
+                best = (t, rows, splits, per)
+    return best[1:]
+
+
+def transpose_plan(m: int, n: int, d: int, n_sm: int) -> Tuple[int, int, int]:
+    """(row tile, splits, 64-column stages of n per split) of B7 for dy (m, n)
+    and a weight of d rows: blocks of WGMMA_BLOCK rows of d x the row tile.
+    It reads the shapes alone, so the tiled and the flat layout of one
+    weight plan alike and give the same bits."""
+    return wgmma_plan(m, d, n // WGMMA_K_STAGE, n_sm, WGMMA_BLOCK // 2 * WGMMA_K_STAGE)
+
+
+def int8_tc_plan(m: int, d: int, n: int, n_sm: int) -> Tuple[int, int, int]:
+    """(row tile, splits, rows of d per split: a multiple of 64) of B9's
+    tensor-core route for x (m, d) and w8 (d, n): blocks of WGMMA_BLOCK
+    weight columns x the row tile."""
+    rows, splits, per = wgmma_plan(m, n, -(-d // WGMMA_K_STAGE), n_sm,
+                                   WGMMA_BLOCK * WGMMA_K_STAGE)
+    return rows, splits, per * WGMMA_K_STAGE
+
+
 def _launch_prefill(x, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library
 
@@ -433,28 +489,43 @@ def _launch_prefill(x, w, s, layer_idx, counter):
     return out.reshape(*x.shape[:-1], n)
 
 
+def _transpose_geometry(dy, w, s, layer_idx, n_sm):
+    """Check a B7 call; returns (m, NB, G, g/2, BN, (row tile, splits,
+    stages per split)), the flat layout (L, G, g/2, n) as one tile of n
+    columns."""
+    flat, nb, G, half, bn = _int4_geometry(dy, w, s, layer_idx, "int4 transpose",
+                                           transpose=True)
+    if flat:
+        nb, bn = 1, nb * bn
+    if bn % 64 or half % 32 or (128 % half if half <= 128 else half % 128):
+        raise ValueError(f"int4 transpose needs a tile width that is a multiple of 64 and a "
+                         f"group of 64, 128 or a multiple of 256 rows, got {bn}, {2 * half}")
+    m = math.prod(dy.shape[:-1])
+    return m, nb, G, half, bn, transpose_plan(m, nb * bn, G * 2 * half, n_sm)
+
+
 def _launch_transpose(dy, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library, refuse_grad
 
     refuse_grad(counter.__name__, dy)
-    flat, nb, G, half, bn = _int4_geometry(dy, w, s, layer_idx, "int4 transpose",
-                                           transpose=True)
-    if flat:  # the flat layout is the tiled one with a single tile of n columns
-        nb, bn = 1, nb * bn
-    if bn % 16:
-        raise ValueError(f"int4 transpose needs a tile width that is a multiple of 16, "
-                         f"got {bn}")
-    dy2 = dy.reshape(-1, nb * bn).contiguous()
-    if dy2.data_ptr() % 16:  # the kernel reads dy 16 bytes at a time
+    m, nb, G, half, bn, (rows, splits, per) = _transpose_geometry(
+        dy, w, s, layer_idx, _num_sms(dy.device.index))
+    dy2 = dy.reshape(m, nb * bn).contiguous()
+    if dy2.data_ptr() % 16:  # TMA reads dy from 16-byte aligned rows
         dy2 = dy2.clone()
-    m, d = dy2.shape[0], G * 2 * half
+    d = G * 2 * half
     out = torch.empty((m, d), dtype=dy.dtype, device=dy.device)
+    dyb = (torch.empty(dy2.shape, dtype=torch.bfloat16, device=dy.device)
+           if dy.dtype != torch.bfloat16 else None)
+    part = (torch.empty((splits, m, d), dtype=torch.float32, device=dy.device)
+            if splits > 1 else None)
     lib = load_library()
     with torch.cuda.device(dy.device):
         status = lib.hv_int4_transpose(
-            dy2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
-            out.data_ptr(), int(dy.dtype == torch.bfloat16), m, nb, G, half, bn,
-            torch.cuda.current_stream().cuda_stream)
+            dy2.data_ptr(), None if dyb is None else dyb.data_ptr(), w[layer_idx].data_ptr(),
+            s[layer_idx].data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), int(dy.dtype == torch.bfloat16), m, nb, G, half, bn, rows, splits,
+            per, torch.cuda.current_stream().cuda_stream)
     check(status, counter.__name__)
     counter.LAUNCHES += 1
     return out.reshape(*dy.shape[:-1], d)
@@ -475,8 +546,8 @@ def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
         raise ValueError(f"x (..., {x.shape[-1]}), w8 {tuple(w8.shape)} and scale "
                          f"{tuple(scale.shape)} do not fit")
     if n % 16 or d % 8:
-        raise ValueError(f"int8 matmul reads 16 bytes at a time: n must be a multiple of "
-                         f"16 and d of 8, got d={d}, n={n}")
+        raise ValueError(f"int8 matmul reads 16-byte runs of x and w8: n must be a multiple "
+                         f"of 16 and d of 8, got d={d}, n={n}")
     if not (x.device == w8.device == scale.device):
         raise ValueError("x, w8 and scale must be on one device")
     if not (w8.is_contiguous() and scale.is_contiguous()):
@@ -489,15 +560,17 @@ def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
         tensor_cores = x.dtype == torch.bfloat16 and m >= INT8_TC_MIN_M
     if tensor_cores and x.dtype != torch.bfloat16:
         raise TypeError("the int8 matmul runs only a bf16 x on the tensor cores")
-    splits, per = 1, d
-    part = None
-    if not tensor_cores:
+    if tensor_cores:
+        rows, splits, per = int8_tc_plan(m, d, n, _num_sms(x.device.index))
+    else:
         if m >= 65536:
             raise ValueError(f"the int8 GEMV takes 1..65535 rows, got {m}")
         # splits of the contraction in units of 16 rows, sized for one row
+        rows = 0
         splits, per = gemv_split(-(-n // INT8_GEMV_BN), -(-d // 16), _num_sms(x.device.index))
         per *= 16
-        part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if splits > 1 or not tensor_cores else None)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
@@ -505,7 +578,8 @@ def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
             x2.data_ptr(), w8.data_ptr(), scale.data_ptr(),
             None if part is None else part.data_ptr(), out.data_ptr(),
             int(x.dtype == torch.bfloat16), int(out_dtype == torch.float32),
-            int(tensor_cores), m, d, n, splits, per, torch.cuda.current_stream().cuda_stream)
+            int(tensor_cores), m, d, n, splits, per, rows,
+            torch.cuda.current_stream().cuda_stream)
     check(status, "int8_matmul")
     int8_matmul.LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)

@@ -47,7 +47,9 @@ from handsonvlm_torch.ops.flash_attention import (
     flash_attention_ref,
 )
 from handsonvlm_torch.ops.int8_matmul import (
+    ROW_TILES,
     _launch_int8,
+    _transpose_geometry,
     int4_gemv_flat,
     int4_gemv_flat_ref,
     int4_gemv_tiled,
@@ -65,11 +67,14 @@ from handsonvlm_torch.ops.int8_matmul import (
     int4_matmul_T_tiled_ref,
     int8_matmul,
     int8_matmul_ref,
+    int8_tc_plan,
     maybe_int8_matmul,
     prefill_split,
     quantize_int4,
     quantize_stacked_int8,
     tile_int4_stacked,
+    tiled_shapes,
+    transpose_plan,
     untile_int4_stacked,
 )
 from handsonvlm_torch.ops.fused_decode import (
@@ -543,13 +548,14 @@ def test_flash_attention_bwd_kernel(cuda, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [16, 200])
+@pytest.mark.parametrize("m", [1, 16, 200, 2048])
 @pytest.mark.parametrize("layout", ["tiled", "flat"])
 @pytest.mark.parametrize("shape", list(INT4_SHAPES))
 def test_int4_transpose_kernel(cuda, shape, layout, m, dtype):
     """B7b (tiled) and B7a (flat) against their plain versions: dy @
     dequant(W)^T with dy and the weights rounded to bf16 in both; the two
-    layouts give the same bits on the same weight."""
+    layouts give the same bits on the same weight, and a second call the
+    same bits as the first (row tiles 16 / 104 / 128, split-K at small m)."""
     din, dout = INT4_SHAPES[shape]
     w4t, gst = int4_weights(din, dout, 2, cuda, seed=m + 7)
     w4, gs = untile_int4_stacked(w4t, gst)
@@ -566,6 +572,7 @@ def test_int4_transpose_kernel(cuda, shape, layout, m, dtype):
     other = int4_matmul_T_flat(dy, w4, gs, 1) if layout == "tiled" else int4_matmul_T_tiled(
         dy, w4t, gst, 1)
     assert torch.equal(got, other)
+    assert torch.equal(got, fn(dy, w, s, 1))
 
 
 def _grad_cases(device):
@@ -775,11 +782,12 @@ def int8_weights(din, dout, layers, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 5, 8, 24, 25, 127, 391])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 24, 25, 103, 104, 105, 127, 128, 129, 391, 2048])
 @pytest.mark.parametrize("shape", list(INT8_SHAPES))
 def test_int8_matmul_kernel(cuda, shape, m, dtype):
-    """B9 on either side of its threshold (INT8_TC_MIN_M = 25: a bf16 x
-    takes the tensor cores from there), f32 out and x's dtype out."""
+    """B9 on either side of its threshold (INT8_TC_MIN_M = 9: a bf16 x
+    takes the tensor cores from there) and at the edges of the tensor
+    cores' row tiles (104, 128), f32 out and x's dtype out."""
     din, dout = INT8_SHAPES[shape]
     w8, sc = int8_weights(din, dout, 2, cuda, seed=m)
     gen = torch.Generator(device=cuda).manual_seed(m + 1)
@@ -811,6 +819,27 @@ def test_int8_matmul_kernel_paths(cuda, shape, m, tensor_cores):
     if tensor_cores:
         with pytest.raises(TypeError, match="bf16"):
             _launch_int8(x.float(), w8[0], sc[0], torch.float32, tensor_cores=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [25, 103, 104, 105, 128, 129, 391, 2048])
+@pytest.mark.parametrize("shape", ["ragged", "7b_w_gate", "7b_w_down"])
+def test_int8_matmul_tensor_cores_tile_edges(cuda, shape, m):
+    """B9's tensor cores at the edges of their row tiles and split plans
+    (ragged: d = 136 ends in a half k16 step, n = 208 in a part of a
+    256-column block; 7b_w_gate: n = 11008 = 43 x 256; 7b_w_down: d = 11008
+    split over the contraction), f32 and bf16 out, and the same bits from a
+    second call."""
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 1, cuda, seed=m + 2)
+    x = torch.randn((m, din), generator=torch.Generator(device=cuda).manual_seed(m),
+                    device=cuda).to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = _launch_int8(x, w8[0], sc[0], out_dtype, tensor_cores=True)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, dout)
+        assert_int4_close(got, int8_matmul_ref(x, w8[0], sc[0], out_dtype), out_dtype)
+        assert torch.equal(got, _launch_int8(x, w8[0], sc[0], out_dtype, tensor_cores=True))
 
 
 @pytest.mark.cuda
@@ -885,6 +914,72 @@ def test_prefill_split_covers_the_groups(m, groups, n):
     blocks = -(-m // 128) * -(-n // 256)
     use = [b / (-(-b // 132) * 132) for b in (blocks, blocks * splits)]
     assert splits == 1 or use[1] > use[0] + 0.1 * (splits - 1)
+
+
+@pytest.mark.parametrize("case", [
+    # (plan, m, d, n, row tile, splits): the fastest of the plans timed at
+    # the 7B projections on an H100 (PERF.md, section 6)
+    ("int8", 391, 4096, 4096, 104, 2), ("int8", 391, 4096, 11008, 104, 1),
+    ("int8", 391, 11008, 4096, 104, 2), ("int8", 2048, 4096, 4096, 128, 1),
+    ("int8", 2048, 11008, 4096, 128, 1), ("int8", 2379, 4096, 4096, 104, 1),
+    ("int8", 2379, 11008, 4096, 104, 1), ("transpose", 2048, 4096, 12288, 128, 1),
+    ("transpose", 2048, 4096, 22016, 128, 1), ("transpose", 16, 4096, 4096, 16, 8),
+], ids=lambda c: "-".join(map(str, c)) if isinstance(c, tuple) else None)
+def test_wgmma_plan_takes_the_fastest_timed_plan(case):
+    """The time model of B7's and B9's plans (CPU) picks, at the 7B
+    projections, the row tile and split count that ran fastest on the card."""
+    kind, m, d, n, rows, splits = case
+    plan = int8_tc_plan(m, d, n, 132) if kind == "int8" else transpose_plan(m, n, d, 132)
+    assert plan[:2] == (rows, splits)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("d", [64, 128, 4096, 11008])
+@pytest.mark.parametrize("n", [64, 192, 4096, 12288, 22016])
+@pytest.mark.parametrize("m", [1, 16, 200, 2048])
+def test_transpose_plan_covers_the_contraction(m, n, d, n_sm):
+    """B7's split-K plan (CPU): the splits take the 64-column stages of n
+    once each, in order (split s the stages [s * per, (s + 1) * per)), at
+    most sixteen of at least four stages."""
+    rows, splits, per = transpose_plan(m, n, d, n_sm)
+    stages = n // 64
+    assert rows in ROW_TILES
+    assert 1 <= splits <= 16 and (splits - 1) * per < stages <= splits * per
+    assert splits == 1 or per >= 4
+    covered = [k for s in range(splits) for k in range(s * per, min(stages, (s + 1) * per))]
+    assert covered == list(range(stages))
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("n", [64, 208, 4096, 11008])
+@pytest.mark.parametrize("d", [64, 136, 4096, 11008])
+@pytest.mark.parametrize("m", [25, 104, 129, 391, 2048, 2379])
+def test_int8_tc_plan_covers_the_contraction(m, d, n, n_sm):
+    """B9's tensor-core split-K plan (CPU): splits of whole 64-row stages of
+    d (the last may end past d, where TMA reads zeros) that cover d once,
+    in order, at most sixteen of at least four stages each."""
+    rows, splits, per = int8_tc_plan(m, d, n, n_sm)
+    assert rows in ROW_TILES and per % 64 == 0
+    assert 1 <= splits <= 16 and (splits - 1) * per < d <= splits * per
+    assert splits == 1 or per >= 4 * 64
+
+
+@pytest.mark.parametrize("m", [1, 16, 2048])
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+def test_transpose_plan_is_the_same_for_both_layouts(shape, m):
+    """B7a and B7b plan alike (CPU): the flat layout's geometry is one tile
+    of n columns, and the row tile, splits and stages per split come from
+    the shapes alone, so both layouts of one weight take the same sums."""
+    din, dout = INT4_SHAPES[shape]
+    w4t = torch.zeros(tiled_shapes(din, dout, 2)[0], dtype=torch.int8)
+    gst = torch.zeros(tiled_shapes(din, dout, 2)[1], dtype=torch.float32)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    dy = torch.zeros((1, m, dout))
+    tiled = _transpose_geometry(dy, w4t, gst, 1, 132)
+    flat = _transpose_geometry(dy, w4, gs, 1, 132)
+    assert tiled[0] == flat[0] == m and tiled[2:4] == flat[2:4]
+    assert tiled[1] * tiled[4] == flat[1] * flat[4] == dout and flat[1] == 1
+    assert tiled[5] == flat[5] == transpose_plan(m, dout, din, 132)
 
 
 @pytest.mark.cuda
