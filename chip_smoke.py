@@ -18,8 +18,10 @@ Phases (each prints its lines; the last line is the JSON status):
    to the library call; B4a (one flat matrix) at m = 1 and 391; B10a /
    B10b (the fused QLoRA matmuls) through their autograd fronts at the
    seven 7B projections, m = 16 and 2048, r = 0, 5 and 128, bf16 and fp32
-   inputs; B11 (the fused decode MLP) at a 7B int4 layer's MLP half, B = 1
-   and 8, timed against the port's unfused chain;
+   inputs, two calls bit-equal at 16 rows (split-K, the LoRA term a split
+   of its own), timed with and without the term; B11 (the fused decode
+   MLP) at a 7B int4 layer's MLP half, B = 1 and 8, timed against the
+   port's unfused chain;
 3. the bf16 chat path: the 7B bf16 model from `random:7b` on the card, three
    chat requests through the chat CLI's own turn function (prefill +
    generate_host, 32 new tokens each; one turn forces a `<hand_traj>`
@@ -98,8 +100,8 @@ Phases (each prints its lines; the last line is the JSON status):
    packed weights bit-identical; (c) the same weights in the flat layout,
    one step through B5a and B7a; (d) QLoRA int8 on the int8 model, one step
    through B9 and its plain backward; (f) QLoRA int8_fused over the same
-   int8 weights, three steps through B10a and B10b (B9 never), then 14e
-   over that route;
+   int8 weights, three steps through B10a and B10b (B9 never), its step
+   time beside (d)'s as a ratio, then 14e over that route;
 15. the training CLI at 7B (`handsonvlm_torch.train.train --qlora
    int8_fused --lora-r 128 --synthetic 4`): two steps in this process, the
    checkpoint restored bit-equal into a fresh template, the same command
@@ -1346,19 +1348,23 @@ def check_int4_transpose() -> list:
 def check_qlora_fused() -> list:
     """B10a (int8_stacked_fwd) and B10b (int8_stacked_bwd) through their
     autograd fronts at the seven 7B projections, m = 16 and 2048, bf16 and
-    fp32 x and dy, r = 0 (no epilogue), 5 and 128: the forward output and dx
+    fp32 x and dy, r = 0 (no term), 5 and 128: the forward output and dx
     of the kernel route against the plain route (`plain=True`). Both kernels
     round their output to bf16 whatever the input's dtype (the Pallas
-    kernels' contract), so both dtypes take the bf16 gate. Then each kernel
-    timed over a layer's seven projections at m = 2048, r = 128, against its
-    plain version and the library calls (torch.mm over the weight upcast to
-    bf16 outside the timed loop, plus the LoRA delta), TIMING_LAYERS layers
-    cycled."""
+    kernels' contract), so both dtypes take the bf16 gate. At m = 16 (split-K,
+    the term a split of its own) a second kernel call must give the same
+    bits. Then each kernel timed over a layer's seven projections at m =
+    2048, r = 128, against its plain version and the library calls (torch.mm
+    over the weight upcast to bf16 outside the timed loop, plus the LoRA
+    delta), TIMING_LAYERS layers cycled. The bound counts the term as the
+    kernels compute it, on the tensor cores: three bf16 products of the
+    operands' high and low parts, which keep its f32 contract."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     shapes = projection_shapes(get_config("7b").llama)
     Lt, m_t, r_t, ls = TIMING_LAYERS, TRAIN_ROWS, LORA_R, LORA_ALPHA / LORA_R
     errs = {"B10a": [], "B10b": []}
-    t = {k: [0.0] * 6 for k in errs}  # kernel, plain, library, bytes, bf16 flops, f32 flops
+    # kernel, plain, library, bytes, base flops, term flops, kernel without the term (r = 0)
+    t = {k: [0.0] * 7 for k in errs}
     for proj, (din, dout) in shapes.items():
         w8, sc = quantize_stacked_int8(0.02 * torch.randn((Lt, din, dout), generator=gen,
                                                           device="cuda"))
@@ -1369,11 +1375,16 @@ def check_qlora_fused() -> list:
                 for dtype in (torch.bfloat16, torch.float32):
                     x, dy, i = _rand(gen, (m, din), dtype), _rand(gen, (m, dout), dtype), m % Lt
                     out = {}
-                    for plain in (False, True):
+                    # under split-K (16 rows) the kernel route runs twice
+                    for plain in (False, True) + ((False,) if m == QLORA_ROWS[0] else ()):
                         xg = x.clone().requires_grad_()
                         y = (int8_lora_matmul_stacked(xg, w8, sc, a, b, ls, i, plain=plain) if r
                              else int8_matmul_stacked(xg, w8, sc, i, plain=plain))
-                        out[plain] = (y.detach(), torch.autograd.grad(y, xg, dy)[0])
+                        got = (y.detach(), torch.autograd.grad(y, xg, dy)[0])
+                        if plain in out and not all(map(torch.equal, got, out[plain])):
+                            raise AssertionError(f"B10a / B10b {proj} m={m} r={r}: two calls "
+                                                 f"differ under split-K")
+                        out[plain] = got
                     what = f"{proj} {din}->{dout} m={m} r={r} {str(dtype).split('.')[-1]} in"
                     _check_int4(f"B10a {what}", out[False][0], out[True][0], torch.bfloat16,
                                 errs["B10a"])
@@ -1396,25 +1407,28 @@ def check_qlora_fused() -> list:
                  + v_s @ a.t(), g2, (v_s, a))):
             row = t[k]
             row[0] += cuda_time_ms(lambda i: fn(lhs, w8, sc, i % Lt, *lora), iters=10)
+            row[6] += cuda_time_ms(lambda i: fn(lhs, w8, sc, i % Lt), iters=10)
             row[1] += cuda_time_ms(lambda i: ref(lhs, w8, sc, i % Lt, *lora), iters=3, warmup=1)
             row[2] += cuda_time_ms(lib, iters=10)
             row[3] += (din * dout + dout * 4 + m_t * (din + dout) * 2 + m_t * r_t * 4
                        + r_t * (dout if k == "B10a" else din) * 4)
             row[4] += 2 * m_t * din * dout
-            row[5] += 2 * m_t * r_t * (dout if k == "B10a" else din)
+            row[5] += 3 * 2 * m_t * r_t * (dout if k == "B10a" else din)
         del w8, sc, w_up, w_dq
         torch.cuda.empty_cache()
     out = []
     for k, fn, site in (("B10a", int8_stacked_fwd, "qlora_fused.py:212"),
                         ("B10b", int8_stacked_bwd, "qlora_fused.py:306")):
-        ms, plain_ms, library_ms, nbytes, flops, f32_flops = t[k]
-        bound_ms, bound_by = bound(nbytes, flops, f32_flops)
+        ms, plain_ms, library_ms, nbytes, flops, term_flops, base_ms = t[k]
+        bound_ms, bound_by = bound(nbytes, flops + term_flops)
         log(f"  {k} ({fn.__name__}) time, a layer's seven projections at m={m_t}, r={r_t} "
             f"(bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"(torch.mm over the upcast weight + the LoRA delta) {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP bf16 + "
-            f"{f32_flops / 1e9:.1f} GFLOP f32); {100 * bound_ms / ms:.1f}% of the bound, "
-            f"{(flops + f32_flops) / ms / 1e9:.1f} TFLOP/s")
+            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP base + "
+            f"{term_flops / 1e9:.1f} GFLOP term, both bf16 on the tensor cores); "
+            f"{100 * bound_ms / ms:.1f}% of the bound, {ms / library_ms:.2f}x the library, "
+            f"{(flops + term_flops) / ms / 1e9:.1f} TFLOP/s; without the term (r = 0) "
+            f"{base_ms:.4f} ms, so the term costs {ms - base_ms:.4f} ms")
         out.append({"name": fn.__name__, "route": "cuda",
                     "source": "handsonvlm_torch/csrc/qlora_fused.cu",
                     "replaces": "handsonvlm_tpu/ops/" + site,
@@ -2752,7 +2766,7 @@ def phase_train_int8_fused(model, cfg, unfused: list, rows: int = TRAIN_ROWS, r:
     log(f"  14f int8_fused step {wall:.1f} ms ({rows / wall * 1e3:.1f} tokens/s, best of the "
         f"steps after the first), peak {peak:.3f} GiB; 14d unfused int8 step "
         f"{unfused[0][0]:.1f} ms ({rows / unfused[0][0] * 1e3:.1f} tokens/s), peak "
-        f"{unfused[0][1]:.3f} GiB")
+        f"{unfused[0][1]:.3f} GiB; fused / unfused step {wall / unfused[0][0]:.3f}")
     log("phase 14e-int8-fused: one step's adapter gradients through B10a / B10b against the "
         "plain route (the fp32 unfused int8 route the reference)")
     phase_train_grads(model, cfg, batch, quantize="int8", label="14e-int8-fused")

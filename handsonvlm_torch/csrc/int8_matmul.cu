@@ -29,7 +29,9 @@
 // splits in order, applies the column scale and casts.
 //
 // A bf16 x from INT8_TC_MIN_M rows: wgmma, the int4 prefill kernel's
-// transposed form (csrc/int4_prefill.cu) fed by TMA. Bound: operations from
+// transposed form (csrc/int4_prefill.cu) fed by TMA; the kernel body is in
+// csrc/int8_tc.cuh, which B10a (csrc/qlora_fused.cu) instantiates with a
+// low-rank term. Bound: operations from
 // ~295 rows (above); the weight bytes a FLOP are twice the int4 kernel's,
 // so the load path matters more. The design:
 // - y^T = W^T x^T: wgmma's A operand (64 weight columns x 16 rows of d, in
@@ -40,8 +42,11 @@
 //   instructions a pair: b & 127 OR-ed into the mantissa of 128.0, less
 //   128.0, or 256.0 where b's sign bit is set (int8_pair).
 // - A block: two consumer warpgroups of 128 weight columns each (two
-//   64-column sub-tiles a warpgroup; 256 columns a block) and one producer
-//   warp. Thread (g, t) of warp q holds columns 32q + 4g .. + 3 of its
+//   64-column sub-tiles a warpgroup; 256 columns a block) and a producer
+//   warpgroup, one thread of which issues the loads; setmaxnreg moves its
+//   registers to the consumers (40 against 232 a thread: at the 168 a
+//   thread of the launch ptxas serialised the 128-row tile's wgmmas, warning
+//   C7512). Thread (g, t) of warp q holds columns 32q + 4g .. + 3 of its
 //   warpgroup's 128: one 4-byte read a weight row gives all four, the A
 //   rows g and g + 8 of sub-tile 0 (columns +0, +1) and of sub-tile 1 (+2,
 //   +3). Two register sets alternate over the k16 steps.
@@ -60,8 +65,8 @@
 //   picks (row tile, splits, rows of d a split) from (m, d, n) and the SM
 //   count alone; each split writes its f32 sums and the GEMV's merge kernel
 //   adds them in split order, scales and casts.
-// What holds it back (on an H100, a 7B layer's seven projections: 0.47 ms at
-// 391 rows, 1.4x torch.mm over the upcast weight, 1.58 ms at 2048, 1.1x;
+// What holds it back (on an H100, a 7B layer's seven projections: 0.45 ms at
+// 391 rows, 1.3x torch.mm over the upcast weight, 1.49 ms at 2048, 1.06x;
 // PERF.md): as in the int4 transpose kernel, a stage takes a fixed ~0.55 us
 // a wave that the products do not hide, and at a few hundred rows the
 // blocks fill the card only with split-K, whose f32 partials cost 8 bytes
@@ -80,6 +85,7 @@
 
 #include <type_traits>
 
+#include "int8_tc.cuh"
 #include "mma.cuh"
 #include "weight_gemm.cuh"
 
@@ -91,24 +97,6 @@ constexpr int kCols = 16;                              // columns per thread
 constexpr int kGemvCols = 256;                         // columns per block
 constexpr int kSlabs = kGemvCols / kCols;              // threads across a row: 16
 constexpr int kLanes = kGemvThreads / kSlabs;          // threads down the rows: 16
-
-// the tensor-core route
-constexpr int kTcWG = 2;                    // consumer warpgroups
-constexpr int kTcThreads = 128 * kTcWG + 32;  // and one producer warp
-constexpr int kTcCols = 128 * kTcWG;        // weight columns a block
-constexpr int kTcKS = 64;                   // rows of d a stage: four k16 steps
-constexpr int kTcWBytes = kTcKS * kTcCols;  // a stage's weight bytes: [64][128] boxes
-
-// N rows of m a block (wgmma's N)
-template <int N>
-struct TcTile {
-  static constexpr int kXBytes = N * 128;  // [N][64] bf16
-  static constexpr int kStage = kXBytes + kTcWBytes;
-  static constexpr int kStages = 6;
-  static constexpr int kBarOff = kStages * kStage;
-  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;  // + slack to align to 1024
-  static_assert(kStage % 1024 == 0, "stages keep the 128-byte swizzle's alignment");
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -187,176 +175,21 @@ __global__ void __launch_bounds__(kGemvThreads)
   out[i] = from_f32<To>(s * scale[i % n]);
 }
 
-// A for one k16 step of rows r0 = 16s + 2t (+1, +8, +9) of the stage's
-// [64][128] weight box: this thread's four columns (byte `cb` of the box
-// row, 16-byte chunk c of row r at c ^ (r % 8)); a[0] sub-tile 0 (columns
-// +0 and +1 as A rows g and g + 8), a[1] sub-tile 1 (+2, +3)
-__device__ __forceinline__ void int8_step(uint32_t (&a)[2][4], const unsigned char* wb, int s,
-                                          int tq, int cb) {
-  const int r0 = 16 * s + 2 * tq;
-  uint32_t w[4];  // rows r0, r0 + 1, r0 + 8, r0 + 9
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + (i & 1) + 8 * (i >> 1);
-    w[i] = *reinterpret_cast<const uint32_t*>(wb + r * 128 + (((cb >> 4) ^ (r & 7)) << 4) +
-                                              (cb & 15));
-  }
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    // column 2u + c of the four, rows (r0, r0 + 1) and (r0 + 8, r0 + 9)
-    const uint32_t lo = 0x4400u + 0x2222u * u, hi = lo + 0x1111u;
-    a[u][0] = hv::int8_pair(__byte_perm(w[0], w[1], lo));
-    a[u][1] = hv::int8_pair(__byte_perm(w[0], w[1], hi));
-    a[u][2] = hv::int8_pair(__byte_perm(w[2], w[3], lo));
-    a[u][3] = hv::int8_pair(__byte_perm(w[2], w[3], hi));
-  }
-}
-
-template <int N, typename To>
-__global__ void __launch_bounds__(kTcThreads, 1)
-    int8_tc_kernel(const __grid_constant__ CUtensorMap tm_x,  // (m, d) bf16
-                   const __grid_constant__ CUtensorMap tm_w,  // (d, n) bytes
-                   const float* __restrict__ scale,           // (n,)
-                   To* __restrict__ out,                      // (m, n)
-                   float* __restrict__ part,                  // (splits, m, n) or null
-                   int m, int n, int kt, int per) {
-  using L = TcTile<N>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = hv::smem_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
-  uint64_t* empty = full + L::kStages;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * N;
-  const int n0 = blockIdx.y * kTcCols;
-  const int k_begin = blockIdx.z * per;
-  const int total = min(kt, k_begin + per) - k_begin;
-  // the second warpgroup's columns may lie wholly past n: its box is not
-  // loaded and its columns not stored
-  const int boxes = n0 + 128 < n ? 2 : 1;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::kStages; ++s) {
-      hv::mbar_init(&full[s], 1);           // the producer's arrival and the TMA bytes
-      hv::mbar_init(&empty[s], 4 * kTcWG);  // one from each consumer warp
-    }
-    hv::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == 4 * kTcWG) {
-    // ---- producer: x and the weight rows of each stage ----
-    if (lane == 0) {
-      hv::RingPos pos;
-      for (int t = 0; t < total; ++t) {
-        hv::mbar_wait(&empty[pos.stage], pos.phase ^ 1);
-        unsigned char* st = smem + pos.stage * L::kStage;
-        const int k0 = (k_begin + t) * kTcKS;
-        hv::mbar_arrive_expect_tx(&full[pos.stage], L::kXBytes + boxes * kTcKS * 128);
-        hv::tma_load_2d(st, &tm_x, k0, m0, &full[pos.stage]);
-        for (int b = 0; b < boxes; ++b)
-          hv::tma_load_2d(st + L::kXBytes + b * kTcKS * 128, &tm_w, n0 + 128 * b, k0,
-                          &full[pos.stage]);
-        pos.next(L::kStages);
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: warpgroup wg owns weight columns [128 wg, 128 wg + 128) ----
-  const int wg = warp >> 2, q = warp & 3;
-  const int g = lane >> 2, tq = lane & 3;
-  const int cb = 32 * q + 4 * g;  // this thread's first column in the warpgroup's box
-
-  float acc[2][N / 2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[u][i] = 0.f;
-
-  uint32_t a[2][2][4];  // [register set: even / odd k16 step][sub-tile][fragment]
-  hv::RingPos pos;
-  int prev = 0;
-  for (int t = 0; t < total; ++t) {
-    hv::mbar_wait(&full[pos.stage], pos.phase);
-    const unsigned char* st = smem + pos.stage * L::kStage;
-    const uint64_t desc = hv::desc_sw128(st);
-    const unsigned char* wb = st + L::kXBytes + wg * kTcKS * 128;
-#pragma unroll
-    for (int s = 0; s < kTcKS / 16; ++s) {
-      // the set written here was read by the products two steps back, which
-      // the wait after the last step's commit has seen done (four sets and
-      // three groups in flight were no faster)
-      uint32_t(&as)[2][4] = a[s & 1];
-      int8_step(as, wb, s, tq, cb);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) hv::fence_operand(as[i / 4][i % 4]);
-      hv::wgmma_fence();
-      hv::wgmma_rs<N>(acc[0], as[0], desc + 2 * s);
-      hv::wgmma_rs<N>(acc[1], as[1], desc + 2 * s);
-      hv::wgmma_commit();
-      hv::wgmma_wait<1>();
-    }
-    // every product of the last stage is done: hand it back (here, not
-    // between the k16 steps: a branch there makes ptxas serialise them)
-    __syncwarp();
-    if (lane == 0 && t > 0) hv::mbar_arrive(&empty[prev]);
-    prev = pos.stage;
-    pos.next(L::kStages);
-  }
-  hv::wgmma_wait<0>();
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) hv::fence_operand(acc[u][i]);
-
-  // acc[u][4jj + e]: x row 8jj + 2t + (e & 1), column c + 2u + (e >> 1)
-  const int c = n0 + 128 * wg + cb;
-  if (c >= n) return;  // n is a multiple of 16: the four columns are in or out together
-  const float4 sc = *reinterpret_cast<const float4*>(scale + c);
-#pragma unroll
-  for (int jj = 0; jj < N / 8; ++jj) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 8 * jj + 2 * tq + h;
-      if (row >= m) continue;
-      const float4 v = make_float4(acc[0][4 * jj + h], acc[0][4 * jj + 2 + h],
-                                   acc[1][4 * jj + h], acc[1][4 * jj + 2 + h]);
-      const int64_t off = (int64_t)row * n + c;
-      if (part != nullptr) {
-        *reinterpret_cast<float4*>(part + (int64_t)blockIdx.z * m * n + off) = v;
-      } else if constexpr (std::is_same<To, float>::value) {
-        *reinterpret_cast<float4*>(out + off) =
-            make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
-      } else {
-        *reinterpret_cast<uint2*>(out + off) = make_uint2(
-            hv::pack_bf16(v.x * sc.x, v.y * sc.y), hv::pack_bf16(v.z * sc.z, v.w * sc.w));
-      }
-    }
-  }
-}
-
 template <typename To, int N>
 cudaError_t launch_tc(const void* x, const void* w8, const float* scale, float* part, To* out,
                       int m, int d, int n, int splits, int per, cudaStream_t stream) {
-  using L = TcTile<N>;
+  using L = hv::TcTile<N>;
   CUtensorMap tm_x, tm_w;
-  const uint64_t x_dims[2] = {(uint64_t)d, (uint64_t)m}, x_strides[1] = {(uint64_t)d * 2};
-  const uint32_t x_box[2] = {kTcKS, N};
-  const uint64_t w_dims[2] = {(uint64_t)n, (uint64_t)d}, w_strides[1] = {(uint64_t)n};
-  const uint32_t w_box[2] = {128, kTcKS};
-  if (!hv::tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides, x_box,
-                      CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hv::tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w8, w_dims, w_strides, w_box,
-                      CU_TENSOR_MAP_SWIZZLE_128B))
-    return cudaErrorInvalidValue;
+  if (!hv::tc_maps<N>(&tm_x, &tm_w, x, w8, m, d, n)) return cudaErrorInvalidValue;
   static bool configured = false;
-  cudaError_t err = hv::allow_smem(int8_tc_kernel<N, To>, L::kSmem, configured);
+  cudaError_t err = hv::allow_smem(hv::int8_tc_kernel<N, To, false>, L::kSmem, configured);
   if (err != cudaSuccess) return err;
-  const int kt = (d + kTcKS - 1) / kTcKS;
-  const dim3 grid((m + N - 1) / N, (n + kTcCols - 1) / kTcCols, splits);
-  int8_tc_kernel<N, To><<<grid, kTcThreads, L::kSmem, stream>>>(
-      tm_x, tm_w, scale, out, splits > 1 ? part : nullptr, m, n, kt, per / kTcKS);
+  const int kt = (d + hv::kTcKS - 1) / hv::kTcKS;
+  const dim3 grid((m + N - 1) / N, (n + hv::kTcCols - 1) / hv::kTcCols, splits);
+  // no low-rank term: tm_x stands in for its unread map
+  hv::int8_tc_kernel<N, To, false><<<grid, hv::kTcThreads, L::kSmem, stream>>>(
+      tm_x, tm_w, tm_x, scale, nullptr, out, splits > 1 ? part : nullptr, m, n, kt,
+      per / hv::kTcKS, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)m * n;
@@ -411,7 +244,8 @@ extern "C" int hv_int8_matmul(const void* x, const void* w8, const void* scale, 
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!tensor_cores && (m > 65535 || part == nullptr)) return (int)cudaErrorInvalidValue;
-  if (tensor_cores && (rows_per_split % kTcKS || (n + kTcCols - 1) / kTcCols > 65535))
+  if (tensor_cores &&
+      (rows_per_split % hv::kTcKS || (n + hv::kTcCols - 1) / hv::kTcCols > 65535))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8) |
        reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(out)) % 16)

@@ -487,6 +487,12 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
                        CUtensorMapSwizzle swizzle) {
   const auto encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  // cuTensorMapEncodeTiled fails unless the device's context is current on
+  // this thread, which the runtime makes so only at a call that needs it. A
+  // thread that has made none yet (autograd's backward thread when a kernel
+  // is its first work) gets it here.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], step[5];
   for (int i = 0; i < rank; ++i) {

@@ -1,8 +1,9 @@
 // Pieces shared by the weight-only matmuls on wgmma (csrc/int4_prefill.cu,
-// int4_transpose.cu, int8_matmul.cu): the exact conversion of packed int4
-// and int8 weights to bf16 pairs in registers, the mbarrier ring position
-// of a producer / consumer pipeline, the f32 -> bf16 conversion of an f32
-// input, and the in-order sum of split-K partials.
+// int4_transpose.cu, int8_matmul.cu, qlora_fused.cu): the exact conversion
+// of packed int4 and int8 weights to bf16 pairs in registers, the load of
+// a low-rank term's packed A fragments, the mbarrier ring position of a
+// producer / consumer pipeline, the f32 -> bf16 conversion of an f32 input,
+// and the in-order sum of split-K partials.
 
 #pragma once
 
@@ -49,6 +50,18 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t p) {
   const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;
   const uint32_t c = (p & 0x00800080u) ^ 0x43004300u;
   return as_u32(__hsub2(as_bf162(v), as_bf162(c)));
+}
+
+// one sub-tile's A operand of a low-rank term for one k16 step, packed in
+// registers' order (csrc/qlora_fused.cu pack_frags_kernel): the four
+// registers of the bf16 high parts at frag[at], of the rests at frag[at +
+// part]
+__device__ __forceinline__ void term_frags(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const uint4* __restrict__ frag, int64_t part,
+                                           int64_t at) {
+  const uint4 h = __ldg(frag + at), l = __ldg(frag + part + at);
+  hi[0] = h.x, hi[1] = h.y, hi[2] = h.z, hi[3] = h.w;
+  lo[0] = l.x, lo[1] = l.y, lo[2] = l.z, lo[3] = l.w;
 }
 
 // a stage of an mbarrier ring and the parity of its current phase

@@ -418,6 +418,9 @@ STAGE_S, STAGE_ROW_S, STAGE_BYTES_S = 0.55e-6, 3.3e-9, 3.0e12
 SPLIT_BYTES_S, MERGE_S = 2.0e12, 2e-6
 
 
+# memoised: a call walks ~80 candidate plans in Python, on the host's path
+# before every B7, B9 and B10 launch
+@functools.lru_cache(maxsize=4096)
 def wgmma_plan(m: int, outs: int, stages: int, n_sm: int,
                stage_bytes: int) -> Tuple[int, int, int]:
     """(row tile, splits, stages per split) for m rows, `outs` output

@@ -4,18 +4,25 @@ Port of `handsonvlm_tpu/ops/qlora_fused.py`, the projections of the
 `--qlora int8_fused` train step: the frozen int8 base (the int8 decoder's
 stacked `w8` (L, din, dout) and per-column `scale` (L, dout)) with each
 targeted projection's low-rank delta accumulated in the base product's f32
-output tile, so the full-width delta never exists in device memory.
+accumulator, so the full-width delta never exists in device memory.
 
 - Kernels, each a wrapper that launches its hand-written Hopper kernel for
   CUDA tensors and runs its plain version (`*_ref`) for CPU tensors, no
   fallback, `<wrapper>.LAUNCHES` counting launches
-  (`csrc/qlora_fused.cu`):
+  (`csrc/qlora_fused.cu`, on wgmma fed by TMA):
   - B10a `int8_stacked_fwd`: o = bf16(x) @ bf16(W8[l]) with f32 sums, times
     s[l] in f32, plus (with an adapter) u_s @ b in f32, one cast to bf16;
+    B9's tensor-core body (`csrc/int8_tc.cuh`) with the term;
   - B10b `int8_stacked_bwd`: dx = bf16(g) @ (bf16(W8[l]) * bf16(s[l]))^T,
     the scale folded into the bf16 dequantization, f32 sums, plus (with an
-    adapter) v_s @ a^T in f32, one cast to bf16.
-  Both raise under grad: they are the two halves of the autograd fronts.
+    adapter) v_s @ a^T in f32, one cast to bf16; B7's transpose body
+    (`csrc/transpose_tc.cuh`) over int8 rows with the term.
+  The term runs on the tensor cores as three bf16 products of its
+  operands' high and low parts (f32 precision but for the dropped lo lo,
+  ~2^-16). The row tile and split-K plan come from `qlora_geometry` (B9's
+  `int8_tc_plan` forward, `qlora_bwd_plan` backward); under split-K the
+  term is one more split, added once by the in-order merge. Both raise
+  under grad: they are the two halves of the autograd fronts.
 - Autograd fronts, the JAX package's custom_vjp pair:
   - `int8_matmul_stacked(x, w8_all, s_all, layer_idx)`: B10a without the
     epilogue, dx by B10b; the int8 weights and scales get no gradient;
@@ -38,9 +45,14 @@ the layer's views. The models' int8_fused route keeps `Llama.proj`'s
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from handsonvlm_torch.ops.int8_matmul import (
+    WGMMA_BLOCK, WGMMA_K_STAGE, _num_sms, int8_tc_plan, wgmma_plan)
+
+ADAPTER_STAGE = 64  # the rank of one adapter stage: the term's operands pad r to it
 
 
 def mm_f32(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -117,13 +129,33 @@ def _check(what, x2, w8_all, s_all, layer_idx, lhs, rhs, contraction):
     return d, n
 
 
+def qlora_bwd_plan(m: int, n: int, d: int, n_sm: int) -> Tuple[int, int, int]:
+    """(row tile, splits, 64-column stages of n per split) of B10b for g (m,
+    n) and w8 (d, n): B7's plan (`transpose_plan`) over int8 rows, whose
+    blocks take WGMMA_BLOCK rows of d with a stage's weight box of
+    WGMMA_BLOCK x WGMMA_K_STAGE bytes, twice B7's packed one."""
+    return wgmma_plan(m, d, -(-n // WGMMA_K_STAGE), n_sm, WGMMA_BLOCK * WGMMA_K_STAGE)
+
+
+def qlora_geometry(m: int, d: int, n: int, r: int, n_sm: int, backward: bool):
+    """The launch geometry of B10a (forward) or B10b: ((row tile, splits,
+    per split), rank padded to a stage, f32 partial slices). Per split:
+    rows of d (B10a, B9's `int8_tc_plan`) or 64-column stages of n (B10b).
+    Under split-K the adapter term is one more split, so the partials hold
+    splits + 1 slices with a term."""
+    plan = qlora_bwd_plan(m, n, d, n_sm) if backward else int8_tc_plan(m, d, n, n_sm)
+    splits = plan[1]
+    rp = -(-r // ADAPTER_STAGE) * ADAPTER_STAGE
+    return plan, rp, (splits + (r > 0) if splits > 1 else 0)
+
+
 def _launch(entry, what, counter, x2, w8_all, s_all, layer_idx, lhs, rhs, contraction):
     from handsonvlm_torch.ops._build import check, load_library, refuse_grad
 
     refuse_grad(what, x2, lhs, rhs)
     d, n = _check(what, x2, w8_all, s_all, layer_idx, lhs, rhs, contraction)
     x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the kernels read 16 bytes at a time
+    if x2.data_ptr() % 16:  # TMA reads x (g) from 16-byte aligned rows
         x2 = x2.clone()
     m = x2.shape[0]
     r = 0 if lhs is None else lhs.shape[1]
@@ -133,14 +165,26 @@ def _launch(entry, what, counter, x2, w8_all, s_all, layer_idx, lhs, rhs, contra
         if (tuple(lhs.shape), tuple(rhs.shape)) != want:
             raise ValueError(f"{what}: adapter operands {tuple(lhs.shape)}, "
                              f"{tuple(rhs.shape)}; expected {want}")
-    out = torch.empty((m, n if contraction == "d" else d), dtype=torch.bfloat16,
-                      device=x2.device)
+    cols = n if contraction == "d" else d
+    (rows, splits, per), rp, parts = qlora_geometry(
+        m, d, n, r, _num_sms(x2.device.index), backward=contraction == "n")
+    out = torch.empty((m, cols), dtype=torch.bfloat16, device=x2.device)
+    # the term's operands split into bf16 high and low parts: lhs2 for TMA,
+    # rhs2 packed as wgmma A fragments (backward: d in whole blocks of rows)
+    lhs2 = rhs2 = None
+    if r:
+        lhs2 = torch.empty((2, m, rp), dtype=torch.bfloat16, device=x2.device)
+        rhs2 = torch.empty((2, rp, n if contraction == "d" else -(-d // WGMMA_BLOCK) * WGMMA_BLOCK),
+                           dtype=torch.bfloat16, device=x2.device)
+    part = (torch.empty((parts, m, cols), dtype=torch.float32, device=x2.device)
+            if parts else None)
     lib = load_library()
     with torch.cuda.device(x2.device):
         status = getattr(lib, entry)(
             x2.data_ptr(), w8_all[layer_idx].data_ptr(), s_all[layer_idx].data_ptr(),
-            None if lhs is None else lhs.data_ptr(), None if rhs is None else rhs.data_ptr(),
-            out.data_ptr(), m, d, n, r, torch.cuda.current_stream().cuda_stream)
+            *(None if t is None else t.data_ptr() for t in (lhs, rhs, lhs2, rhs2, part)),
+            out.data_ptr(), m, d, n, r, rows, splits, per,
+            torch.cuda.current_stream().cuda_stream)
     check(status, what)
     counter.LAUNCHES += 1
     return out

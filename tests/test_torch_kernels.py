@@ -83,12 +83,15 @@ from handsonvlm_torch.ops.fused_decode import (
     split_wgu_tiled,
 )
 from handsonvlm_torch.ops.qlora_fused import (
+    ADAPTER_STAGE,
     int8_lora_matmul_stacked,
     int8_matmul_stacked,
     int8_stacked_bwd,
     int8_stacked_bwd_ref,
     int8_stacked_fwd,
     int8_stacked_fwd_ref,
+    qlora_bwd_plan,
+    qlora_geometry,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
 
@@ -1018,13 +1021,19 @@ def _qlora_operands(shape, m, r, device, seed, backward):
     return x.to(torch.bfloat16), w8, sc, lhs, rhs
 
 
+# B10a / B10b's row counts: one row, the split-K plan (16), the edges of the
+# 104-row tile, a mid count and the largest tile (128 rows at 2048)
+QLORA_ROWS = [1, 16, 104, 105, 200, 2048]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [0, 5, 128], ids=["base", "r5", "r128"])
-@pytest.mark.parametrize("m", [1, 200])
+@pytest.mark.parametrize("m", QLORA_ROWS)
 @pytest.mark.parametrize("shape", ["7b_wq", "7b_w_gate", "7b_w_down", "ragged"])
 def test_qlora_fwd_kernel(cuda, shape, m, r):
-    """B10a, with and without the LoRA epilogue (an odd rank and the
-    reference's 128), on either side of the 64-row tile, ragged n."""
+    """B10a, with and without the LoRA term (an odd rank and the
+    reference's 128), at the row tiles' edges and under split-K, ragged d
+    and n."""
     x2, w8, sc, u_s, b = _qlora_operands(shape, m, r, cuda, m + r, backward=False)
     before = int8_stacked_fwd.LAUNCHES
     got = int8_stacked_fwd(x2, w8, sc, 1, u_s, b)
@@ -1036,10 +1045,11 @@ def test_qlora_fwd_kernel(cuda, shape, m, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [0, 5, 128], ids=["base", "r5", "r128"])
-@pytest.mark.parametrize("m", [1, 200])
+@pytest.mark.parametrize("m", QLORA_ROWS)
 @pytest.mark.parametrize("shape", ["7b_wq", "7b_w_gate", "7b_w_down", "ragged"])
 def test_qlora_bwd_kernel(cuda, shape, m, r):
-    """B10b: g @ (bf16(w8) * bf16(s))^T with the v_s @ a^T epilogue."""
+    """B10b: g @ (bf16(w8) * bf16(s))^T with the v_s @ a^T term, at the same
+    row counts as B10a."""
     g2, w8, sc, v_s, a = _qlora_operands(shape, m, r, cuda, m + r + 7, backward=True)
     before = int8_stacked_bwd.LAUNCHES
     got = int8_stacked_bwd(g2, w8, sc, 1, v_s, a)
@@ -1047,6 +1057,108 @@ def test_qlora_bwd_kernel(cuda, shape, m, r):
     assert int8_stacked_bwd.LAUNCHES == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (m, w8.shape[1])
     assert_int4_close(got, int8_stacked_bwd_ref(g2, w8, sc, 1, v_s, a), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True], ids=["B10a", "B10b"])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_down"])
+def test_qlora_kernel_term_enters_once_under_split_k(cuda, shape, backward):
+    """At 16 rows both kernels split the contraction and give the LoRA term
+    a split of its own: the result agrees with the plain version (the term
+    counted once: twice, or not at all, moves every element by the term's
+    size, 0.1 x 0.1 x sqrt(r) ~ 0.1 against outputs ~ 1), and a second call
+    on the same inputs gives the same bits (the merge adds the splits in a
+    fixed order)."""
+    m, r = 16, 128
+    din, dout = INT8_SHAPES[shape]
+    assert qlora_geometry(m, din, dout, r, _num_sms_of(cuda), backward)[2] > 1
+    x2, w8, sc, lhs, rhs = _qlora_operands(shape, m, r, cuda, 11, backward=backward)
+    fn, ref = ((int8_stacked_bwd, int8_stacked_bwd_ref) if backward
+               else (int8_stacked_fwd, int8_stacked_fwd_ref))
+    got = fn(x2, w8, sc, 0, lhs, rhs)
+    torch.cuda.synchronize()
+    want = ref(x2, w8, sc, 0, lhs, rhs)
+    assert_int4_close(got, want, torch.bfloat16)
+    term = (want.float() - ref(x2, w8, sc, 0).float()).abs().mean()
+    assert float(term) > 1e-2  # the term is large enough to show a miscount
+    assert torch.equal(got, fn(x2, w8, sc, 0, lhs, rhs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B10a", "B10b", "B9", "B7b"])
+def test_tma_kernel_runs_first_in_a_fresh_thread(cuda, kernel):
+    """A kernel fed by TMA builds its tensor maps with cuTensorMapEncodeTiled,
+    which needs the device's context current on the calling thread: called
+    as the first CUDA work of a new thread (as autograd's backward thread
+    runs B10b first in a step of the fused QLoRA route), it still launches
+    and agrees with its plain version."""
+    import threading
+
+    din, dout = INT8_SHAPES["7b_wq"]
+    w8, sc = int8_weights(din, dout, 2, cuda, seed=21)
+    w4t, gst = int4_weights(din, dout, 2, cuda, seed=22)
+    x = torch.randn((16, din), generator=torch.Generator(device=cuda).manual_seed(23),
+                    device=cuda).to(torch.bfloat16)
+    calls = {"B10a": (int8_stacked_fwd, int8_stacked_fwd_ref, (x, w8, sc, 1)),
+             "B10b": (int8_stacked_bwd, int8_stacked_bwd_ref, (x, w8, sc, 1)),
+             "B9": (int8_matmul, int8_matmul_ref, (x, w8[1], sc[1])),
+             "B7b": (int4_matmul_T_tiled, int4_matmul_T_tiled_ref, (x, w4t, gst, 1))}
+    fn, ref, args = calls[kernel]
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn(*args)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - handed to the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    assert_int4_close(got["out"], ref(*args), torch.float32 if kernel == "B9" else torch.bfloat16)
+
+
+def _num_sms_of(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["B10a", "B10b"])
+@pytest.mark.parametrize("r", [0, 5, 128])
+@pytest.mark.parametrize("n", [64, 208, 4096, 11008])
+@pytest.mark.parametrize("d", [136, 4096, 11008])
+@pytest.mark.parametrize("m", [1, 16, 104, 2048])
+def test_qlora_geometry_covers_the_contraction(m, d, n, r, backward):
+    """B10a / B10b's launch geometry (CPU): B9's plan forward and B7's over
+    int8 rows backward (splits of whole 64-deep stages that cover the
+    contraction once, in order, at most sixteen of at least four stages),
+    the rank padded to whole adapter stages, and under split-K one more f32
+    partial for the term when there is one."""
+    (rows, splits, per), rp, parts = qlora_geometry(m, d, n, r, 132, backward)
+    assert rows in ROW_TILES
+    stages = -(-(n if backward else d) // 64)
+    per_stages = per if backward else per // 64
+    assert backward or per % 64 == 0
+    assert 1 <= splits <= 16 and (splits - 1) * per_stages < stages <= splits * per_stages
+    assert splits == 1 or per_stages >= 4
+    assert rp % ADAPTER_STAGE == 0 and r <= rp < r + ADAPTER_STAGE
+    assert parts == (0 if splits == 1 else splits + (r > 0))
+    if not backward:
+        assert (rows, splits, per) == int8_tc_plan(m, d, n, 132)
+
+
+@pytest.mark.parametrize("case", [
+    # (m, d, n, row tile, splits): the plan's picks at the 7B projections
+    (2048, 4096, 4096, 128, 1), (2048, 4096, 11008, 128, 1), (2048, 11008, 4096, 128, 1),
+    (16, 4096, 4096, 16, 8), (16, 11008, 4096, 16, 3),
+], ids=lambda c: "-".join(map(str, c)))
+def test_qlora_bwd_plan_at_the_7b_projections(case):
+    """B10b's plan (CPU) at the training shape takes B7's 128-row tile in one
+    pass; at 16 rows it splits n as B7 does."""
+    m, d, n, rows, splits = case
+    assert qlora_bwd_plan(m, n, d, 132)[:2] == (rows, splits)
 
 
 # B11's fp32 rows: a share of max|y| alone (see test_fused_mlp_kernel)
