@@ -179,6 +179,7 @@ from handsonvlm_torch.ops.decode_attention import (
 from handsonvlm_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_part,
     flash_attention_bwd_ref,
     flash_attention_ref,
 )
@@ -1208,12 +1209,14 @@ def _check_grad(name, got, want, want32, dtype, rows):
 
 
 def check_flash_attention_bwd() -> dict:
-    """B3b (the dq kernel, then the dk/dv kernel) against its plain version
-    on the forward kernel's output and logsumexp: T = S = 2048 and 4096
-    causal (bf16; 2048 also fp32), a 1024-row prefill at q_offset 1024 over
-    2048 keys, and a right-padded key mask (a training row's tail). Timed at
-    T = S = 2048 and 4096 against the plain version and the backward of
-    scaled_dot_product_attention (its forward outside the timed loop)."""
+    """B3b (the delta pass, then the wgmma grid of dk/dv and dq blocks)
+    against its plain version on the forward kernel's output and logsumexp:
+    T = S = 2048 and 4096 causal (bf16; 2048 also fp32), a 1024-row prefill
+    at q_offset 1024 over 2048 keys, and a right-padded key mask (a training
+    row's tail); at T = S = 2048 in bf16 a second call must give the same
+    bits. Timed at T = S = 2048 and 4096 against the plain version and the
+    backward of scaled_dot_product_attention (its forward outside the timed
+    loop), with each part of the bf16 route timed alone beside the total."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     errs = {torch.bfloat16: [], torch.float32: []}
     h, d = 32, 128
@@ -1238,12 +1241,19 @@ def check_flash_attention_bwd() -> dict:
         for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
             _check_grad(f"B3b T={t} S={s} q_offset={q_offset} right_pad={right_pad} {name}",
                         g, w, w32, dtype, errs[dtype])
+        if (t, s, q_offset, right_pad, dtype) == (2048, 2048, 0, 0, torch.bfloat16):
+            again = flash_attention_bwd(q, k, v, out, lse, do)
+            for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"B3b T=S=2048 {name}: two calls differ")
+            log("  B3b T=S=2048: a second call gives the same bits (dq, dk, dv)")
+            del again
         del q, k, v, out, lse, do, got, want, want32
         torch.cuda.empty_cache()
 
     rows, Lt = {}, 4
-    log("  B3b time, T = S causal, (1, T, 32, 128) bf16, ms per layer (both kernels): T, "
-        "kernel, plain, library (sdpa backward), bound")
+    log("  B3b time, T = S causal, (1, T, 32, 128) bf16, ms per layer (the whole backward): "
+        "T, kernel, plain, library (sdpa backward), bound; then each part alone")
     for t in TRAIN_T:
         q, k, v = (_rand(gen, (Lt, t, h, d), torch.bfloat16) for _ in range(3))
         do = _rand(gen, (1, t, h, d), torch.bfloat16)
@@ -1268,6 +1278,15 @@ def check_flash_attention_bwd() -> dict:
         bound_ms, bound_by = bound(nbytes, flops)
         log(f"    {t:5d}  {ms:8.4f}  {plain_ms:8.4f}  {library_ms:8.4f}  {bound_ms:.4f} "
             f"({bound_by}; {flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s)")
+        parts = {part: cuda_time_ms(lambda i: flash_attention_bwd_part(
+            q[i % Lt:i % Lt + 1], k[i % Lt:i % Lt + 1], v[i % Lt:i % Lt + 1],
+            fwd[i % Lt][0], fwd[i % Lt][1], do, part), iters=20)
+            for part in ("delta", "dkv", "dq")}
+        # dk/dv blocks do four of the seven products, dq blocks three
+        log(f"      parts alone: delta pass {parts['delta']:.4f} ms, dk/dv blocks "
+            f"{parts['dkv']:.4f} ms ({0.8 * flops / parts['dkv'] / 1e9:.1f} TFLOP/s), dq blocks "
+            f"{parts['dq']:.4f} ms ({0.6 * flops / parts['dq'] / 1e9:.1f} TFLOP/s), sum "
+            f"{sum(parts.values()):.4f} against {ms:.4f} in one grid")
         rows[t] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
         del q, k, v, do, fwd, leaves, outs

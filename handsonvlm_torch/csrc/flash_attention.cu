@@ -1,6 +1,7 @@
-// Blockwise (flash) attention for prefill-sized queries, forward and
-// backward, for Hopper (sm_90a). The backward is described after the
-// forward's kernels, at hv_flash_attention_bwd's definition.
+// Blockwise (flash) attention for prefill-sized queries, for Hopper
+// (sm_90a): the forward (B3) and the backward (B3b: a delta pass, then a
+// dk/dv and a dq kernel, both wgmma fed by TMA). The backward is described
+// after the forward's kernels.
 //
 // Replaces handsonvlm_tpu/ops/flash_attention.py::_fwd_kernel (the
 // pallas_call of _fwd_call, reached through flash_attention). It computes
@@ -141,8 +142,6 @@ __device__ __forceinline__ int key_tiles(const Args& a, int q0, int rows, int ti
 
 using hv::ex2;
 using hv::kLog2e;
-using hv::ldmatrix_x4_trans;
-using hv::mma_bf16;
 using hv::pack_bf16;
 
 constexpr float kLn2 = 0.6931471805599453f;
@@ -662,39 +661,63 @@ extern "C" int hv_flash_attention_fwd(
 // row past T) gives p = 0, so a query row with no valid key (the forward's
 // lse = NEG_INF) gets dq = 0 and adds nothing to dk / dv.
 //
-// Two kernels, launched in this order on the stream:
-// - dq: one block per (64 query rows, query head, batch row) sweeps the key
-//   tiles the forward visited (none above the causal diagonal, none whose
-//   keys are all masked). Its prologue computes delta for its rows and
-//   writes it to the scratch (B, H, T) buffer the second kernel reads.
-// - dk/dv: one block per (64 keys, kv head, batch row) sweeps, for each
-//   query head of the kv head's group in turn, the query tiles that can see
-//   its keys; the group's sum stays in the block's f32 registers, added in
-//   a fixed order with no atomics, so a step is deterministic. A block
-//   whose keys are all masked writes zeros.
-//
-// bf16 with D in {64, 128} runs on the tensor cores (mma.sync m16n8k16,
-// f32 accumulators): each warp owns 16 rows (queries for dq, keys for
-// dk/dv) and the other side comes in tiles of 32; S (or S^T) and dP (dP^T)
-// are two fragment products like the forward's S, and the rounded p / ds
-// are reused from the registers as the A fragments of the second products,
-// whose B fragments come from the staged tiles through ldmatrix.trans.
-// Anything else (f32, other head sizes up to 256) runs on f32 FMA, one key
-// (dq) or one query (dk/dv) per lane, as the forward's FMA kernel.
-//
 // Bound: operations. At B = 1, T = S = 2048, causal, H = 32, D = 128 the
-// backward's function needs five T x S x D products (S, dP, dq, dk, dv: 2
-// flops per multiply-add) over the causal half, 86 GFLOP a layer, 0.087 ms
-// at 989 TFLOP/s bf16 (the two kernels compute S and dP twice, seven
-// products, which the bound does not count); its bytes (q, k, v, O, dO, dq, dk, dv, lse) are ~0.13
-// GB, 0.04 ms at 3.35 TB/s. This first version re-reads K/V per query tile
-// and Q/dO per key tile from L2 without overlapping loads and products;
-// cp.async / TMA staging and wgmma are the later work toward the bound.
+// function needs five T x S x D products (S, dP, dq, dk, dv: 2 flops per
+// multiply-add) over the causal half, 86 GFLOP a layer, 0.087 ms at 989
+// TFLOP/s bf16; its bytes (q, k, v, O, dO, dq, dk, dv, lse) are ~0.13 GB,
+// 0.04 ms at 3.35 TB/s. Only wgmma reaches the tensor cores' full rate,
+// and the tiles must reach shared memory without the threads that multiply
+// stalling on them.
+//
+// bf16 with D in {64, 128}: two launches on the stream, built from B3
+// forward's parts (TMA boxes of [64 rows][64 features] of one head, read in
+// place through the strides, 128-byte swizzled, rows past T or S
+// zero-filled; three-stage mbarrier rings; a producer warpgroup whose
+// registers setmaxnreg moves to two consumer warpgroups; wgmma in the SS
+// form for S and dP, both operands K-major, and in the RS form for the
+// three products that take p or ds from registers, the other operand
+// MN-major, as B3's P V):
+// - the delta pass: D / 8 threads a (batch, token, head) row, 16-byte
+//   loads, written to the (B, H, T) scratch that the blocks after it read.
+// - one grid of two kinds of block (flash_bwd_wgmma_kernel): the dk/dv
+//   blocks, then the dq blocks, each kind the heaviest first, so the dq
+//   blocks fill the SMs that the dk/dv blocks' tail leaves idle.
+//   - dk/dv: a block per (kv head, 128 keys, batch row). K and V of its
+//     keys are loaded once and stay; each consumer warpgroup owns 64 keys.
+//     The producer warp brings Q, dO, lse and delta of 64-query tiles: for
+//     each query head of the kv head's group in turn, the tiles that can
+//     see the keys (none wholly before them under causal masking). Per
+//     tile: S^T = K Q^T and dP^T = V dO^T (SS); P^T and dS^T in registers
+//     (the key mask, causal compare and T edge only on tiles that need
+//     them); dV += P^T dO and dK += dS^T Q (RS). dK and dV stay in f32
+//     registers for the whole sweep, the group's heads added in a fixed
+//     order with no atomics, so the result is deterministic. A block whose
+//     keys are all masked, or that no query sees, writes zeros.
+//   - dq: a block per (query head, 128 query rows, batch row); Q and dO
+//     resident, each consumer warpgroup owning 64 rows. The producer brings
+//     the 64-key tiles that B3 forward visited (none above the causal
+//     diagonal, none whose keys are all masked: it reads the mask bytes and
+//     hands their words over with the tile). Per tile: S = Q K^T and dP =
+//     dO V^T (SS), dS in registers, dQ += dS K (RS, K MN-major). dQ stays
+//     in f32 registers.
+//   The two kinds compute S and dP once each: seven products for the
+//   function's five, which the bound does not count.
+// At T = S = 2048 the backward runs at about sdpa's backward, each kind of
+// block at 50-60% of the tensor rate on its own products (chip_smoke, PERF.md).
+// Tried and slower: the two kinds as two launches (the dk/dv tail idles
+// SMs), a two-stage ring (four stages gain nothing over three), the dk/dv
+// blocks issuing dV += P^T dO before computing dS (ptxas then serialises
+// the wgmmas for want of registers, C7512), block orders with the tiles
+// fastest instead of the heads, and a delta pass of one warp a row. Not
+// tried: dq inside the dk/dv blocks with dS staged to shared memory
+// (FlashAttention-3's; to stay deterministic its f32 dq parts would have to
+// be added in a fixed key order across blocks), a persistent schedule.
+//
+// Anything else (f32, other head sizes up to 256, unaligned strides) runs
+// on f32 FMA, one key (dq) or one query (dk/dv) per lane, as the forward's
+// FMA kernel, dq first (its prologue writes delta), then dk/dv.
 
 namespace {
-
-constexpr int kBwdRows = 64;  // rows a block owns: 16 per warp
-constexpr int kBwdCols = 32;  // the other side's tile
 
 struct BwdArgs {
   const void* q;       // (B, T, H, D), head and feature axes contiguous
@@ -704,7 +727,7 @@ struct BwdArgs {
   const void* out;     // (B, T, H, D) contiguous: the forward's output
   const void* dout;    // (B, T, H, D) contiguous
   const float* lse;    // (B, H, T)
-  float* delta;        // (B, H, T) scratch, written by the dq kernel
+  float* delta;        // (B, H, T) scratch, written first, read after
   void* dq;            // (B, T, H, D) contiguous
   void* dk;            // (B, S, K, D) contiguous
   void* dv;            // (B, S, K, D) contiguous
@@ -714,314 +737,612 @@ struct BwdArgs {
   float scale;
 };
 
-// rows [r0, r0 + rows) x D of a (.., token, head, D) tensor -> smem[rows][D + 8]
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int64_t token_stride, int r0, int rows,
-                                           int limit) {
-  constexpr int kLd = D + 8;
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = i % kVecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * token_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
-  }
-}
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: the delta pass, then the grid of dk/dv and dq
+// blocks
+// ---------------------------------------------------------------------------
 
-// acc[nt] (16 rows of A x 8 columns nt of B) += A B^T over D, A's 16 rows
-// at sa (pitch D + 8), B's kBwdCols rows at sb
+// delta = rowsum(dO * O) in f32: D / 8 threads a row, 16 bytes of each
 template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[kBwdCols / 8][4],
-                                        const __nv_bfloat16* sa,
-                                        const __nv_bfloat16* sb, int g, int tq) {
-  constexpr int kLd = D + 8;
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const BwdArgs a, int64_t rows) {
+  constexpr int kLanes = D / 8;  // 16 or 8 threads a row, in aligned groups of a warp
+  const int64_t r = (int64_t)blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int sub = threadIdx.x % kLanes;
+  float acc = 0.f;
+  if (r < rows) {
+    const uint4 o = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.out) +
+                                                    r * D + sub * 8);
+    const uint4 d = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) +
+                                                    r * D + sub * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t fa[4];
-    const __nv_bfloat16* ap = sa + g * kLd + kc * 16 + 2 * tq;
-    fa[0] = *reinterpret_cast<const uint32_t*>(ap);
-    fa[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * kLd);
-    fa[2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-    fa[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * kLd + 8);
-#pragma unroll
-    for (int nt = 0; nt < kBwdCols / 8; ++nt) {
-      const __nv_bfloat16* bp = sb + (nt * 8 + g) * kLd + kc * 16 + 2 * tq;
-      mma_bf16(acc[nt], fa, *reinterpret_cast<const uint32_t*>(bp),
-               *reinterpret_cast<const uint32_t*>(bp + 8));
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+      acc += df.x * of.x;
+      acc += df.y * of.y;
     }
   }
-}
-
-// out (16 x D) += P (16 x kBwdCols, bf16 A fragments in registers) @ the
-// staged [kBwdCols][D] tile at sb
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
-                                       const uint32_t (&pa)[kBwdCols / 8][2],
-                                       const __nv_bfloat16* sb, int lane) {
-  constexpr int kLd = D + 8;
 #pragma unroll
-  for (int kc = 0; kc < kBwdCols / 16; ++kc) {
-    const uint32_t fa[4] = {pa[2 * kc][0], pa[2 * kc][1], pa[2 * kc + 1][0],
-                            pa[2 * kc + 1][1]};
-    const __nv_bfloat16* brow =
-        sb + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, brow + dn * 16);
-      mma_bf16(out[2 * dn], fa, fb[0], fb[1]);
-      mma_bf16(out[2 * dn + 1], fa, fb[2], fb[3]);
-    }
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && r < rows) {
+    const int h = (int)(r % a.H);
+    const int64_t bt = r / a.H;
+    a.delta[(bt / a.T * a.H + h) * a.T + bt % a.T] = acc;
   }
 }
 
-// store a warp's 16 x D f32 fragment rows as bf16 rows of a contiguous
-// (.., rows, heads, D) tensor: `base` points at row 0's head
+// The blocks of the wgmma backward for head size D: two consumer
+// warpgroups of 64 rows and one producer warpgroup; every tile is 64 rows
+// of one head, [D / 64][64][64] bf16 with the 128-byte swizzle (TMA's).
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride,
-                                           const float (&acc)[D / 8][4], int row_lo,
-                                           int limit, int tq) {
+struct Bwd {
+  static constexpr int kThreads = 384;
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int kStages = 3;
+  // dk/dv: K (two tiles) and V (two) resident, then per stage Q, dO and the
+  // tile's lse (times log2 e) and delta; barriers full[s], empty[s], kv;
+  // the block's four key-valid words
+  static constexpr int kKVStageOff = 4 * kTile;
+  static constexpr int kKVVecOff = kKVStageOff + kStages * 2 * kTile;
+  static constexpr int kKVBarOff = kKVVecOff + kStages * 2 * 64 * 4;
+  static constexpr int kKVSmem = kKVBarOff + 8 * (2 * kStages + 1) + 16 + 1024;
+  // dq: Q (two tiles) and dO (two) resident, then per stage a key tile's K
+  // and V; barriers full[s], empty[s], q; k0[s], bits[s][2], the
+  // producer's double-buffered words [2][2]
+  static constexpr int kQStageOff = 4 * kTile;
+  static constexpr int kQBarOff = kQStageOff + kStages * 2 * kTile;
+  static constexpr int kQSmem = kQBarOff + 8 * (2 * kStages + 1) + 4 * kStages + 8 * kStages +
+                                16 + 1024;
+};
+
+// descriptor units (16 bytes) from a K-major [D / 64][64][64] tile's base to
+// its features [16 kk, 16 kk + 16)
+__device__ __forceinline__ uint64_t kstep(int kk) {
+  return (uint64_t)((kk >> 2) * 64 * 128 / 16 + 2 * (kk & 3));
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (hv::smem_addr(p) & 1023)) & 1023);
+}
+
+// a warpgroup's 64 x D f32 accumulators as bf16 rows of a contiguous
+// (.., rows, heads, D) tensor: `base` points at row 0's head; rows from
+// `limit` on are not written
+template <int NC>
+__device__ __forceinline__ void store_wg_rows(__nv_bfloat16* base, int64_t row_stride,
+                                              const float (&acc)[NC][32], int row_lo,
+                                              int limit, int tq) {
   const int row_hi = row_lo + 8;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int c = i * 8 + 2 * tq;
-    if (row_lo < limit)
-      *reinterpret_cast<__nv_bfloat162*>(base + row_lo * row_stride + c) =
-          __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-    if (row_hi < limit)
-      *reinterpret_cast<__nv_bfloat162*>(base + row_hi * row_stride + c) =
-          __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * tq;
+      if (row_lo < limit)
+        *reinterpret_cast<__nv_bfloat162*>(base + row_lo * row_stride + col) =
+            __floats2bfloat162_rn(acc[c][4 * j], acc[c][4 * j + 1]);
+      if (row_hi < limit)
+        *reinterpret_cast<__nv_bfloat162*>(base + row_hi * row_stride + col) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+    }
   }
 }
 
 template <int D>
-size_t bwd_mma_smem_bytes() {
-  return (size_t)(2 * kBwdRows + 2 * kBwdCols) * (D + 8) * sizeof(__nv_bfloat16) +
-         2 * kBwdCols * sizeof(float) + kBwdRows;
+__device__ __forceinline__ void bwd_dkv_block(const BwdArgs& a, const CUtensorMap* tmap_q,
+                                              const CUtensorMap* tmap_k,
+                                              const CUtensorMap* tmap_v,
+                                              const CUtensorMap* tmap_do, const int kh,
+                                              const int k0, const int b) {
+  using W = Bwd<D>;
+  constexpr int NC = D / 64;
+  constexpr int kTile = W::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::kKVBarOff);
+  uint64_t* empty = full + W::kStages;
+  uint64_t* kv_bar = empty + W::kStages;
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(kv_bar + 1);  // [4]
+  float* s_lse = reinterpret_cast<float*>(smem + W::kKVVecOff);  // [stage][64], x log2 e
+  float* s_delta = s_lse + W::kStages * 64;                      // [stage][64]
+
+  const int group = a.H / a.K;
+  const int64_t kv_row = (int64_t)a.K * D;  // dk and dv are contiguous
+  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(a.dk) + (int64_t)b * a.S * kv_row +
+                       (int64_t)kh * D;
+  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(a.dv) + (int64_t)b * a.S * kv_row +
+                       (int64_t)kh * D;
+
+  // the block's keys: valid below S and under the mask, a word a warp
+  if (threadIdx.x < 128) {
+    const int p = k0 + threadIdx.x;
+    const bool ok = p < a.S && (a.mask == nullptr || a.mask[(int64_t)b * a.S + p]);
+    const uint32_t word = __ballot_sync(0xffffffffu, ok);
+    if ((threadIdx.x & 31) == 0) s_words[threadIdx.x >> 5] = word;
+  }
+  // the query tiles that see the keys: from the first row whose position
+  // reaches k0
+  const int first_qt = a.causal ? max(0, k0 - a.q_offset) / 64 : 0;
+  const int n_qt = (a.T + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::kStages; ++s) {
+      hv::mbar_init(&full[s], 32);  // the producer warp's lanes; the TMA bytes
+      hv::mbar_init(&empty[s], 8);  // one from each consumer warp
+    }
+    hv::mbar_init(kv_bar, 1);
+    hv::mbar_init_fence();
+  }
+  __syncthreads();
+  if ((s_words[0] | s_words[1] | s_words[2] | s_words[3]) == 0 || first_qt >= n_qt) {
+    // no query reaches these keys: zeros
+    for (int i = threadIdx.x; i < 128 * (D / 8); i += W::kThreads) {
+      const int p = k0 + i / (D / 8), c = i % (D / 8);
+      if (p < a.S) {
+        *reinterpret_cast<uint4*>(dkb + p * kv_row + c * 8) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dvb + p * kv_row + c * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer: K and V once, then Q, dO, lse and delta a query tile ----
+    hv::reg_dealloc<40>();
+    if (threadIdx.x >= 256 + 32) return;  // one warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      hv::mbar_arrive_expect_tx(kv_bar, 4 * kTile);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int cb = 0; cb < NC; ++cb) {
+          hv::tma_load_4d(smem + w * kTile + cb * 8192, tmap_k, 64 * cb, kh, k0 + 64 * w, b,
+                          kv_bar);
+          hv::tma_load_4d(smem + (2 + w) * kTile + cb * 8192, tmap_v, 64 * cb, kh,
+                          k0 + 64 * w, b, kv_bar);
+        }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < group; ++i) {
+      const int h = kh * group + i;
+      const float* lrow = a.lse + ((int64_t)b * a.H + h) * a.T;
+      const float* drow = a.delta + ((int64_t)b * a.H + h) * a.T;
+      for (int qt = first_qt; qt < n_qt; ++qt) {
+        const int q0 = qt * 64;
+        hv::mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+        for (int r = lane; r < 64; r += 32) {
+          const bool in = q0 + r < a.T;
+          s_lse[stage * 64 + r] = in ? lrow[q0 + r] * kLog2e : 0.f;
+          s_delta[stage * 64 + r] = in ? drow[q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          unsigned char* sq = smem + W::kKVStageOff + stage * 2 * kTile;
+          hv::mbar_arrive_expect_tx(&full[stage], 2 * kTile);
+#pragma unroll
+          for (int cb = 0; cb < NC; ++cb) {
+            hv::tma_load_4d(sq + cb * 8192, tmap_q, 64 * cb, h, q0, b, &full[stage]);
+            hv::tma_load_4d(sq + kTile + cb * 8192, tmap_do, 64 * cb, h, q0, b, &full[stage]);
+          }
+        } else {
+          hv::mbar_arrive(&full[stage]);  // after its lse and delta words
+        }
+        if (++stage == W::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys [k0w, k0w + 64) ----
+  hv::reg_alloc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int k0w = k0 + 64 * wg;
+  const int kb_lo = 64 * wg + 16 * warp + g, kb_hi = kb_lo + 8;  // within the block
+  const int key_lo = k0 + kb_lo, key_hi = k0 + kb_hi;
+  const bool kok_lo = (s_words[kb_lo >> 5] >> (kb_lo & 31)) & 1u;
+  const bool kok_hi = (s_words[kb_hi >> 5] >> (kb_hi & 31)) & 1u;
+  const bool wg_all = (s_words[2 * wg] & s_words[2 * wg + 1]) == 0xffffffffu;
+  const float scale2 = a.scale * kLog2e;
+  const uint64_t dka = hv::desc_sw128(smem + wg * kTile);
+  const uint64_t dva = hv::desc_sw128(smem + (2 + wg) * kTile);
+
+  float dk[NC][32], dv[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+
+  hv::mbar_wait(kv_bar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < group; ++i) {
+    for (int qt = first_qt; qt < n_qt; ++qt) {
+      const int q0 = qt * 64;
+      hv::mbar_wait(&full[stage], phase);
+      // a tile whose queries all lie before the warpgroup's first key is idle
+      if (!a.causal || q0 + 63 + a.q_offset >= k0w) {
+        const unsigned char* sq = smem + W::kKVStageOff + stage * 2 * kTile;
+        const unsigned char* sdo = sq + kTile;
+        const uint64_t dqb = hv::desc_sw128(sq), ddo = hv::desc_sw128(sdo);
+        float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
+        hv::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hv::wgmma_ss_n64(st, dka + kstep(kk), dqb + kstep(kk), kk > 0);
+        hv::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hv::wgmma_ss_n64(dpt, dva + kstep(kk), ddo + kstep(kk), kk > 0);
+        hv::wgmma_commit();
+        hv::wgmma_wait<1>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hv::fence_operand(st[e]);
+
+        // p = 2^(s scale log2 e - lse log2 e); masked pairs 0 (the key
+        // mask, the T edge, the causal compare) on tiles that have any
+        const float* sl = s_lse + stage * 64;
+        const float* sd = s_delta + stage * 64;
+        const bool need_mask = !wg_all || q0 + 64 > a.T ||
+                               (a.causal && q0 + a.q_offset < k0w + 63);
+        uint32_t pa[8][2];  // P^T rounded to bf16: [.][0] key row g, [.][1] g + 8
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
+          float p0 = ex2(fmaf(st[4 * j], scale2, -l2.x));
+          float p1 = ex2(fmaf(st[4 * j + 1], scale2, -l2.y));
+          float p2 = ex2(fmaf(st[4 * j + 2], scale2, -l2.x));
+          float p3 = ex2(fmaf(st[4 * j + 3], scale2, -l2.y));
+          if (need_mask) {
+            const int t0 = q0 + col, t1 = t0 + 1;
+            const int lim0 = t0 + a.q_offset, lim1 = lim0 + 1;
+            const bool in0 = t0 < a.T, in1 = t1 < a.T;
+            if (!(kok_lo && in0 && (!a.causal || key_lo <= lim0))) p0 = 0.f;
+            if (!(kok_lo && in1 && (!a.causal || key_lo <= lim1))) p1 = 0.f;
+            if (!(kok_hi && in0 && (!a.causal || key_hi <= lim0))) p2 = 0.f;
+            if (!(kok_hi && in1 && (!a.causal || key_hi <= lim1))) p3 = 0.f;
+          }
+          st[4 * j] = p0;
+          st[4 * j + 1] = p1;
+          st[4 * j + 2] = p2;
+          st[4 * j + 3] = p3;
+          pa[j][0] = pack_bf16(p0, p1);
+          pa[j][1] = pack_bf16(p2, p3);
+        }
+        hv::wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hv::fence_operand(dpt[e]);
+        uint32_t da[8][2];  // dS^T rounded to bf16
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * tq);
+          da[j][0] = pack_bf16(st[4 * j] * (dpt[4 * j] - dl.x) * a.scale,
+                               st[4 * j + 1] * (dpt[4 * j + 1] - dl.y) * a.scale);
+          da[j][1] = pack_bf16(st[4 * j + 2] * (dpt[4 * j + 2] - dl.x) * a.scale,
+                               st[4 * j + 3] * (dpt[4 * j + 3] - dl.y) * a.scale);
+        }
+
+        // dV += P^T dO, dK += dS^T Q: query tiles 2kk and 2kk + 1 are the A
+        // fragment of queries [16 kk, 16 kk + 16); dO and Q the MN-major B
+        // operand, 16 queries a step (2048 bytes), an n64 wgmma per 64
+        // features
+        hv::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t fp[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+                                  pa[2 * kk + 1][1]};
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            hv::wgmma_rs_n64_tb(dv[c], fp, hv::desc_sw128_mn(sdo + c * 8192 + kk * 2048), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t fd[4] = {da[2 * kk][0], da[2 * kk][1], da[2 * kk + 1][0],
+                                  da[2 * kk + 1][1]};
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            hv::wgmma_rs_n64_tb(dk[c], fd, hv::desc_sw128_mn(sq + c * 8192 + kk * 2048), 1);
+        }
+        hv::wgmma_commit();
+        hv::wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            hv::fence_operand(dk[c][e]);
+            hv::fence_operand(dv[c][e]);
+          }
+      }
+      __syncwarp();
+      if (lane == 0) hv::mbar_arrive(&empty[stage]);
+      if (++stage == W::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  const int row_lo = k0w + 16 * warp + g;
+  store_wg_rows<NC>(dkb, kv_row, dk, row_lo, a.S, tq);
+  store_wg_rows<NC>(dvb, kv_row, dv, row_lo, a.S, tq);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(const BwdArgs a) {
-  constexpr int kLd = D + 8;
-  constexpr int kCT = kBwdCols / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdo = sq + kBwdRows * kLd;
-  __nv_bfloat16* sk = sdo + kBwdRows * kLd;
-  __nv_bfloat16* sv = sk + kBwdCols * kLd;
-  float* sdelta = reinterpret_cast<float*>(sv + kBwdCols * kLd);  // [kBwdRows]
-  uint8_t* sok = reinterpret_cast<uint8_t*>(sdelta + kBwdRows);
+__device__ __forceinline__ void bwd_dq_block(const BwdArgs& a, const CUtensorMap* tmap_q,
+                                             const CUtensorMap* tmap_k,
+                                             const CUtensorMap* tmap_v,
+                                             const CUtensorMap* tmap_do, const int h,
+                                             const int q0, const int b) {
+  using W = Bwd<D>;
+  constexpr int NC = D / 64;
+  constexpr int kTile = W::kTile;
+  constexpr int kWords = 2;  // mask words of a 64-key tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::kQBarOff);
+  uint64_t* empty = full + W::kStages;
+  uint64_t* q_bar = empty + W::kStages;
+  int* s_k0 = reinterpret_cast<int*>(q_bar + 1);
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(s_k0 + W::kStages);  // [stage][2]
+  uint32_t* s_pwords = s_bits + kWords * W::kStages;                   // [2][2]
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBwdRows;
-  const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.K);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
+  const int wg = threadIdx.x >> 7;
+  int end = a.S;  // the key tiles B3 forward visited
+  if (a.causal) end = min(end, min(q0 + 128, a.T) + a.q_offset);
+  const int n_tiles = end <= 0 ? 0 : (end + 63) / 64;
 
-  const __nv_bfloat16* qb =
-      static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
-  const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(a.k) + (int64_t)b * a.k_sb + (int64_t)kh * D;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + (int64_t)b * a.v_sb + (int64_t)kh * D;
-  const int64_t row_st = (int64_t)a.H * D;  // out, dout and dq are contiguous
-  const int64_t head0 = (int64_t)b * a.T * row_st + (int64_t)h * D;
-  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(a.out) + head0;
-  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) + head0;
-  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
-  const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
-
-  stage_rows<D>(sq, qb, a.q_st, q0, kBwdRows, a.T);
-  stage_rows<D>(sdo, dob, row_st, q0, kBwdRows, a.T);
-  // delta = rowsum(dO * O) in f32: each warp its 16 rows
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr, t = q0 + r;
-    float acc = 0.f;
-    if (t < a.T)
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dob[t * row_st + d]) * __bfloat162float(ob[t * row_st + d]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      sdelta[r] = acc;
-      if (t < a.T) a.delta[lrow + t] = acc;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::kStages; ++s) {
+      // one from each producer warp (after its mask word); the TMA bytes
+      hv::mbar_init(&full[s], kWords);
+      hv::mbar_init(&empty[s], 8);  // one from each consumer warp
     }
+    hv::mbar_init(q_bar, 1);
+    hv::mbar_init_fence();
   }
   __syncthreads();
 
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
-  const float lse_lo = row_lo < a.T ? a.lse[lrow + row_lo] : 0.f;
-  const float lse_hi = row_hi < a.T ? a.lse[lrow + row_hi] : 0.f;
-  const float dl_lo = sdelta[warp * 16 + g], dl_hi = sdelta[warp * 16 + g + 8];
-  const int qpos_lo = row_lo + a.q_offset, qpos_hi = qpos_lo + 8;
-
-  float acc[D / 8][4];
+  if (wg == 2) {
+    // ---- producer: Q and dO once, then K and V a key tile, mask read with them ----
+    hv::reg_dealloc<40>();
+    const int ptid = threadIdx.x - 256;
+    if (ptid >= 32 * kWords) return;
+    const int pwarp = ptid >> 5, lane = ptid & 31;
+    if (ptid == 0) {
+      hv::mbar_arrive_expect_tx(q_bar, 4 * kTile);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+      for (int w = 0; w < 2; ++w)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-  // the key tiles the forward visited: none past the last row's position
-  int end = a.S;
-  if (a.causal) end = min(end, min(q0 + kBwdRows, a.T) + a.q_offset);
-  const int n_tiles = end <= 0 ? 0 : (end + kBwdCols - 1) / kBwdCols;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBwdCols;
-    bool key_ok = false;
-    if (tid < kBwdCols) {
-      const int p = k0 + tid;
-      key_ok = p < a.S && (mrow == nullptr || mrow[p]);
+        for (int cb = 0; cb < NC; ++cb) {
+          hv::tma_load_4d(smem + w * kTile + cb * 8192, tmap_q, 64 * cb, h, q0 + 64 * w, b,
+                          q_bar);
+          hv::tma_load_4d(smem + (2 + w) * kTile + cb * 8192, tmap_do, 64 * cb, h,
+                          q0 + 64 * w, b, q_bar);
+        }
     }
-    if (!__syncthreads_or(key_ok)) continue;
-    if (tid < kBwdCols) sok[tid] = key_ok;
-    stage_rows<D>(sk, kb, a.k_st, k0, kBwdCols, a.S);
-    stage_rows<D>(sv, vb, a.v_st, k0, kBwdCols, a.S);
-    __syncthreads();
-
-    float s[kCT][4], dp[kCT][4];
+    const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * 64;
+      const int p = k0 + ptid;
+      const bool ok = p < a.S && (mrow == nullptr || mrow[p]);
+      const uint32_t word = __ballot_sync(0xffffffffu, ok);
+      uint32_t* pw = s_pwords + kWords * (kt & 1);
+      if (lane == 0) pw[pwarp] = word;
+      hv::named_bar_sync(1, 32 * kWords);
+      if ((pw[0] | pw[1]) == 0) continue;  // a tile with no valid key is never staged
+      hv::mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) s_bits[kWords * stage + pwarp] = word;
+      if (ptid == 0) {
+        s_k0[stage] = k0;
+        unsigned char* sk = smem + W::kQStageOff + stage * 2 * kTile;
+        hv::mbar_arrive_expect_tx(&full[stage], 2 * kTile);
 #pragma unroll
-    for (int i = 0; i < kCT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    mma_abt<D>(s, sq + warp * 16 * kLd, sk, g, tq);
-    mma_abt<D>(dp, sdo + warp * 16 * kLd, sv, g, tq);
-
-    uint32_t pa[kCT][2];  // ds rounded to bf16: [.][0] row g, [.][1] row g + 8
-#pragma unroll
-    for (int nt = 0; nt < kCT; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * tq + (e & 1);
-        const bool hi = e >= 2;
-        const bool ok = sok[j] && (!a.causal || k0 + j <= (hi ? qpos_hi : qpos_lo));
-        const float p = ok ? expf(s[nt][e] * a.scale - (hi ? lse_hi : lse_lo)) : 0.f;
-        ds[e] = p * (dp[nt][e] - (hi ? dl_hi : dl_lo)) * a.scale;
+        for (int cb = 0; cb < NC; ++cb) {
+          hv::tma_load_4d(sk + cb * 8192, tmap_k, 64 * cb, kh, k0, b, &full[stage]);
+          hv::tma_load_4d(sk + kTile + cb * 8192, tmap_v, 64 * cb, kh, k0, b, &full[stage]);
+        }
+      } else if (lane == 0) {
+        hv::mbar_arrive(&full[stage]);  // after its mask word
       }
-      pa[nt][0] = pack_bf16(ds[0], ds[1]);
-      pa[nt][1] = pack_bf16(ds[2], ds[3]);
+      if (++stage == W::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-    mma_pb<D>(acc, pa, sk, lane);
+    // the end: a stage whose k0 is -1
+    hv::mbar_wait(&empty[stage], phase ^ 1);
+    if (ptid == 0) s_k0[stage] = -1;
+    if (lane == 0) hv::mbar_arrive(&full[stage]);
+    return;
   }
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + head0, row_st, acc, row_lo, a.T, tq);
-}
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const BwdArgs a) {
-  constexpr int kLd = D + 8;
-  constexpr int kCT = kBwdCols / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + kBwdRows * kLd;
-  __nv_bfloat16* sq = sv + kBwdRows * kLd;
-  __nv_bfloat16* sdo = sq + kBwdCols * kLd;
-  float* slse = reinterpret_cast<float*>(sdo + kBwdCols * kLd);  // [kBwdCols]
-  float* sdelta = slse + kBwdCols;                                // [kBwdCols]
-  uint8_t* sok = reinterpret_cast<uint8_t*>(sdelta + kBwdCols);   // [kBwdRows]
-
-  const int k0 = blockIdx.x * kBwdRows;
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // ---- consumers: warpgroup wg owns query rows [q0w, q0w + 64) ----
+  hv::reg_alloc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const uint8_t* mrow = a.mask ? a.mask + (int64_t)b * a.S : nullptr;
+  const int q0w = q0 + 64 * wg;
+  const int row_lo = q0w + 16 * warp + g, row_hi = row_lo + 8;
+  const int pos_lo = row_lo + a.q_offset, pos_hi = pos_lo + 8;
+  const int first_pos = q0w + a.q_offset;  // the warpgroup's first row
+  const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
+  const float lse_lo = row_lo < a.T ? a.lse[lrow + row_lo] * kLog2e : 0.f;
+  const float lse_hi = row_hi < a.T ? a.lse[lrow + row_hi] * kLog2e : 0.f;
+  const float dl_lo = row_lo < a.T ? a.delta[lrow + row_lo] : 0.f;
+  const float dl_hi = row_hi < a.T ? a.delta[lrow + row_hi] : 0.f;
+  const float scale2 = a.scale * kLog2e;
+  const uint64_t dqa = hv::desc_sw128(smem + wg * kTile);
+  const uint64_t doa = hv::desc_sw128(smem + (2 + wg) * kTile);
 
-  bool key_ok = false;
-  if (tid < kBwdRows) {
-    const int p = k0 + tid;
-    key_ok = p < a.S && (mrow == nullptr || mrow[p]);
-    sok[tid] = key_ok;
-  }
-  const bool any_key = __syncthreads_or(key_ok);
-
-  const int64_t kv_row_st = (int64_t)a.K * D;  // dk and dv are contiguous
-  const int64_t kv_head0 = (int64_t)b * a.S * kv_row_st + (int64_t)kh * D;
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  float dk[D / 8][4], dv[D / 8][4];
+  float acc[NC][32];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 
-  if (any_key) {
-    stage_rows<D>(sk, static_cast<const __nv_bfloat16*>(a.k) + (int64_t)b * a.k_sb +
-                          (int64_t)kh * D, a.k_st, k0, kBwdRows, a.S);
-    stage_rows<D>(sv, static_cast<const __nv_bfloat16*>(a.v) + (int64_t)b * a.v_sb +
-                          (int64_t)kh * D, a.v_st, k0, kBwdRows, a.S);
-    const bool kok_lo = sok[warp * 16 + g], kok_hi = sok[warp * 16 + g + 8];
-    // the first query tile whose rows can see key k0 under causal masking
-    const int first_q = a.causal ? max(0, k0 - a.q_offset) : 0;
-    const int64_t row_st = (int64_t)a.H * D;
-    for (int i = 0; i < group; ++i) {
-      const int h = kh * group + i;
-      const __nv_bfloat16* qb =
-          static_cast<const __nv_bfloat16*>(a.q) + (int64_t)b * a.q_sb + (int64_t)h * D;
-      const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(a.dout) +
-                                 (int64_t)b * a.T * row_st + (int64_t)h * D;
-      const int64_t lrow = ((int64_t)b * a.H + h) * a.T;
-      for (int q0 = (first_q / kBwdCols) * kBwdCols; q0 < a.T; q0 += kBwdCols) {
-        __syncthreads();  // the previous tile's reads of sq, sdo, slse, sdelta are done
-        stage_rows<D>(sq, qb, a.q_st, q0, kBwdCols, a.T);
-        stage_rows<D>(sdo, dob, row_st, q0, kBwdCols, a.T);
-        if (tid < kBwdCols) {
-          const int t = q0 + tid;
-          slse[tid] = t < a.T ? a.lse[lrow + t] : 0.f;
-          sdelta[tid] = t < a.T ? a.delta[lrow + t] : 0.f;
+  hv::mbar_wait(q_bar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    hv::mbar_wait(&full[stage], phase);
+    const int k0 = s_k0[stage];
+    if (k0 < 0) break;
+    // a tile wholly above the warpgroup's diagonal, or rows all past T
+    if (q0w < a.T && (!a.causal || k0 <= first_pos + 63)) {
+      const unsigned char* sk = smem + W::kQStageOff + stage * 2 * kTile;
+      const unsigned char* sv = sk + kTile;
+      const uint64_t dkb = hv::desc_sw128(sk), dvb = hv::desc_sw128(sv);
+      float s[32], dp[32];
+      hv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hv::wgmma_ss_n64(s, dqa + kstep(kk), dkb + kstep(kk), kk > 0);
+      hv::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hv::wgmma_ss_n64(dp, doa + kstep(kk), dvb + kstep(kk), kk > 0);
+      hv::wgmma_commit();
+      hv::wgmma_wait<1>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) hv::fence_operand(s[e]);
+
+      // the key mask where the tile has a masked key, the causal compare
+      // where the tile reaches past the warpgroup's first row
+      const uint32_t bits0 = s_bits[kWords * stage], bits1 = s_bits[kWords * stage + 1];
+      const bool need_mask = (bits0 & bits1) != 0xffffffffu || (a.causal && k0 + 63 > first_pos);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p0 = ex2(fmaf(s[4 * j], scale2, -lse_lo));
+        float p1 = ex2(fmaf(s[4 * j + 1], scale2, -lse_lo));
+        float p2 = ex2(fmaf(s[4 * j + 2], scale2, -lse_hi));
+        float p3 = ex2(fmaf(s[4 * j + 3], scale2, -lse_hi));
+        if (need_mask) {
+          const int col = 8 * j + 2 * tq;
+          const uint32_t bits = col < 32 ? bits0 : bits1;
+          const bool kv0 = (bits >> (col & 31)) & 1u, kv1 = (bits >> ((col & 31) + 1)) & 1u;
+          const int kpos = k0 + col;
+          if (!(kv0 && (!a.causal || kpos <= pos_lo))) p0 = 0.f;
+          if (!(kv1 && (!a.causal || kpos + 1 <= pos_lo))) p1 = 0.f;
+          if (!(kv0 && (!a.causal || kpos <= pos_hi))) p2 = 0.f;
+          if (!(kv1 && (!a.causal || kpos + 1 <= pos_hi))) p3 = 0.f;
         }
-        __syncthreads();
-
-        float st[kCT][4], dpt[kCT][4];
-#pragma unroll
-        for (int c = 0; c < kCT; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.f;
-        mma_abt<D>(st, sk + warp * 16 * kLd, sq, g, tq);
-        mma_abt<D>(dpt, sv + warp * 16 * kLd, sdo, g, tq);
-
-        uint32_t pa[kCT][2], da[kCT][2];  // p^T and ds^T as bf16 A fragments
-#pragma unroll
-        for (int nt = 0; nt < kCT; ++nt) {
-          float p[4], ds[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = nt * 8 + 2 * tq + (e & 1);  // query within the tile
-            const bool hi = e >= 2;
-            const int t = q0 + j;
-            const bool ok = (hi ? kok_hi : kok_lo) && t < a.T &&
-                            (!a.causal || (hi ? key_hi : key_lo) <= t + a.q_offset);
-            p[e] = ok ? expf(st[nt][e] * a.scale - slse[j]) : 0.f;
-            ds[e] = p[e] * (dpt[nt][e] - sdelta[j]) * a.scale;
-          }
-          pa[nt][0] = pack_bf16(p[0], p[1]);
-          pa[nt][1] = pack_bf16(p[2], p[3]);
-          da[nt][0] = pack_bf16(ds[0], ds[1]);
-          da[nt][1] = pack_bf16(ds[2], ds[3]);
-        }
-        mma_pb<D>(dv, pa, sdo, lane);
-        mma_pb<D>(dk, da, sq, lane);
+        s[4 * j] = p0;
+        s[4 * j + 1] = p1;
+        s[4 * j + 2] = p2;
+        s[4 * j + 3] = p3;
       }
+      hv::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) hv::fence_operand(dp[e]);
+      uint32_t da[8][2];  // dS rounded to bf16: [.][0] row g, [.][1] row g + 8
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        da[j][0] = pack_bf16(s[4 * j] * (dp[4 * j] - dl_lo) * a.scale,
+                             s[4 * j + 1] * (dp[4 * j + 1] - dl_lo) * a.scale);
+        da[j][1] = pack_bf16(s[4 * j + 2] * (dp[4 * j + 2] - dl_hi) * a.scale,
+                             s[4 * j + 3] * (dp[4 * j + 3] - dl_hi) * a.scale);
+      }
+
+      // dQ += dS K: K the MN-major B operand, 16 keys a step (2048 bytes)
+      hv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fd[4] = {da[2 * kk][0], da[2 * kk][1], da[2 * kk + 1][0],
+                                da[2 * kk + 1][1]};
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          hv::wgmma_rs_n64_tb(acc[c], fd, hv::desc_sw128_mn(sk + c * 8192 + kk * 2048), 1);
+      }
+      hv::wgmma_commit();
+      hv::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) hv::fence_operand(acc[c][e]);
+    }
+    __syncwarp();
+    if (lane == 0) hv::mbar_arrive(&empty[stage]);
+    if (++stage == W::kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + kv_head0, kv_row_st, dk, key_lo, a.S, tq);
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + kv_head0, kv_row_st, dv, key_lo, a.S, tq);
+  const int64_t row_st = (int64_t)a.H * D;  // dq is contiguous
+  store_wg_rows<NC>(static_cast<__nv_bfloat16*>(a.dq) + (int64_t)b * a.T * row_st +
+                        (int64_t)h * D,
+                    row_st, acc, row_lo, a.T, tq);
 }
 
+// One launch for both kinds of block: the first n_dkv blocks of the grid
+// are dk/dv blocks, the heaviest first (key tile 0 sees the most queries
+// under causal masking; kv heads fastest), the rest dq blocks, again the
+// heaviest first (the last query tile has the most keys). The dq blocks
+// fill the SMs that the dk/dv blocks' tail leaves idle.
 template <int D>
-cudaError_t launch_bwd_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  const size_t bytes = bwd_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma_kernel<D>
-      <<<dim3((a.T + kBwdRows - 1) / kBwdRows, a.H, B), kThreads, bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_mma_kernel<D>
-      <<<dim3((a.S + kBwdRows - 1) / kBwdRows, a.K, B), kThreads, bytes, stream>>>(a);
+__global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
+    flash_bwd_wgmma_kernel(const BwdArgs a, const __grid_constant__ CUtensorMap tmap_q,
+                           const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v,
+                           const __grid_constant__ CUtensorMap tmap_do, int n_dkv) {
+  int i = blockIdx.x;
+  if (i < n_dkv) {
+    const int n_kt = (a.S + 127) / 128;
+    const int kh = i % a.K;
+    i /= a.K;
+    bwd_dkv_block<D>(a, &tmap_q, &tmap_k, &tmap_v, &tmap_do, kh, i % n_kt * 128, i / n_kt);
+  } else {
+    const int n_qt = (a.T + 127) / 128;
+    i -= n_dkv;
+    const int h = i % a.H;
+    i /= a.H;
+    bwd_dq_block<D>(a, &tmap_q, &tmap_k, &tmap_v, &tmap_do, h, (n_qt - 1 - i % n_qt) * 128,
+                    i / n_qt);
+  }
+}
+
+// parts: 1 the delta pass, 2 the dk/dv blocks, 4 the dq blocks (7 is the
+// backward; the others time a part alone)
+template <int D>
+cudaError_t launch_bwd_wgmma(const BwdArgs& a, int B, cudaStream_t stream, int parts) {
+  const int64_t do_st = (int64_t)a.H * D;  // dout is contiguous
+  CUtensorMap m[4];
+  if (!kv_tensor_map(&m[0], a.q, B, a.T, a.H, D, a.q_st, a.q_sb, 64) ||
+      !kv_tensor_map(&m[1], a.k, B, a.S, a.K, D, a.k_st, a.k_sb, 64) ||
+      !kv_tensor_map(&m[2], a.v, B, a.S, a.K, D, a.v_st, a.v_sb, 64) ||
+      !kv_tensor_map(&m[3], a.dout, B, a.T, a.H, D, do_st, do_st * a.T, 64))
+    return cudaErrorInvalidValue;
+  using W = Bwd<D>;
+  constexpr int kSmem = W::kKVSmem > W::kQSmem ? W::kKVSmem : W::kQSmem;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if (parts & 1) {
+    constexpr int kRows = 256 / (D / 8);  // rows a block of the delta pass
+    const int64_t rows = (int64_t)B * a.T * a.H;
+    flash_bwd_delta_kernel<D><<<(unsigned)((rows + kRows - 1) / kRows), 256, 0, stream>>>(
+        a, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int n_dkv = parts & 2 ? a.K * ((a.S + 127) / 128) * B : 0;
+  const int n_dq = parts & 4 ? a.H * ((a.T + 127) / 128) * B : 0;
+  if (n_dkv + n_dq > 0)
+    flash_bwd_wgmma_kernel<D><<<n_dkv + n_dq, W::kThreads, kSmem, stream>>>(
+        a, m[0], m[1], m[2], m[3], n_dkv);
   return cudaGetLastError();
 }
 
@@ -1270,31 +1591,35 @@ cudaError_t launch_bwd_fma(const BwdArgs& a, int B, cudaStream_t stream) {
 // The backward of hv_flash_attention_fwd with the same q, k, v, mask,
 // strides, causal rule and q_offset: out (the forward's output), dout, dq
 // (B, T, H, D), dk and dv (B, S, K, D) contiguous, of q's dtype; lse
-// (B, H, T) f32 from the forward; delta (B, H, T) f32 scratch. Launches
-// the dq kernel, then the dk/dv kernel. bf16 with D in {64, 128}, 16-byte
-// aligned bases and strides that are multiples of 8 runs on the tensor
-// cores, anything else with D <= 256 on f32 FMA. Returns cudaGetLastError().
+// (B, H, T) f32 from the forward; delta (B, H, T) f32 scratch. bf16 with D
+// in {64, 128}, 16-byte aligned bases and strides that are multiples of 8
+// runs on the tensor cores (the delta pass, the dk/dv kernel, the dq
+// kernel), anything else with D <= 256 on f32 FMA (the dq kernel, then the
+// dk/dv kernel). Returns cudaGetLastError().
 extern "C" int hv_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* mask, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
     int is_bf16, int B, int T, int S, int H, int K, int D, int64_t q_sb, int64_t q_st,
     int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, int causal, int q_offset,
-    float scale, void* stream) {
-  if (B < 1 || T < 1 || S < 1 || K < 1 || H % K || D < 1 || D > 32 * kMaxDPerLane)
+    float scale, int parts, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || K < 1 || H % K || D < 1 || D > 32 * kMaxDPerLane ||
+      parts < 1 || parts > 7)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BwdArgs a = {q, k, v, static_cast<const uint8_t*>(mask), out, dout,
                      static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
                      q_sb, q_st, k_sb, k_st, v_sb, v_st, T, S, H, K, D, causal, q_offset,
                      scale};
-  if (!is_bf16) return (int)launch_bwd_fma<float>(a, B, st);
+  // the FMA route launches its two kernels or nothing
+  const int fma = parts == 7 ? 0 : (int)cudaErrorInvalidValue;
+  if (!is_bf16) return fma ? fma : (int)launch_bwd_fma<float>(a, B, st);
   const bool aligned =
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-       reinterpret_cast<uintptr_t>(dv)) % 16 == 0 &&
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16 == 0 &&
       (q_sb | q_st | k_sb | k_st | v_sb | v_st) % 8 == 0;
-  if (aligned && D == 64) return (int)launch_bwd_mma<64>(a, B, st);
-  if (aligned && D == 128) return (int)launch_bwd_mma<128>(a, B, st);
-  return (int)launch_bwd_fma<__nv_bfloat16>(a, B, st);
+  if (aligned && D == 64) return (int)launch_bwd_wgmma<64>(a, B, st, parts);
+  if (aligned && D == 128) return (int)launch_bwd_wgmma<128>(a, B, st, parts);
+  return fma ? fma : (int)launch_bwd_fma<__nv_bfloat16>(a, B, st);
 }

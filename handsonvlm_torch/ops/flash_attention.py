@@ -27,11 +27,16 @@ The wrappers launch the hand-written Hopper kernels
 (`flash_attention_ref`, `flash_attention_bwd_ref`) for CPU tensors. There
 is no fallback: on a CUDA tensor a wrapper launches its kernel or raises.
 `flash_attention.LAUNCHES` counts forward launches and
-`flash_attention_bwd.LAUNCHES` backward ones (each launches the dq kernel
-and then the dk/dv kernel). When q, k or v requires grad under grad mode,
-`flash_attention` runs as a `torch.autograd.Function` whose backward is
-`flash_attention_bwd`, as the JAX package's custom_vjp pairs its forward
-with `_flash_bwd`.
+`flash_attention_bwd.LAUNCHES` backward ones. In bf16 at head sizes 64 and
+128 a backward is two launches on the stream: the delta pass (rowsum(dO *
+O)), then one grid of dk/dv blocks (K and V resident, the query tiles
+streamed) followed by dq blocks (Q and dO resident, the key tiles
+streamed), all on wgmma fed by TMA; f32 and other head sizes launch the
+FMA dq kernel, then the FMA dk/dv kernel. `flash_attention_bwd_part`
+launches one part of the bf16 route alone, to time it. When q, k or v
+requires grad under grad mode, `flash_attention` runs as a
+`torch.autograd.Function` whose backward is `flash_attention_bwd`, as the
+JAX package's custom_vjp pairs its forward with `_flash_bwd`.
 """
 
 from __future__ import annotations
@@ -181,7 +186,12 @@ def _launch(q, k, v, key_mask, causal: bool, q_offset: int):
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout, key_mask, causal: bool, q_offset: int):
+# the parts of B3b's bf16 route (the C entry point's `parts` bits)
+BWD_PARTS = {"delta": 1, "dkv": 2, "dq": 4}
+
+
+def _launch_bwd(q, k, v, out, lse, dout, key_mask, causal: bool, q_offset: int,
+                parts: int = 7):
     from handsonvlm_torch.ops._build import check, load_library, refuse_grad
 
     refuse_grad("flash_attention_bwd", q, k, v, out, dout)
@@ -207,10 +217,11 @@ def _launch_bwd(q, k, v, out, lse, dout, key_mask, causal: bool, q_offset: int):
             key_mask.data_ptr() if key_mask is not None else None, out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), int(q.dtype == torch.bfloat16), b, t, s, h, kh, d, *strides,
-            int(causal), q_offset, float(1.0 / (d ** 0.5)),
+            int(causal), q_offset, float(1.0 / (d ** 0.5)), parts,
             torch.cuda.current_stream().cuda_stream)
     check(status, "flash_attention_bwd")
-    flash_attention_bwd.LAUNCHES += 1
+    if parts == 7:
+        flash_attention_bwd.LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -235,6 +246,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, key_mask=None, causal: bool 
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, key_mask=key_mask,
                                        causal=causal, q_offset=q_offset)
     raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_attention_bwd_part(q, k, v, out, lse, dout, part: str, *, key_mask=None,
+                             causal: bool = True, q_offset: int = 0):
+    """One part of B3b's bf16 tensor-core route alone, to time it: "delta"
+    (the delta pass), "dkv" (the dk/dv blocks) or "dq" (the dq blocks). CUDA
+    tensors only; the gradients it returns are incomplete (unwritten where
+    the part does not write, and "dkv" / "dq" read the delta scratch as the
+    allocator left it). Not counted in `flash_attention_bwd.LAUNCHES`."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd_part times a kernel: CUDA tensors only")
+    return _launch_bwd(q, k, v, out, lse, dout, key_mask, causal, int(q_offset),
+                       BWD_PARTS[part])
 
 
 class _Flash(torch.autograd.Function):

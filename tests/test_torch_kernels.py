@@ -408,7 +408,8 @@ FLASH_CASES = {
 def flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed):
     """q (B, T, H, D), k/v (B, S, K, D) and a key mask (B, S): the keys a
     prefill of T rows at cache index `q_offset` has written, less a left
-    pad ("left_pad") or an interior hole ("hole")."""
+    pad ("left_pad"), a right pad ("right_pad"), an interior hole ("hole")
+    or a wider one ("wide_hole")."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, T, H, D)).astype(np.float32)
     k = rng.normal(size=(B, S, K, D)).astype(np.float32)
@@ -421,6 +422,8 @@ def flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed):
             mask[:, :5] = False
         elif mask_kind == "right_pad":  # a training row's padded tail
             mask[:, max(1, min(S, q_offset + T) - 13):] = False
+        elif mask_kind == "wide_hole":  # whole 64-key tiles and a 128-key block
+            mask[:, 40:300] = False
         else:
             mask[:, 40:110] = False  # a whole 64-key tile and more
     return q, k, v, mask
@@ -1085,15 +1088,25 @@ def test_qlora_kernel_term_enters_once_under_split_k(cuda, shape, backward):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["B10a", "B10b", "B9", "B7b"])
+@pytest.mark.parametrize("kernel", ["B10a", "B10b", "B9", "B7b", "B3b"])
 def test_tma_kernel_runs_first_in_a_fresh_thread(cuda, kernel):
     """A kernel fed by TMA builds its tensor maps with cuTensorMapEncodeTiled,
     which needs the device's context current on the calling thread: called
     as the first CUDA work of a new thread (as autograd's backward thread
-    runs B10b first in a step of the fused QLoRA route), it still launches
-    and agrees with its plain version."""
+    runs B10b first in a step of the fused QLoRA route, and B3b in a bf16
+    LoRA step's attention), it still launches and agrees with its plain
+    version."""
     import threading
 
+    if kernel == "B3b":
+        B, T, S, H, K, D, _, q_offset, _ = FLASH_BWD_CASES["gqa_d64"]
+        q, k, v, _ = flash_inputs(B, T, S, H, K, D, q_offset, None, seed=24)
+        q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v))
+        out, lse = flash_attention(q, k, v)
+        do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(25),
+                         device=cuda).to(torch.bfloat16)
+        args = (q, k, v, out, lse, do)
+        fn, ref = flash_attention_bwd, flash_attention_bwd_ref
     din, dout = INT8_SHAPES["7b_wq"]
     w8, sc = int8_weights(din, dout, 2, cuda, seed=21)
     w4t, gst = int4_weights(din, dout, 2, cuda, seed=22)
@@ -1103,7 +1116,8 @@ def test_tma_kernel_runs_first_in_a_fresh_thread(cuda, kernel):
              "B10b": (int8_stacked_bwd, int8_stacked_bwd_ref, (x, w8, sc, 1)),
              "B9": (int8_matmul, int8_matmul_ref, (x, w8[1], sc[1])),
              "B7b": (int4_matmul_T_tiled, int4_matmul_T_tiled_ref, (x, w4t, gst, 1))}
-    fn, ref, args = calls[kernel]
+    if kernel != "B3b":
+        fn, ref, args = calls[kernel]
     torch.cuda.synchronize()
     got = {}
 
@@ -1118,6 +1132,10 @@ def test_tma_kernel_runs_first_in_a_fresh_thread(cuda, kernel):
     thread.start()
     thread.join()
     assert "error" not in got, got.get("error")
+    if kernel == "B3b":
+        for name, g, w in zip(("dq", "dk", "dv"), got["out"], ref(*args)):
+            assert_grad_close(g, w, torch.bfloat16, name)
+        return
     assert_int4_close(got["out"], ref(*args), torch.float32 if kernel == "B9" else torch.bfloat16)
 
 
@@ -1255,6 +1273,117 @@ def test_flash_attention_kernel_tile_edges(cuda, case, dtype):
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
     dead = (want_lse <= -1e29).transpose(1, 2)  # (B, T, H)
     assert not bool(got[dead].any()) and bool((lse[want_lse <= -1e29] <= -1e29).all())
+
+
+# Where B3b's Hopper design cuts its work: the dk/dv kernel takes 128 keys a
+# block (64 a warpgroup) over 64-query tiles, the dq kernel 128 query rows
+# a block (64 a warpgroup) over 64-key tiles.
+def _flash_bwd_edge_cases():
+    cases = {}
+    for d in (64, 128):
+        cases.update({
+            f"d{d}_t63_s65_off2_gqa_right_pad": (1, 63, 65, 8, 2, d, True, 2, "right_pad"),
+            f"d{d}_t129_s131_off2_left_pad_dead_rows":
+                (2, 129, 131, 4, 4, d, True, 2, "left_pad"),
+            f"d{d}_t127_s193_off91": (1, 127, 193, 4, 4, d, True, 91, None),
+            f"d{d}_t65_s191_noncausal_hole": (1, 65, 191, 4, 4, d, False, 0, "hole"),
+            f"d{d}_t200_s265_off65_gqa_hole": (1, 200, 265, 8, 2, d, True, 65, "hole"),
+            f"d{d}_t200_s330_off130_masked_blocks":
+                (1, 200, 330, 4, 4, d, True, 130, "wide_hole"),
+        })
+    # these take the f32 FMA kernels in bf16 too
+    cases["fma_d32_gqa"] = (1, 70, 70, 4, 2, 32, True, 3, "right_pad")
+    cases["fma_d128_unaligned"] = (1, 70, 70, 4, 4, 128, True, 0, None)
+    return cases
+
+
+FLASH_BWD_EDGE_CASES = _flash_bwd_edge_cases()
+
+
+def _unaligned(x):
+    """x's values at a base 2 bytes past a 16-byte boundary (bf16)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _launched_kernels(fn):
+    """fn()'s result and the names of the CUDA kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()  # work queued before is not fn()'s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(FLASH_BWD_EDGE_CASES), ids=list(FLASH_BWD_EDGE_CASES))
+def test_flash_attention_bwd_kernel_tile_edges(cuda, case, dtype):
+    """B3b with T and S on either side of its query and key tiles, q_offset
+    a multiple of neither, a left pad with dead rows, a right pad, an
+    interior hole and a hole that masks whole key tiles and a whole dk/dv
+    block, GQA 4:1, D 64 / 128: dq, dk and dv against the plain version
+    under test_flash_attention_bwd_kernel's rule. bf16 at D 64 / 128 with
+    aligned bases launches the delta pass and the wgmma grid (dk/dv blocks,
+    then dq blocks) and nothing else; D = 32, an unaligned base and f32 the
+    two FMA kernels."""
+    B, T, S, H, K, D, causal, q_offset, mask_kind = FLASH_BWD_EDGE_CASES[case]
+    q, k, v, mask = flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed=len(case))
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    if "unaligned" in case:
+        q = _unaligned(q)
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    out, lse = flash_attention(q, k, v, key_mask=t_mask, causal=causal, q_offset=q_offset)
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    # contiguous, as autograd hands it over: the wrapper copies any other dO
+    do = torch.where((lse > -1e29).transpose(1, 2)[..., None], do, 0.0).to(dtype).contiguous()
+    before = flash_attention_bwd.LAUNCHES
+    got, names = _launched_kernels(lambda: flash_attention_bwd(
+        q, k, v, out, lse, do, key_mask=t_mask, causal=causal, q_offset=q_offset))
+    assert flash_attention_bwd.LAUNCHES == before + 1
+    wgmma = dtype == torch.bfloat16 and not case.startswith("fma")
+    want_names = (("flash_bwd_delta_kernel", "flash_bwd_wgmma_kernel") if wgmma
+                  else ("flash_bwd_dq_fma_kernel", "flash_bwd_dkv_fma_kernel"))
+    assert len(names) == len(want_names), names
+    assert all(any(w in n for n in names) for w in want_names), names
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, key_mask=t_mask, causal=causal,
+                                   q_offset=q_offset)
+    want32 = [None] * 3
+    if dtype == torch.bfloat16:
+        want32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse, do.float(),
+                                         key_mask=t_mask, causal=causal, q_offset=q_offset)
+    for name, g, w, w32, x in zip(("dq", "dk", "dv"), got, want, want32, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert_grad_close(g, w, dtype, name, w32)
+    dead = (lse <= -1e29).transpose(1, 2)  # (B, T, H)
+    assert not bool(got[0][dead].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["7b_2048", "gqa_d64"])
+def test_flash_attention_bwd_kernel_gives_the_same_bits_twice(cuda, case):
+    """B3b is deterministic: two calls on the same inputs give the same bits
+    for dq, dk and dv (no atomics; the GQA group's heads and the tiles are
+    added in a fixed order)."""
+    B, T, S, H, K, D, causal, q_offset, mask_kind = FLASH_BWD_CASES[case]
+    q, k, v, mask = flash_inputs(B, T, S, H, K, D, q_offset, mask_kind, seed=3)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v))
+    t_mask = None if mask is None else torch.from_numpy(mask).to(cuda)
+    out, lse = flash_attention(q, k, v, key_mask=t_mask, causal=causal, q_offset=q_offset)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(torch.bfloat16)
+    first = flash_attention_bwd(q, k, v, out, lse, do, key_mask=t_mask, causal=causal,
+                                q_offset=q_offset)
+    second = flash_attention_bwd(q, k, v, out, lse, do, key_mask=t_mask, causal=causal,
+                                 q_offset=q_offset)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 DECODE_EDGE_LENGTHS = [1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 1000]
