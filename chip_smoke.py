@@ -5,17 +5,21 @@
 Phases (each prints its lines; the last line is the JSON status):
 
 1. the card (`nvidia-smi` name and power limit) and the kernels' build:
-   every `handsonvlm_torch/csrc/*.cu` (and their shared `mma.cuh` and
-   `weight_gemm.cuh`) compiled by nvcc for sm_90a;
+   every `handsonvlm_torch/csrc/*.cu` (and their shared headers: `mma.cuh`,
+   `weight_gemm.cuh`, `gemv.cuh`, `int8_tc.cuh`, `transpose_tc.cuh`)
+   compiled by nvcc for sm_90a;
 2. each hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with kernel, plain and library times from CUDA events
    after warm-up, and the least time the card could take (`bound_ms`); B9
    (int8 matmul) at the seven 7B projections and m = 1, 5, 8, 391, 2048,
-   2379, its window rows bit-equal to single rows and its GEMV /
-   tensor-core crossover; B4c and B5a (the flat int4 layout) bit-equal to B4b and B5b
-   on the same weights, B5b and B5a also timed at m = 2048 beside torch.mm,
-   B2 and the int4 products with their share of the bound and their ratio
-   to the library call; B4a (one flat matrix) at m = 1 and 391; B10a /
+   2379, the rows of its 5- and 8-row windows bit-equal to single rows and
+   its GEMV / tensor-core crossover; B4b and B4c (the int4 GEMV, tiled and
+   flat) timed at m = 1 and 5, B4c and B5a (the flat int4 layout) bit-equal
+   to B4b and B5b on the same weights, B4b's, B4c's and B4a's window rows
+   (5 and 9 rows) bit-equal to single rows, B5b and B5a also timed at m =
+   2048 beside torch.mm, B2 and the int4 products with their share of the
+   bound and their ratio to the library call; B4a (one flat matrix) at m =
+   1 and 391; B10a /
    B10b (the fused QLoRA matmuls) through their autograd fronts at the
    seven 7B projections, m = 16 and 2048, r = 0, 5 and 128, bf16 and fp32
    inputs, two calls bit-equal at 16 rows (split-K, the LoRA term a split
@@ -769,64 +773,61 @@ def _log_also_timed(name, m, times) -> None:
         f"({bound_by}); {_shares(ms, bound_ms, mm_ms)}")
 
 
-def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, window_rows=0,
-                 also_rows=0) -> dict:
+def _int4_kernel(name, wrapper, ref, rows_checked, rows_timed, seed, also_rows=0) -> dict:
     """Check `wrapper` against `ref` at the four 7B projections for each m
     in rows_checked (bf16 and fp32), then time kernel, plain and the library
     call, torch.mm over the weight dequantized to bf16 (outside the timed
-    loop), at m = rows_timed, cycling over TIMING_LAYERS layers;
-    `window_rows` also times the kernel at that m (a verify window),
-    `also_rows` the kernel and the library call at that m."""
+    loop), at each m of rows_timed (the first is the row reported), cycling
+    over TIMING_LAYERS layers; `also_rows` also times the kernel and the
+    library call at that m."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = int4_projection_shapes(get_config("7b").llama)
     errs = {torch.bfloat16: [], torch.float32: []}
-    ms = plain_ms = mm_ms = bound_bytes = flops = window_ms = 0.0
+    times = {m: [0.0] * 5 for m in rows_timed}  # kernel, plain, library, bytes, flops
     also = [0.0] * 4
+    Lt = TIMING_LAYERS
     for proj, (din, dout) in shapes.items():
-        w4t, gst = _int4_stack(din, dout, TIMING_LAYERS, gen)
+        w4t, gst = _int4_stack(din, dout, Lt, gen)
         for dtype in (torch.bfloat16, torch.float32):
             for m in rows_checked:
                 x = _rand(gen, (1, m, din), dtype)
                 _check_int4(f"{name} {proj} {din}->{dout} m={m}",
-                            wrapper(x, w4t, gst, m % TIMING_LAYERS),
-                            ref(x, w4t, gst, m % TIMING_LAYERS), dtype, errs[dtype])
-        m, Lt = rows_timed, TIMING_LAYERS
-        x = _rand(gen, (1, m, din), torch.bfloat16)
+                            wrapper(x, w4t, gst, m % Lt),
+                            ref(x, w4t, gst, m % Lt), dtype, errs[dtype])
         w_dense = [dequantize_tiled(w4t, gst, i).to(torch.bfloat16) for i in range(Lt)]
-        t_k = cuda_time_ms(lambda i: wrapper(x, w4t, gst, i % Lt))
-        t_p = cuda_time_ms(lambda i: ref(x, w4t, gst, i % Lt), iters=10, warmup=2)
-        t_mm = cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
-        nbytes = w4t[0].numel() + gst[0].numel() * 4 + m * (din + dout) * 2
-        log(f"  {name} time {proj} ({din}->{dout}, m={m}, bf16, {Lt} layers cycled): "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_mm:.4f} ms, bound "
-            f"{bound(nbytes, 2 * m * din * dout)[0]:.4f} ms")
-        ms, plain_ms, mm_ms = ms + t_k, plain_ms + t_p, mm_ms + t_mm
-        bound_bytes += nbytes
-        flops += 2 * m * din * dout
-        if window_rows:
-            xw = _rand(gen, (1, window_rows, din), torch.bfloat16)
-            window_ms += cuda_time_ms(lambda i: wrapper(xw, w4t, gst, i % Lt))
+        for m in rows_timed:
+            x = _rand(gen, (1, m, din), torch.bfloat16)
+            t_k = cuda_time_ms(lambda i: wrapper(x, w4t, gst, i % Lt))
+            t_p = cuda_time_ms(lambda i: ref(x, w4t, gst, i % Lt), iters=10, warmup=2)
+            t_mm = cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
+            nbytes = w4t[0].numel() + gst[0].numel() * 4 + m * (din + dout) * 2
+            log(f"  {name} time {proj} ({din}->{dout}, m={m}, bf16, {Lt} layers cycled): "
+                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {t_mm:.4f} ms, bound "
+                f"{bound(nbytes, 2 * m * din * dout)[0]:.4f} ms")
+            for k, v in enumerate((t_k, t_p, t_mm, nbytes, 2 * m * din * dout)):
+                times[m][k] += v
         if also_rows:
             _also_timed(name, wrapper, _rand(gen, (1, also_rows, din), torch.bfloat16), w4t,
                         gst, w_dense, proj, also)
         del w4t, gst, w_dense
-    bound_ms, bound_by = bound(bound_bytes, flops)
-    log(f"  {name}: the four projections of one layer at m={rows_timed}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
-        f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"{_shares(ms, bound_ms, mm_ms)}")
+    for m in rows_timed:
+        ms, plain_ms, mm_ms, nbytes, flops = times[m]
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"  {name}: the four projections of one layer at m={m}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
+            f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{_shares(ms, bound_ms, mm_ms)}")
     if also_rows:
         _log_also_timed(name, also_rows, also)
-    if window_rows:
-        log(f"  {name}: the same four projections at the verify window (m={window_rows}): "
-            f"kernel {window_ms:.4f} ms")
+    ms, plain_ms, mm_ms, nbytes, flops = times[rows_timed[0]]
+    bound_ms, bound_by = bound(nbytes, flops)
     return {"max_abs_err": max(errs[torch.bfloat16]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": mm_ms}
 
 
 def check_int4_gemv() -> dict:
-    row = _int4_kernel("B4b", int4_gemv_tiled, int4_gemv_tiled_ref, (1, SPEC_K + 1, 8, 127), 1,
-                       4, window_rows=SPEC_K + 1)
+    row = _int4_kernel("B4b", int4_gemv_tiled, int4_gemv_tiled_ref, (1, SPEC_K + 1, 8, 9, 127),
+                       (1, SPEC_K + 1), 4)
     return {"name": "int4_gemv_tiled", "route": "cuda",
             "source": "handsonvlm_torch/csrc/int4_gemv.cu",
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:469", **row}
@@ -834,7 +835,7 @@ def check_int4_gemv() -> dict:
 
 def check_int4_prefill() -> dict:
     row = _int4_kernel("B5b", int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref,
-                       (128, PREFILL_ROWS, 500), PREFILL_ROWS, 5, also_rows=TRAIN_ROWS)
+                       (128, PREFILL_ROWS, 500), (PREFILL_ROWS,), 5, also_rows=TRAIN_ROWS)
     return {"name": "int4_matmul_prefill_tiled", "route": "cuda",
             "source": "handsonvlm_torch/csrc/int4_prefill.cu",
             "replaces": "handsonvlm_tpu/ops/int8_matmul.py:704", **row}
@@ -849,7 +850,7 @@ def check_int8_matmul() -> dict:
     """B9 against its plain version at the seven 7B projections (f32 out
     for bf16 and f32 x, the JAX package's output; x's dtype out, the
     decoder's call, also checked to give the same bits twice), the rows of
-    a T = 5 window bit-equal to each row alone,
+    a T = 5 window and of an 8-slot batch bit-equal to each row alone,
     then timed at each m against the plain version and torch.mm over the
     weight upcast to bf16 (outside the timed loop) with f32 output times the
     scale, TIMING_LAYERS layers cycled; and both of its paths, the GEMV and
@@ -881,14 +882,10 @@ def check_int8_matmul() -> dict:
                                 int8_matmul_ref(x, w8[i], sc[i], dtype), dtype, errs[dtype])
                     if not torch.equal(got, int8_matmul(x, w8[i], sc[i], dtype)):
                         raise AssertionError(f"B9 {proj} m={m}: two calls differ")
-            xw = _rand(gen, (SPEC_K + 1, din), dtype)
-            window = int8_matmul(xw, w8[1], sc[1], dtype)
-            same = all(torch.equal(int8_matmul(xw[r:r + 1], w8[1], sc[1], dtype)[0], window[r])
-                       for r in range(SPEC_K + 1))
-            log(f"  B9 {proj} {str(dtype).split('.')[-1]}: the {SPEC_K + 1} rows of a window "
-                f"bit-equal to each row alone: {'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError("B9: a window's row differs from the same row alone")
+            for m in (SPEC_K + 1, SERVE_SLOTS):
+                _window_bit_equal(f"B9 {proj} {str(dtype).split('.')[-1]} m={m}",
+                                  lambda a: int8_matmul(a, w8[1], sc[1], dtype),
+                                  _rand(gen, (m, din), dtype))
         w_bf16 = [w8[i].to(torch.bfloat16) for i in range(Lt)]
         for m in rows:
             x = _rand(gen, (m, din), torch.bfloat16)
@@ -931,25 +928,51 @@ def check_int8_matmul() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _window_bit_equal(name, fn, x) -> None:
+    """Each row of the m-row call fn(x) is bit-equal to fn of that row alone
+    (the GEMV's splits and sums do not depend on m)."""
+    window = fn(x)
+    same = all(torch.equal(fn(x[r:r + 1])[0], window[r]) for r in range(x.shape[0]))
+    log(f"  {name}: the {x.shape[0]} rows of a call bit-equal to each row alone: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: a row of a window differs from the same row alone")
+
+
 def check_int4_flat() -> list:
     """B4c and B5a on the four fused 7B projections, the flat layout made
     from the tiled one by the inverse permute: bit-equal to B4b and B5b on
-    the same weight and held against their plain versions, then timed (m =
-    1 and m = PREFILL_ROWS); B4a on the seven per-projection 7B matrices in
-    the flat layout at m = 1 and m = PREFILL_ROWS (the JAX package runs it
-    at every m), checked and timed."""
+    the same weight and held against their plain versions, then timed (B4c
+    at m = 1 and SPEC_K + 1, B5a at PREFILL_ROWS); B4a on the seven
+    per-projection 7B matrices in the flat layout at m = 1 and m =
+    PREFILL_ROWS (the JAX package runs it at every m), checked and timed;
+    B4b's, B4c's and B4a's window rows (SPEC_K + 1 and 9 rows) bit-equal to
+    each row alone."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     Lt = TIMING_LAYERS
     errs = {k: {torch.bfloat16: [], torch.float32: []} for k in ("B4c", "B5a", "B4a")}
-    times = {k: [0.0] * 5 for k in errs}  # kernel, plain, bytes, flops, library
+    timed = (("B4c", 1), ("B4c", SPEC_K + 1), ("B5a", PREFILL_ROWS), ("B4a", 1),
+             ("B4a", PREFILL_ROWS))
+    times = {k: [0.0] * 5 for k in timed}  # kernel, plain, bytes, flops, library
     b5a_train = [0.0] * 4  # B5a at TRAIN_ROWS: kernel, library, bytes, flops
+
+    def time_at(key, fn, ref, x, w_dense, din, dout, nbytes, args):
+        m, t = x.shape[-2], times[key]
+        few = m >= PREFILL_ROWS
+        t[0] += cuda_time_ms(lambda i: fn(x, *args(i % Lt)), iters=10 if few else 50)
+        t[1] += cuda_time_ms(lambda i: ref(x, *args(i % Lt)), iters=3 if few else 5, warmup=1)
+        t[2] += _mm_bytes(m, din, dout, nbytes)
+        t[3] += 2 * m * din * dout
+        t[4] += cuda_time_ms(lambda i: torch.mm(x.reshape(m, din), w_dense[i % Lt]),
+                             iters=10 if few else 50)
+
     for proj, (din, dout) in int4_projection_shapes(get_config("7b").llama).items():
         w4t, gst = _int4_stack(din, dout, Lt, gen)
         w4, gs = untile_int4_stacked(w4t, gst)
         for dtype in (torch.bfloat16, torch.float32):
             for name, flat, tiled, ref, ms_ in (
                     ("B4c", int4_gemv_flat, int4_gemv_tiled, int4_gemv_flat_ref,
-                     (1, SPEC_K + 1, 8, 127)),
+                     (1, SPEC_K + 1, 8, 9, 127)),
                     ("B5a", int4_matmul_prefill, int4_matmul_prefill_tiled,
                      int4_matmul_prefill_ref, (128, PREFILL_ROWS, TRAIN_ROWS))):
                 for m in ms_:
@@ -961,22 +984,23 @@ def check_int4_flat() -> list:
                     log(f"    bit-equal to the tiled kernel: {'ok' if same else 'FAIL'}")
                     if not same:
                         raise AssertionError(f"{name} differs from the tiled kernel")
+            for m in (SPEC_K + 1, 9):
+                x = _rand(gen, (m, din), dtype)
+                _window_bit_equal(f"B4b {proj} {str(dtype).split('.')[-1]} m={m}",
+                                  lambda a: int4_gemv_tiled(a, w4t, gst, 1), x)
+                _window_bit_equal(f"B4c {proj} {str(dtype).split('.')[-1]} m={m}",
+                                  lambda a: int4_gemv_flat(a, w4, gs, 1), x)
         nbytes = w4t[0].numel() + gst[0].numel() * 4
         w_dense = [dequantize_tiled(w4t, gst, i).to(torch.bfloat16) for i in range(Lt)]
         for name, fn, ref, m in (("B4c", int4_gemv_flat, int4_gemv_flat_ref, 1),
+                                 ("B4c", int4_gemv_flat, int4_gemv_flat_ref, SPEC_K + 1),
                                  ("B5a", int4_matmul_prefill, int4_matmul_prefill_ref,
                                   PREFILL_ROWS)):
-            x = _rand(gen, (1, m, din), torch.bfloat16)
-            t = times[name]
-            t[0] += cuda_time_ms(lambda i: fn(x, w4, gs, i % Lt))
-            t[1] += cuda_time_ms(lambda i: ref(x, w4, gs, i % Lt), iters=5, warmup=1)
-            t[2] += _mm_bytes(m, din, dout, nbytes)
-            t[3] += 2 * m * din * dout
-            t[4] += cuda_time_ms(lambda i: torch.mm(x[0], w_dense[i % Lt]))
+            time_at((name, m), fn, ref, _rand(gen, (1, m, din), torch.bfloat16), w_dense, din,
+                    dout, nbytes, lambda i: (w4, gs, i))
         _also_timed("B5a", int4_matmul_prefill, _rand(gen, (1, TRAIN_ROWS, din), torch.bfloat16),
                     w4, gs, w_dense, proj, b5a_train)
         del w4t, gst, w4, gs, w_dense
-    b4a_prefill = 0.0
     for proj, (din, dout) in projection_shapes(get_config("7b").llama).items():
         packed = [quantize_int4(0.02 * torch.randn((din, dout), generator=gen, device="cuda"))
                   for _ in range(Lt)]
@@ -985,33 +1009,34 @@ def check_int4_flat() -> list:
                 x = _rand(gen, (m, din), dtype)
                 _check_int4(f"B4a {proj} {din}->{dout} m={m}", int4_matmul(x, *packed[m % Lt]),
                             int4_matmul_ref(x, *packed[m % Lt]), dtype, errs["B4a"][dtype])
-        x = _rand(gen, (1, din), torch.bfloat16)
-        t = times["B4a"]
-        t[0] += cuda_time_ms(lambda i: int4_matmul(x, *packed[i % Lt]))
-        t[1] += cuda_time_ms(lambda i: int4_matmul_ref(x, *packed[i % Lt]), iters=5, warmup=1)
-        t[2] += _mm_bytes(1, din, dout, packed[0][0].numel() + packed[0][1].numel() * 4)
-        t[3] += 2 * din * dout
+            _window_bit_equal(f"B4a {proj} {str(dtype).split('.')[-1]} m=9",
+                              lambda a: int4_matmul(a, *packed[1]), _rand(gen, (9, din), dtype))
+        nbytes = packed[0][0].numel() + packed[0][1].numel() * 4
         w_dense = [dequantize_int4(*p).to(torch.bfloat16) for p in packed]
-        t[4] += cuda_time_ms(lambda i: torch.mm(x, w_dense[i % Lt]))
-        del w_dense
-        xp = _rand(gen, (PREFILL_ROWS, din), torch.bfloat16)
-        b4a_prefill += cuda_time_ms(lambda i: int4_matmul(xp, *packed[i % Lt]), iters=5, warmup=1)
-        del packed
-    out = []
-    for name, what, site, fn in (
-            ("B4c", "the four fused projections at m=1", "int8_matmul.py:931", "int4_gemv_flat"),
-            ("B5a", f"the four fused projections at m={PREFILL_ROWS}", "int8_matmul.py:637",
-             "int4_matmul_prefill"),
-            ("B4a", "the seven per-projection matrices at m=1", "int8_matmul.py:413",
-             "int4_matmul")):
-        ms, plain_ms, nbytes, flops, library_ms = times[name]
+        for m in (1, PREFILL_ROWS):
+            time_at(("B4a", m), int4_matmul, int4_matmul_ref,
+                    _rand(gen, (m, din), torch.bfloat16), w_dense, din, dout, nbytes,
+                    lambda i: packed[i])
+        del packed, w_dense
+        torch.cuda.empty_cache()
+    for key in timed:
+        name, m = key
+        ms, plain_ms, nbytes, flops, library_ms = times[key]
         bound_ms, bound_by = bound(nbytes, flops)
-        log(f"  {name} time, {what} (bf16, {Lt} layers cycled): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
+        what = ("the seven per-projection matrices" if name == "B4a"
+                else "the four fused projections")
+        log(f"  {name} time, {what} at m={m} (bf16, {Lt} layers cycled): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library (torch.mm over the dequantized bf16 weight) "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
             f"{_shares(ms, bound_ms, library_ms)}")
         if name == "B5a":
             _log_also_timed(name, TRAIN_ROWS, b5a_train)
+    out = []
+    for name, m, site, fn in (("B4c", 1, "int8_matmul.py:931", "int4_gemv_flat"),
+                              ("B5a", PREFILL_ROWS, "int8_matmul.py:637", "int4_matmul_prefill"),
+                              ("B4a", 1, "int8_matmul.py:413", "int4_matmul")):
+        ms, plain_ms, nbytes, flops, library_ms = times[name, m]
+        bound_ms, bound_by = bound(nbytes, flops)
         out.append({"name": fn, "route": "cuda",
                     "source": "handsonvlm_torch/csrc/" + (
                         "int4_prefill.cu" if name == "B5a" else "int4_gemv.cu"),
@@ -1019,8 +1044,6 @@ def check_int4_flat() -> list:
                     "max_abs_err": max(errs[name][torch.bfloat16]),
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
-    log(f"  B4a at a prefill (m={PREFILL_ROWS}, the seven projections, one row per block): "
-        f"{b4a_prefill:.4f} ms a layer")
     return out
 
 

@@ -16,17 +16,15 @@
 // ms a layer at 3.35 TB/s for any m up to 8, 1.93 ms a decode step); a
 // prefill of 391 rows is 158 GFLOP a layer, 0.160 ms at 989 TFLOP/s bf16.
 //
-// Below INT8_TC_MIN_M rows (the wrapper's choice): a GEMV shaped like the
-// int4 one (csrc/int4_gemv.cu). Grid (256-column tile, split of d, row);
-// each thread owns 16 contiguous columns and reads them with one 16-byte
-// load per weight row (a warp reads two 256-byte row runs), so the stream is
-// coalesced. A byte b becomes a float by the byte permute of int4_gemv.cu:
-// b ^ 0x80 = b + 128 lands in the mantissa of 2^23, and one subtraction of
-// 2^23 + 128 gives b exactly. The wrapper sizes the splits of d for one row
-// whatever m, so row i of a window or a slot batch sums in the same order
-// as the same row alone (the speculative loop's greedy identity rests on
-// it). Each split writes its f32 partial sums; a second kernel adds the
-// splits in order, applies the column scale and casts.
+// Below INT8_TC_MIN_M rows (the wrapper's choice): the GEMV of
+// csrc/gemv.cuh with the int8 decoder (Int8Dec), one launch a call: 128
+// columns, up to 8 rows of x and one split of d (64-row stages, up to 8
+// splits merged in a thread block cluster) a block; a bf16 x on mma.sync
+// (a register: the bf16 pair of one column's bytes of rows 2t, 2t + 1),
+// an f32 x on FMAs. The wrapper sizes the splits of d from the weight and
+// the SM count alone, so row i of a window or a slot batch sums in the same
+// order as the same row alone (the speculative loop's greedy identity rests
+// on it); the column scale applies to the merged f32 sum before the cast.
 //
 // A bf16 x from INT8_TC_MIN_M rows: wgmma, the int4 prefill kernel's
 // transposed form (csrc/int4_prefill.cu) fed by TMA; the kernel body is in
@@ -63,8 +61,8 @@
 //   store a row.
 // - Split-K over d where the blocks would not fill the card: the wrapper
 //   picks (row tile, splits, rows of d a split) from (m, d, n) and the SM
-//   count alone; each split writes its f32 sums and the GEMV's merge kernel
-//   adds them in split order, scales and casts.
+//   count alone; each split writes its f32 sums and a merge kernel adds
+//   them in split order, scales and casts.
 // What holds it back (on an H100, a 7B layer's seven projections: 0.45 ms at
 // 391 rows, 1.3x torch.mm over the upcast weight, 1.49 ms at 2048, 1.06x;
 // PERF.md): as in the int4 transpose kernel, a stage takes a fixed ~0.55 us
@@ -72,12 +70,13 @@
 // blocks fill the card only with split-K, whose f32 partials cost 8 bytes
 // an output element a split.
 //
-// An f32 x takes the GEMV at any row count: its products are exact f32
-// FMAs. On the tensor cores it would have to be split into three bf16 parts
-// (hi + mid + lo), whose sums the tensor cores' f32 accumulation rounds
-// more coarsely than FMAs do: that version put the 7B decoder's fp32 output
-// 7.5e-5 (relative L2, on an H100) from the plain path, against the 1e-4 it
-// is held to. f32 inputs serve the references, not the decoder.
+// An f32 x takes the GEMV at any row count (row tiles of 8): its products
+// are exact f32 FMAs. On the tensor cores it would have to be split into
+// three bf16 parts (hi + mid + lo), whose sums the tensor cores' f32
+// accumulation rounds more coarsely than FMAs do: that version put the 7B
+// decoder's fp32 output 7.5e-5 (relative L2, on an H100) from the plain
+// path, against the 1e-4 it is held to. f32 inputs serve the references,
+// not the decoder.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,21 +84,14 @@
 
 #include <type_traits>
 
+#include "gemv.cuh"
 #include "int8_tc.cuh"
 #include "mma.cuh"
 #include "weight_gemm.cuh"
 
 namespace {
 
-// the GEMV
-constexpr int kGemvThreads = 256;
-constexpr int kCols = 16;                              // columns per thread
-constexpr int kGemvCols = 256;                         // columns per block
-constexpr int kSlabs = kGemvCols / kCols;              // threads across a row: 16
-constexpr int kLanes = kGemvThreads / kSlabs;          // threads down the rows: 16
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kMergeThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -110,65 +102,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Byte i of w (an int8 b) as a float: w ^ 0x80808080 holds b + 128 in byte
-// i; placed in the low mantissa bits of 2^23, minus 2^23 + 128, gives b.
-__device__ __forceinline__ float byte_f32(uint32_t biased, int i) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650u | i)) - 8388736.0f;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kGemvThreads)
-    int8_gemv_kernel(const T* __restrict__ x,       // (m, d)
-                     const int8_t* __restrict__ w,  // (d, n)
-                     float* __restrict__ part,      // (n_split, m, n)
-                     int m, int d, int n, int rows_per_split) {
-  __shared__ float red[kLanes * kGemvCols];
-  const int j = blockIdx.x;
-  const int split = blockIdx.y;
-  const int row = blockIdx.z;
-  const int slab = threadIdx.x % kSlabs;
-  const int lane = threadIdx.x / kSlabs;
-  const int c0 = j * kGemvCols + slab * kCols;
-  const int r0 = split * rows_per_split;
-  const int r1 = min(d, r0 + rows_per_split);
-
-  float acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-  if (c0 < n) {
-    const T* xr = x + (size_t)row * d;
-    const int8_t* wc = w + c0;
-#pragma unroll 4
-    for (int r = r0 + lane; r < r1; r += kLanes) {
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(wc + (size_t)r * n));
-      const float xv = to_f32(xr[r]);
-      const uint32_t words[4] = {wv.x ^ 0x80808080u, wv.y ^ 0x80808080u,
-                                 wv.z ^ 0x80808080u, wv.w ^ 0x80808080u};
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[4 * k + i] = fmaf(xv, byte_f32(words[k], i), acc[4 * k + i]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) red[lane * kGemvCols + slab * kCols + c] = acc[c];
-  __syncthreads();
-  // add the row lanes of each column in order
-  for (int c = threadIdx.x; c < kGemvCols; c += kGemvThreads) {
-    const int col = j * kGemvCols + c;
-    if (col >= n) continue;
-    float s = 0.f;
-    for (int l = 0; l < kLanes; ++l) s += red[l * kGemvCols + c];
-    part[((size_t)split * m + row) * n + col] = s;
-  }
-}
-
+// the tensor cores' split-K: out = (sum over splits in order) * scale, cast
 template <typename To>
-__global__ void __launch_bounds__(kGemvThreads)
-    int8_gemv_merge_kernel(const float* __restrict__ part, const float* __restrict__ scale,
-                           To* __restrict__ out, int n_split, int n, size_t mn) {
-  const size_t i = (size_t)blockIdx.x * kGemvThreads + threadIdx.x;
+__global__ void __launch_bounds__(kMergeThreads)
+    int8_split_merge_kernel(const float* __restrict__ part, const float* __restrict__ scale,
+                            To* __restrict__ out, int n_split, int n, size_t mn) {
+  const size_t i = (size_t)blockIdx.x * kMergeThreads + threadIdx.x;
   if (i >= mn) return;
   float s = 0.f;
   for (int p = 0; p < n_split; ++p) s += part[(size_t)p * mn + i];
@@ -193,8 +132,8 @@ cudaError_t launch_tc(const void* x, const void* w8, const float* scale, float* 
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)m * n;
-  int8_gemv_merge_kernel<To><<<(unsigned)((mn + kGemvThreads - 1) / kGemvThreads), kGemvThreads,
-                               0, stream>>>(part, scale, out, splits, n, mn);
+  int8_split_merge_kernel<To><<<(unsigned)((mn + kMergeThreads - 1) / kMergeThreads),
+                                kMergeThreads, 0, stream>>>(part, scale, out, splits, n, mn);
   return cudaGetLastError();
 }
 
@@ -203,24 +142,34 @@ cudaError_t launch(const void* x, const void* w8, const void* scale, void* part,
                    int tensor_cores, int m, int d, int n, int n_split, int rows_per_split,
                    int rows_tile, cudaStream_t stream) {
   const float* st = static_cast<const float*>(scale);
-  float* pf = static_cast<float*>(part);
-  To* ot = static_cast<To*>(out);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (tensor_cores)
       return hv::with_rows_tile(rows_tile, [&](auto rows) {
-        return launch_tc<To, decltype(rows)::value>(x, w8, st, pf, ot, m, d, n, n_split,
+        return launch_tc<To, decltype(rows)::value>(x, w8, st, static_cast<float*>(part),
+                                                    static_cast<To*>(out), m, d, n, n_split,
                                                     rows_per_split, stream);
       });
   }
-  const dim3 grid((n + kGemvCols - 1) / kGemvCols, n_split, m);
-  int8_gemv_kernel<T><<<grid, kGemvThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w8), pf, m, d, n, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t mn = (size_t)m * n;
-  int8_gemv_merge_kernel<To><<<(unsigned)((mn + kGemvThreads - 1) / kGemvThreads),
-                               kGemvThreads, 0, stream>>>(pf, st, ot, n_split, n, mn);
-  return cudaGetLastError();
+  // the GEMV: rows_per_split is a multiple of the 64-row stage
+  CUtensorMap tm_w, tm_x;
+  if (!hv::gemv_w_map(&tm_w, w8, d, n, 64)) return cudaErrorInvalidValue;
+  hv::GemvArgs a = {};
+  a.x = x;
+  a.scale = st;
+  a.out = out;
+  a.m = m;
+  a.d = d;
+  a.n_out = n;
+  a.units = (d + 63) / 64;
+  a.per = rows_per_split / 64;
+  a.bn = n;
+  a.cpt = (n + hv::kGvCols - 1) / hv::kGvCols;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (!hv::gemv_x_map(&tm_x, x, m, d)) return cudaErrorInvalidValue;
+  } else {
+    tm_x = tm_w;  // an f32 x is read directly: the map goes unread
+  }
+  return hv::launch_gemv<hv::Int8Dec, T, To>(tm_w, tm_w, tm_x, a, n_split, a.cpt, stream);
 }
 
 }  // namespace
@@ -229,23 +178,26 @@ cudaError_t launch(const void* x, const void* w8, const void* scale, void* part,
 // (d, n) int8 and scale (n,) f32: views of one layer (16-byte aligned);
 // out (m, n) in f32 (out_f32 = 1) or x's dtype. d is a multiple of 8, n of
 // 16. Split s covers rows [s*rows_per_split, (s+1)*rows_per_split) of d,
-// writing f32 sums to the scratch part (n_split, m, n) that a second kernel
-// adds in split order. tensor_cores = 0: the GEMV, 256-column blocks;
-// 1 (bf16 x only): wgmma, 256 columns x rows_tile rows a block (16, 32, 64,
-// 104 or 128), rows_per_split a multiple of 64, part unused for one split.
-// Returns cudaGetLastError().
+// rows_per_split a multiple of 64. tensor_cores = 0: the GEMV (csrc/gemv.cuh),
+// 128 columns x 8 rows a block, at most 8 splits merged in the launch, part
+// unused; 1 (bf16 x only): wgmma, 256 columns x rows_tile rows a block (16,
+// 32, 64, 104 or 128), the splits' f32 sums written to the scratch part
+// (n_split, m, n) that a second kernel adds in split order (part unused for
+// one split). Returns cudaGetLastError().
 extern "C" int hv_int8_matmul(const void* x, const void* w8, const void* scale, void* part,
                               void* out, int x_bf16, int out_f32, int tensor_cores, int m,
                               int d, int n, int n_split, int rows_per_split, int rows_tile,
                               void* stream) {
   if (m < 1 || d < 8 || d % 8 || n < 16 || n % 16 || (!x_bf16 && (!out_f32 || tensor_cores)) ||
-      n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
-      (long long)(n_split - 1) * rows_per_split >= d || (long long)n_split * rows_per_split < d ||
-      (n_split > 1 && part == nullptr))
+      n_split < 1 || n_split > 65535 || rows_per_split < 1 || rows_per_split % 64 ||
+      (long long)(n_split - 1) * rows_per_split >= d || (long long)n_split * rows_per_split < d)
     return (int)cudaErrorInvalidValue;
-  if (!tensor_cores && (m > 65535 || part == nullptr)) return (int)cudaErrorInvalidValue;
-  if (tensor_cores &&
-      (rows_per_split % hv::kTcKS || (n + hv::kTcCols - 1) / hv::kTcCols > 65535))
+  if (!tensor_cores &&
+      (n_split > hv::kGvMaxSplits || (m + hv::kGvRows - 1) / hv::kGvRows > 65535 ||
+       (n + hv::kGvCols - 1) / hv::kGvCols > 65535))
+    return (int)cudaErrorInvalidValue;
+  if (tensor_cores && ((n_split > 1 && part == nullptr) ||
+                       (n + hv::kTcCols - 1) / hv::kTcCols > 65535))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8) |
        reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(out)) % 16)

@@ -49,7 +49,7 @@ SIGNATURES = {
     "hv_flash_attention_bwd": (
         [_P] * 11 + [_I] * 7 + [ctypes.c_int64] * 6 + [_I, _I, _F, _I, _P], _I),
     "hv_gather_cache_blocks": ([_P, _P] + [_I] * 4 + [ctypes.c_int64] * 3 + [_I, _I, _P], _I),
-    "hv_int4_gemv": ([_P] * 5 + [_I] * 9 + [_P], _I),
+    "hv_int4_gemv": ([_P] * 4 + [_I] * 9 + [_P], _I),
     "hv_int8_matmul": ([_P] * 5 + [_I] * 9 + [_P], _I),
     "hv_int4_prefill": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "hv_int4_transpose": ([_P] * 6 + [_I] * 9 + [_P], _I),

@@ -17,12 +17,12 @@ Port of `handsonvlm_tpu/ops/int8_matmul.py`, for the quantized decoders
   There is no fallback: on a CUDA tensor a wrapper launches its kernel or
   raises. `<wrapper>.LAUNCHES` counts launches.
   - B9 `int8_matmul` (`csrc/int8_matmul.cu`): x @ (w8 * scale), f32
-    accumulation, the GEMV below INT8_TC_MIN_M rows, the tensor cores from
-    there;
+    accumulation, the GEMV (`csrc/gemv.cuh`) below INT8_TC_MIN_M rows, the
+    tensor cores from there;
   - B4b `int4_gemv_tiled`, B4c `int4_gemv_flat` and B4a `int4_matmul`
-    (`csrc/int4_gemv.cu`, one body over the tiled and the flat address
-    map): the int4 GEMV over a stacked tiled, a stacked flat and one flat
-    matrix;
+    (`csrc/int4_gemv.cu`: the GEMV of `csrc/gemv.cuh` over the tiled and
+    the flat address map): the int4 GEMV over a stacked tiled, a stacked
+    flat and one flat matrix;
   - B5b `int4_matmul_prefill_tiled` and B5a `int4_matmul_prefill`
     (`csrc/int4_prefill.cu`): the prefill matmul over the stacked tiled and
     flat layouts;
@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,14 +62,15 @@ INT4_GROUP = 128  # contraction-group size of the int4 scales
 INT4_PREFILL_MIN_M = 128  # rows from which the prefill matmul serves a projection
 INT4_GEMV_BN = 512  # widest weight tile (columns) of the tiled layout
 # rows from which B9 runs a bf16 x on the tensor cores (below, and for an
-# f32 x at any m: the GEMV). On an H100 the wgmma route takes a 7B layer's
-# seven projections in 0.13 ms at 8 rows against the GEMV's 0.47 (which
-# re-reads the weights once a row; chip_smoke.py's B9 crossover table), so
-# the threshold is the least row count above every decode-time one: verify
-# windows (SPEC_K + 1 = 5 rows) and slot batches (8) stay on the GEMV, whose
-# rows sum alone
+# f32 x at any m: the GEMV). It is the least row count above every
+# decode-time one: verify windows (SPEC_K + 1 = 5 rows) and slot batches (8)
+# stay on the GEMV, whose rows sum alone (chip_smoke.py's B9 crossover table
+# times both routes around it)
 INT8_TC_MIN_M = 9
-INT8_GEMV_BN = 256  # columns of one B9 GEMV block (csrc/int8_matmul.cu kGemvCols)
+# the GEMV's blocks (csrc/gemv.cuh): output columns and rows of x a block,
+# splits of a column block's contraction (one thread block cluster, the
+# portable size), rows of d a B9 stage
+GEMV_COLS, GEMV_ROWS, GEMV_MAX_SPLITS, GEMV_INT8_STAGE = 128, 8, 8, 64
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +310,77 @@ def _num_sms(device_index: int) -> int:
 
 
 def gemv_split(nb: int, groups: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, groups per split) of the contraction: enough blocks of
-    (tile, split) to cover every SM about twice with one row. The row count
-    does not enter: a row reduces over the same splits in the same order
-    whether it comes alone or as row i of a verify window or a slot batch,
-    so greedy speculative decode sees the logits of sequential decode."""
-    want = min(groups, max(1, -(-2 * n_sm // nb)))
+    """(splits, groups per split) of the GEMV's contraction over `groups`
+    units for `nb` column blocks: the fewest splits (up to GEMV_MAX_SPLITS,
+    one cluster) that make at least 5/8 of n_sm blocks. On an H100 a block
+    streams its weight best alone on its SM; each split past that adds a
+    pipeline fill and its share of the merge (chip_smoke.py's B4b and B9
+    lines time the 7B projections; a sweep of the split count put every 7B
+    projection's best at the least count past 5/8 of the SMs). The row
+    count does not enter: a row reduces over the same splits in the same
+    order whether it comes alone or as row i of a verify window or a slot
+    batch, so greedy speculative decode sees the logits of sequential
+    decode."""
+    want = min(GEMV_MAX_SPLITS, groups, max(1, -(-5 * n_sm // (8 * nb))))
     per = -(-groups // want)
     return -(-groups // per), per
+
+
+class GemvPlan(NamedTuple):
+    """A GEMV launch: grid (splits, row_tiles, blocks), clusters of splits."""
+    blocks: int     # column blocks of GEMV_COLS columns
+    row_tiles: int  # tiles of GEMV_ROWS rows of x
+    splits: int     # splits of the contraction
+    per: int        # contraction units a split: int4 groups, B9 stages of 64 rows
+
+
+def int4_gemv_plan(m: int, nb: int, groups: int, bn: int, n_sm: int) -> GemvPlan:
+    """The int4 GEMV's plan for m rows over NB tiles of BN columns and G
+    groups (the tiled layout's, or the flat layout's with BN from
+    `pick_block_n`): a column block is 128 columns of one tile."""
+    blocks = nb * -(-bn // GEMV_COLS)
+    return GemvPlan(blocks, -(-m // GEMV_ROWS), *gemv_split(blocks, groups, n_sm))
+
+
+def int8_gemv_plan(m: int, d: int, n: int, n_sm: int) -> GemvPlan:
+    """B9's GEMV plan for x (m, d) and w8 (d, n): units of GEMV_INT8_STAGE
+    rows of d."""
+    blocks = -(-n // GEMV_COLS)
+    return GemvPlan(blocks, -(-m // GEMV_ROWS),
+                    *gemv_split(blocks, -(-d // GEMV_INT8_STAGE), n_sm))
+
+
+def _split_refusal(units: int, splits: int, per: int, row_tiles: int, blocks: int):
+    if not 1 <= splits <= GEMV_MAX_SPLITS:
+        return f"{splits} splits: the GEMV takes 1..{GEMV_MAX_SPLITS} (one cluster)"
+    if per < 1 or (splits - 1) * per >= units or splits * per < units:
+        return f"{splits} splits of {per} do not cover {units} units once"
+    if not 1 <= row_tiles <= 65535 or not 1 <= blocks <= 65535:
+        return f"a grid of {row_tiles} row tiles x {blocks} column blocks"
+    return None
+
+
+def int4_gemv_refusal(m: int, nb: int, groups: int, half: int, bn: int, splits: int,
+                      per: int) -> Optional[str]:
+    """Why `hv_int4_gemv` (csrc/int4_gemv.cu) would refuse these arguments,
+    its checks mirrored; None if it takes them."""
+    if bn < 16 or bn % 16 or half not in (8, 16, 32, 64) or nb < 1 or groups < 1:
+        return (f"the int4 GEMV needs a tile width that is a multiple of 16 and a group of "
+                f"16, 32, 64 or 128 rows, got {bn}, {2 * half}")
+    return _split_refusal(groups, splits, per, -(-m // GEMV_ROWS), nb * -(-bn // GEMV_COLS))
+
+
+def int8_gemv_refusal(m: int, d: int, n: int, splits: int, rows_per_split: int) -> Optional[str]:
+    """Why `hv_int8_matmul` (csrc/int8_matmul.cu) would refuse these GEMV
+    arguments, its checks mirrored; None if it takes them."""
+    if m < 1 or d < 8 or d % 8 or n < 16 or n % 16:
+        return f"B9 takes d a multiple of 8 and n of 16, got d={d}, n={n}"
+    if rows_per_split < 1 or rows_per_split % GEMV_INT8_STAGE:
+        return f"B9's splits are whole 64-row stages, got {rows_per_split} rows"
+    if (splits - 1) * rows_per_split >= d or splits * rows_per_split < d:
+        return f"{splits} splits of {rows_per_split} rows do not cover d={d} once"
+    return _split_refusal(-(-d // GEMV_INT8_STAGE), splits, rows_per_split // GEMV_INT8_STAGE,
+                          -(-m // GEMV_ROWS), -(-n // GEMV_COLS))
 
 
 def _int4_geometry(x, w, s, layer_idx, what, transpose=False):
@@ -357,22 +421,21 @@ def _launch_gemv(x, w, s, layer_idx, counter):
     from handsonvlm_torch.ops._build import check, load_library
 
     flat, nb, G, half, bn = _int4_geometry(x, w, s, layer_idx, "int4 gemv")
-    if bn % 16 or bn > 16 * 256:
-        raise ValueError(f"int4 gemv needs a tile width that is a multiple of 16 "
-                         f"up to 4096, got {bn}")
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2.data_ptr() % 16:  # TMA reads x from 16-byte aligned rows
+        x2 = x2.clone()
     m, n = x2.shape[0], nb * bn
-    if not 1 <= m < 65536:
-        raise ValueError(f"int4 gemv takes 1..65535 rows, got {m}")
-    splits, per = gemv_split(nb, G, _num_sms(x.device.index))
+    plan = int4_gemv_plan(m, nb, G, bn, _num_sms(x.device.index))
+    refusal = int4_gemv_refusal(m, nb, G, half, bn, plan.splits, plan.per)
+    if refusal:
+        raise ValueError(refusal)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         status = lib.hv_int4_gemv(
-            x2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(),
-            part.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), int(flat),
-            m, nb, G, half, bn, splits, per, torch.cuda.current_stream().cuda_stream)
+            x2.data_ptr(), w[layer_idx].data_ptr(), s[layer_idx].data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(flat), m, nb, G, half, bn, plan.splits,
+            plan.per, torch.cuda.current_stream().cuda_stream)
     check(status, counter.__name__)
     counter.LAUNCHES += 1
     return out.reshape(*x.shape[:-1], n)
@@ -565,15 +628,15 @@ def _launch_int8(x, w8, scale, out_dtype, tensor_cores=None):
         raise TypeError("the int8 matmul runs only a bf16 x on the tensor cores")
     if tensor_cores:
         rows, splits, per = int8_tc_plan(m, d, n, _num_sms(x.device.index))
+        part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
     else:
-        if m >= 65536:
-            raise ValueError(f"the int8 GEMV takes 1..65535 rows, got {m}")
-        # splits of the contraction in units of 16 rows, sized for one row
-        rows = 0
-        splits, per = gemv_split(-(-n // INT8_GEMV_BN), -(-d // 16), _num_sms(x.device.index))
-        per *= 16
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 or not tensor_cores else None)
+        # splits of the contraction in 64-row stages, sized for one row
+        plan = int8_gemv_plan(m, d, n, _num_sms(x.device.index))
+        rows, splits, per, part = 0, plan.splits, plan.per * GEMV_INT8_STAGE, None
+        refusal = int8_gemv_refusal(m, d, n, splits, per)
+        if refusal:
+            raise ValueError(refusal)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):

@@ -862,6 +862,103 @@ def test_int8_matmul_kernel_row_is_the_same_alone_and_in_a_window(cuda, shape, d
         assert torch.equal(int8_matmul(x[i:i + 1], w8[0], sc[0], dtype)[0], window[i])
 
 
+# the GEMV's tile edges (csrc/gemv.cuh: 128-column blocks, 8-row tiles,
+# splits of the contraction merged in a cluster): int4 (din, dout) with BN =
+# 208 (a 128-column block and a part of one), 7B w_down (86 groups in four
+# splits, the last of 20), tiny w_down (n = BN = 64, half a block); int8
+# ragged (d = 136: a 64-row stage and a part of one; n = 208), (1000, 400)
+# (d not a multiple of a split, n = 3 x 128 + 16), 7B w_down (172 stages)
+GEMV_EDGES = {
+    "int4_bn208": ("int4", 384, 208), "int4_7b_w_down": ("int4", 11008, 4096),
+    "int4_tiny_w_down": ("int4", 128, 64), "int4_tiny_wqkv": ("int4", 64, 192),
+    "int8_ragged": ("int8", 136, 208), "int8_1000x400": ("int8", 1000, 400),
+    "int8_7b_w_down": ("int8", 11008, 4096), "int8_tiny_wq": ("int8", 64, 64),
+}
+GEMV_KINDS = ("int4_tiled", "int4_flat", "int4_matmul", "int8")
+
+
+def _gemv_call(kind, din, dout, device, seed):
+    """(fn(x), plain(x)) of one GEMV entry point over a random weight of
+    (din, dout): B4b, B4c, B4a or B9's GEMV route at any m (x's dtype out)."""
+    if kind == "int8":
+        w8, sc = int8_weights(din, dout, 1, device, seed)
+        return (lambda x: _launch_int8(x, w8[0], sc[0], x.dtype, tensor_cores=False),
+                lambda x: int8_matmul_ref(x, w8[0], sc[0], x.dtype))
+    w4t, gst = int4_weights(din, dout, 2, device, seed)
+    w4, gs = untile_int4_stacked(w4t, gst)
+    return {"int4_tiled": (lambda x: int4_gemv_tiled(x, w4t, gst, 1),
+                           lambda x: int4_gemv_tiled_ref(x, w4t, gst, 1)),
+            "int4_flat": (lambda x: int4_gemv_flat(x, w4, gs, 1),
+                          lambda x: int4_gemv_flat_ref(x, w4, gs, 1)),
+            "int4_matmul": (lambda x: int4_matmul(x, w4[1], gs[1]),
+                            lambda x: int4_matmul_ref(x, w4[1], gs[1]))}[kind]
+
+
+def _gemv_edge_calls(case, device, seed):
+    """The GEMV entry points of an edge case's kind, each as (name, fn, plain)."""
+    kind, din, dout = GEMV_EDGES[case]
+    kinds = ("int8",) if kind == "int8" else GEMV_KINDS[:3]
+    return din, [(k, *_gemv_call(k, din, dout, device, seed)) for k in kinds]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(GEMV_EDGES))
+def test_gemv_kernel_row_is_the_same_alone_and_in_any_window(cuda, case, dtype):
+    """Row i of an m-row GEMV call (m = 2, 5, 8 in one row tile, 9 in two)
+    is bit-equal to the same row alone, for B4b, B4c, B4a and B9 at the
+    tile edges: the splits, the stage order and the merge order do not
+    depend on m, and a row's products never mix with another row's."""
+    din, calls = _gemv_edge_calls(case, cuda, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((9, din), generator=gen, device=cuda).to(dtype)
+    for name, fn, plain in calls:
+        alone = [fn(x[i:i + 1])[0] for i in range(9)]
+        for m in (2, 5, 8, 9):
+            window = fn(x[:m])
+            assert_int4_close(window, plain(x[:m]), dtype)
+            for i in range(m):
+                assert torch.equal(alone[i], window[i]), (name, m, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 17])
+@pytest.mark.parametrize("case", list(GEMV_EDGES))
+def test_gemv_kernel_tile_edges_and_same_bits_twice(cuda, case, m, dtype):
+    """The GEMV at its tile edges (a part of a 128-column block, a part of
+    a 64-row B9 stage, a short last split, more than one row tile) against
+    the plain version, and two calls give the same bits."""
+    din, calls = _gemv_edge_calls(case, cuda, seed=m)
+    x = torch.randn((1, m, din), generator=torch.Generator(device=cuda).manual_seed(m + 9),
+                    device=cuda).to(dtype)
+    for name, fn, plain in calls:
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape[:2] == (1, m), name
+        assert_int4_close(got, plain(x), dtype)
+        assert torch.equal(got, fn(x)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 5, 9])
+@pytest.mark.parametrize("kind", GEMV_KINDS)
+def test_gemv_kernel_is_one_launch(cuda, kind, m, dtype):
+    """A GEMV call launches one kernel, the GEMV body (its splits merge in
+    the launch), and counts one launch."""
+    fn, _ = _gemv_call(kind, 4096, 4096, cuda, seed=3)
+    x = torch.randn((m, 4096), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+    wrapper = {"int4_tiled": int4_gemv_tiled, "int4_flat": int4_gemv_flat,
+               "int4_matmul": int4_matmul, "int8": int8_matmul}[kind]
+    fn(x)  # the build and the first launch's set-up are not the call's
+    before = wrapper.LAUNCHES
+    _, names = _launched_kernels(lambda: fn(x))
+    assert wrapper.LAUNCHES == before + 1
+    assert len(names) == 1 and "gemv_kernel" in next(iter(names)), names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", list(INT4_SHAPES))

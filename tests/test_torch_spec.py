@@ -445,21 +445,30 @@ def test_spec_accepts_at_sampling_temperature():
 @pytest.mark.parametrize("proj", ["wqkv", "wo", "wgu", "w_down"])
 def test_int4_gemv_splits_do_not_depend_on_the_rows(proj):
     """The int4 GEMV cuts a row's contraction into splits from the weight's
-    tiling and the card alone (no row count among its arguments), so row i
-    of a k + 1 window sums in the order of the same position decoded alone.
-    Every group is covered once, and one row's blocks fill 132 SMs about
-    twice where the weight has the groups for it."""
+    column blocks (128 columns of one BN tile) and the card alone (no row
+    count among its arguments), so row i of a k + 1 window sums in the
+    order of the same position decoded alone: the plan of every row count
+    has the same splits. Every group is covered once, the splits fit one
+    cluster, and one row's blocks cover 5/8 of 132 SMs or more (each
+    streaming alone on its SM) where the weight has the groups for it,
+    with the fewest splits that do."""
     import inspect
 
     from handsonvlm_torch.models.llama import int4_projection_shapes
-    from handsonvlm_torch.ops.int8_matmul import gemv_split, tiled_shapes
+    from handsonvlm_torch.ops.int8_matmul import (GEMV_COLS, GEMV_MAX_SPLITS, gemv_split,
+                                                  int4_gemv_plan, tiled_shapes)
 
     assert list(inspect.signature(gemv_split).parameters) == ["nb", "groups", "n_sm"]
     din, dout = int4_projection_shapes(get_config("7b").llama)[proj]
-    (_, nb, groups, _, _), _ = tiled_shapes(din, dout, 1)
-    splits, per = gemv_split(nb, groups, 132)
+    (_, nb, groups, _, bn), _ = tiled_shapes(din, dout, 1)
+    blocks = nb * -(-bn // GEMV_COLS)
+    splits, per = gemv_split(blocks, groups, 132)
+    assert 1 <= splits <= GEMV_MAX_SPLITS
     assert (splits - 1) * per < groups <= splits * per
-    assert nb * splits >= min(2 * 132, nb * groups) // 2
+    assert blocks * splits >= min(5 * 132 / 8, blocks * min(groups, GEMV_MAX_SPLITS))
+    assert splits == 1 or blocks * (splits - 1) < 5 * 132 / 8
+    for m in (1, 5, 8, 9, 127):
+        assert int4_gemv_plan(m, nb, groups, bn, 132)[2:] == (splits, per)
 
 
 # -- the rewound cache ---------------------------------------------------------------------
