@@ -24,8 +24,10 @@ Phases (each prints its lines; the last line is the JSON status):
    seven 7B projections, m = 16 and 2048, r = 0, 5 and 128, bf16 and fp32
    inputs, two calls bit-equal at 16 rows (split-K, the LoRA term a split
    of its own), timed with and without the term; B11 (the fused decode
-   MLP) at a 7B int4 layer's MLP half, B = 1 and 8, timed against the
-   port's unfused chain;
+   MLP, two launches a call) at a 7B int4 layer's MLP half, B = 1, 5 and
+   8, the 8-row call's rows bit-equal to each alone and two calls
+   bit-equal, timed against the port's unfused chain and with each of its
+   two kernels alone;
 3. the bf16 chat path: the 7B bf16 model from `random:7b` on the card, three
    chat requests through the chat CLI's own turn function (prefill +
    generate_host, 32 new tokens each; one turn forces a `<hand_traj>`
@@ -214,7 +216,9 @@ from handsonvlm_torch.ops.int8_matmul import (
     untile_int4_stacked,
 )
 from handsonvlm_torch.ops.fused_decode import (
+    ROWS as ROWS_MAX,
     fused_mlp_ok,
+    fused_mlp_part,
     fused_mlp_stacked,
     fused_mlp_stacked_ref,
     split_wgu_tiled,
@@ -244,8 +248,10 @@ INT4_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 # B11 rounds xn and act to bf16 in both versions whatever h's dtype: an fp32
 # row differs where an act element's f32 sum, taken in another order, lands
 # on the other side of a rounding boundary (1.1e-4 x max|y| at 7B, B = 8, on
-# an H100); 3e-4 x max|y| with no per-element term fails a kernel that
-# rounds the residual h to bf16 (2^-9 x |h|)
+# an H100 with the FMA kernel; 1.8e-4 with the tensor-core one, whose act is
+# as close to f64 sums as the plain version's); 3e-4 x max|y| with no
+# per-element term fails a kernel that rounds the residual h to bf16 (2^-9 x
+# |h|)
 B11_TOL = {torch.bfloat16: INT4_TOL[torch.bfloat16], torch.float32: 3e-4}
 # final hidden at 7B, relative L2 from the fp32 plain path: the fp32 kernel
 # path at most FP32_REL_L2, the bf16 kernel path at most BF16_VS_PLAIN x
@@ -287,7 +293,7 @@ TRAIN_T = (2048, 4096)  # B3b's checked lengths (T = S, causal)
 T_ROWS = (16, 2048)  # B7a / B7b's checked row counts
 QLORA_ROWS = (16, 2048)  # B10a / B10b's checked row counts
 QLORA_RANKS = (0, 5, 128)  # no adapter (no epilogue), an odd small rank, the recipe's
-MLP_ROWS = (1, 8)  # B11's checked decode rows
+MLP_ROWS = (1, 5, 8)  # B11's checked and timed decode rows
 
 # every kernel wrapper by the name chip_smoke reports it under
 WRAPPERS = {"decode_attention_stacked": decode_attention_stacked,
@@ -1499,15 +1505,16 @@ def unfused_mlp(h, nrm, wgu, wd, layer, eps):
 
 def check_fused_mlp() -> dict:
     """B11 (fused_mlp_stacked) at a 7B int4 layer's MLP half (d 4096, f
-    11008: gate / up in 43 tiles of 256 columns, w_down in 16), B = 1 and 8
+    11008: gate / up in 43 tiles of 256 columns, w_down in 16), MLP_ROWS
     rows, bf16 and fp32 rows, against its plain version by B11_TOL (the int4
     gate in bf16; in fp32 3e-4 x max|y|, as both versions round xn and act
     to bf16 whatever the rows' dtype and a flip of act moves an fp32 output
-    by a bf16 step of act); timed at
-    B = 1 against the plain version and the port's unfused chain
-    (rms_norm, B4b over the fused gate|up, silu * up, B4b over w_down, the
-    residual: no single PyTorch call computes it), TIMING_LAYERS layers
-    cycled."""
+    by a bf16 step of act); the rows of the 8-row call bit-equal to each row
+    alone, and two calls bit-equal. Timed at MLP_ROWS against the plain
+    version and the port's unfused chain (rms_norm, B4b over the fused
+    gate|up, silu * up, B4b over w_down, the residual: no single PyTorch
+    call computes it), and its two kernels each alone (gate/up, then down
+    over that act), TIMING_LAYERS layers cycled."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     lcfg = get_config("7b").llama
     d, f, eps, Lt = lcfg.hidden_size, lcfg.intermediate_size, lcfg.rms_norm_eps, TIMING_LAYERS
@@ -1521,23 +1528,37 @@ def check_fused_mlp() -> dict:
                         fused_mlp_stacked(h, nrm, wg, wu, wd, i, eps),
                         fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i, eps), dtype,
                         errs[dtype], B11_TOL)
+        h = _rand(gen, (ROWS_MAX, d), dtype)
+        window = fused_mlp_stacked(h, nrm, wg, wu, wd, 1, eps)
+        same = all(torch.equal(fused_mlp_stacked(h[r:r + 1], nrm, wg, wu, wd, 1, eps)[0],
+                               window[r]) for r in range(ROWS_MAX))
+        twice = torch.equal(window, fused_mlp_stacked(h, nrm, wg, wu, wd, 1, eps))
+        log(f"  B11 {str(dtype).split('.')[-1]} rows: the {ROWS_MAX}-row call's rows bit-equal "
+            f"to each alone {'ok' if same else 'FAIL'}; two calls bit-equal "
+            f"{'ok' if twice else 'FAIL'}")
+        if not (same and twice):
+            raise AssertionError("B11: rows differ alone and in a window, or between calls")
+    weight_bytes = sum(w[k][0].numel() * w[k].element_size() for w in (wg, wu, wd)
+                       for k in ("w4t", "gst"))
     times = {}
     for b in MLP_ROWS:
         h = _rand(gen, (b, d), torch.bfloat16)
-        times[b] = (cuda_time_ms(lambda i: fused_mlp_stacked(h, nrm, wg, wu, wd, i % Lt, eps)),
-                    cuda_time_ms(lambda i: fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i % Lt, eps),
-                                 iters=5, warmup=1),
-                    cuda_time_ms(lambda i: unfused_mlp(h, nrm, wgu, wd, i % Lt, eps)))
-    weight_bytes = sum(w[k][0].numel() * w[k].element_size() for w in (wg, wu, wd)
-                       for k in ("w4t", "gst"))
-    for b, (ms, plain_ms, chain_ms) in times.items():
+        act = fused_mlp_part(h, nrm, wg, wu, wd, 0, eps, 1)
+        ms = cuda_time_ms(lambda i: fused_mlp_stacked(h, nrm, wg, wu, wd, i % Lt, eps))
+        chain_ms = cuda_time_ms(lambda i: unfused_mlp(h, nrm, wgu, wd, i % Lt, eps))
+        plain_ms = cuda_time_ms(lambda i: fused_mlp_stacked_ref(h, nrm, wg, wu, wd, i % Lt, eps),
+                                iters=5, warmup=1)
+        up_ms = cuda_time_ms(lambda i: fused_mlp_part(h, nrm, wg, wu, wd, i % Lt, eps, 1))
+        down_ms = cuda_time_ms(lambda i: fused_mlp_part(h, nrm, wg, wu, wd, i % Lt, eps, 2,
+                                                        act=act))
         bound_ms, bound_by = bound(weight_bytes + 2 * b * d * 2, 2 * 3 * b * d * f)
+        times[b] = (ms, plain_ms, bound_ms, bound_by)
         log(f"  B11 time, a 7B layer's MLP half at B={b} (bf16, {Lt} layers cycled): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the unfused chain (library none) "
-            f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{weight_bytes / 1e6:.1f} MB of weights and scales)")
-    ms, plain_ms, _ = times[1]
-    bound_ms, bound_by = bound(weight_bytes + 2 * d * 2, 2 * 3 * d * f)
+            f"{ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound, {ms / chain_ms:.2f}x the "
+            f"unfused chain), plain {plain_ms:.4f} ms, the unfused chain (library none) "
+            f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {weight_bytes / 1e6:.1f} "
+            f"MB of weights and scales); alone: gate/up {up_ms:.4f} ms, down {down_ms:.4f} ms")
+    ms, plain_ms, bound_ms, bound_by = times[1]
     return {"name": "fused_mlp_stacked", "route": "cuda",
             "source": "handsonvlm_torch/csrc/fused_decode.cu",
             "replaces": "handsonvlm_tpu/ops/fused_decode.py:159",

@@ -2,7 +2,10 @@
 // x @ W for a few rows of x over an int4 (csrc/int4_gemv.cu: B4a, B4b,
 // B4c) or an int8 (csrc/int8_matmul.cu: B9 below its tensor-core rows)
 // weight, one launch a call. The two instantiate this body with their
-// decoder (Int4Dec over the tiled or the flat address map, Int8Dec).
+// decoder (Int4Dec over the tiled or the flat address map, Int8Dec);
+// csrc/fused_decode.cu (B11) builds its two kernels from the body's parts
+// (the ring, Int4Dec's steps with the scale folded into each weight, the
+// warps' partials and the cluster's merge).
 //
 // Bound: bytes. At 7B decode (m = 1) the four fused int4 projections of a
 // layer read 107.4 MB (0.0321 ms at 3.35 TB/s), the seven int8 ones 202.6
@@ -163,29 +166,56 @@ struct Int4Dec {
     }
   }
 
-  // one group's products for thread (g, t) of a warp: acc[T] the 16 x 8
-  // tile T = 2k + e, A rows g and g + 8 = columns 16g + 2T and + 1
+  // one k16 step s of a group's products for thread (g, t) of a warp:
+  // acc[T] the 16 x 8 tile T = 2k + e, A rows g and g + 8 = columns 16g +
+  // 2T and + 1, (b0, b1) x's B fragments of the step. kFold: each weight
+  // is bf16(bf16(q) * bf16(s)), its column's scale folded in before the
+  // product (s2[c]: column 16g + c's bf16 scale in both halves; a
+  // register's two values are rows r and r + HALF of one column, so one
+  // packed multiply rounds both once); else the bare q, scaled later.
+  template <bool kFold>
+  __device__ static void mma_step(float (&acc)[8][4], const unsigned char* w, const uint32_t* s2,
+                                  int s, uint32_t b0, uint32_t b1, int g, int t) {
+    const int r0 = 8 * s + 2 * t;  // rows r0 (slot t) and r0 + 1 (slot t + 4)
+    const uint4 w0 = lds128(w + r0 * 128 + ((g ^ (2 * t)) << 4));
+    const uint4 w1 = lds128(w + (r0 + 1) * 128 + ((g ^ (2 * t + 1)) << 4));
+    const uint32_t u0[4] = {w0.x, w0.y, w0.z, w0.w}, u1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t h0 = u0[k] >> 4, h1 = u1[k] >> 4;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t af[4] = {nibble_pair(u0[k], h0, 2 * e), nibble_pair(u0[k], h0, 2 * e + 1),
+                          nibble_pair(u1[k], h1, 2 * e), nibble_pair(u1[k], h1, 2 * e + 1)};
+        if constexpr (kFold) {
+          const int c = 4 * k + 2 * e;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            af[i] = as_u32(__hmul2(as_bf162(af[i]), as_bf162(s2[c + (i & 1)])));
+        }
+        mma_bf16(acc[2 * k + e], af, b0, b1);
+      }
+    }
+  }
+
+  // x's B fragments of k16 step s from the stage's two [8][64] boxes at xb
+  // (the group's rows d0 .. + HALF - 1 and d0 + HALF ..): (x[g][d0 + r0],
+  // x[g][d0 + HALF + r0]) and (x[g][d0 + r0 + 1], x[g][d0 + HALF + r0 + 1])
+  __device__ static void x_frags(const unsigned char* xb, int s, int g, int t, uint32_t& b0,
+                                 uint32_t& b1) {
+    const int xo = g * 128 + ((s ^ g) << 4) + 4 * t;
+    const uint32_t xl = lds32(xb + xo), xh = lds32(xb + kGvXBox + xo);
+    b0 = __byte_perm(xl, xh, 0x5410);
+    b1 = __byte_perm(xl, xh, 0x7632);
+  }
+
+  // one group's products on the tensor cores, x from the stage's boxes
   __device__ static void mma_stage(float (&acc)[8][4], const unsigned char* st, int g, int t) {
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      const int r0 = 8 * s + 2 * t;  // rows r0 (slot t) and r0 + 1 (slot t + 4)
-      const uint4 w0 = lds128(st + r0 * 128 + ((g ^ (2 * t)) << 4));
-      const uint4 w1 = lds128(st + (r0 + 1) * 128 + ((g ^ (2 * t + 1)) << 4));
-      // x[g][d0 + r0 .. + 1] and x[g][d0 + HALF + r0 .. + 1]
-      const int xo = g * 128 + ((s ^ g) << 4) + 4 * t;
-      const uint32_t xl = lds32(st + kW + xo), xh = lds32(st + kW + kGvXBox + xo);
-      const uint32_t b0 = __byte_perm(xl, xh, 0x5410), b1 = __byte_perm(xl, xh, 0x7632);
-      const uint32_t u0[4] = {w0.x, w0.y, w0.z, w0.w}, u1[4] = {w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t h0 = u0[k] >> 4, h1 = u1[k] >> 4;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const uint32_t af[4] = {nibble_pair(u0[k], h0, 2 * e), nibble_pair(u0[k], h0, 2 * e + 1),
-                                  nibble_pair(u1[k], h1, 2 * e), nibble_pair(u1[k], h1, 2 * e + 1)};
-          mma_bf16(acc[2 * k + e], af, b0, b1);
-        }
-      }
+      uint32_t b0, b1;
+      x_frags(st + kW, s, g, t, b0, b1);
+      mma_step<false>(acc, st, nullptr, s, b0, b1, g, t);
     }
   }
 
@@ -290,12 +320,116 @@ struct Int8Dec {
 };
 
 // ---------------------------------------------------------------------------
+// The body's parts: the ring, the warps' partials, the cluster's merge
+// ---------------------------------------------------------------------------
+
+// A ring of kStages stages of kBytes in shared memory (1024-byte aligned),
+// an mbarrier a stage for its bytes ("full": the producer's arrival and
+// the TMA bytes) and one for its release ("empty": the consuming warp's).
+// Unit i of a block's contraction goes through stage i % kStages; a stage
+// is released once kReaders warps have read it.
+template <int kStages, int kBytes, int kReaders = 1>
+struct GvRing {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+
+  static constexpr int kSmem = kStages * kBytes + 2 * kStages * 8;
+
+  __device__ explicit GvRing(unsigned char* smem)
+      : base(smem),
+        full(reinterpret_cast<uint64_t*>(smem + kStages * kBytes)),
+        empty(reinterpret_cast<uint64_t*>(smem + kStages * kBytes) + kStages) {}
+
+  // by thread 0, then a block barrier
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], kReaders);
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ unsigned char* stage(int i) const { return base + (i % kStages) * kBytes; }
+  __device__ __forceinline__ uint64_t* bar(int i) const { return &full[i % kStages]; }
+
+  // the producer (one thread): load(stage, full barrier, i) for units
+  // first .. count - 1, each once its stage is released
+  template <typename Load>
+  __device__ __forceinline__ void produce(int first, int count, Load&& load) const {
+    for (int i = first; i < count; ++i) {
+      mbar_wait(&empty[i % kStages], ((i / kStages) & 1) ^ 1);
+      load(stage(i), bar(i), i);
+    }
+  }
+
+  // consumer warp `warp` of kWarps (of each group of readers): use(stage, i)
+  // for units warp, warp + kWarps, ..., releasing each stage after it. Every read of the stage is
+  // done before its release: a read still in flight (its value wanted only
+  // after the arrive) could see the next TMA write (generic reads, then an
+  // async-proxy write).
+  template <int kWarps, typename Use>
+  __device__ __forceinline__ void consume(int warp, int lane, int count, Use&& use) const {
+    for (int i = warp; i < count; i += kWarps) {
+      mbar_wait(bar(i), (i / kStages) & 1);
+      use(static_cast<const unsigned char*>(stage(i)), i);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[i % kStages]);
+    }
+  }
+};
+
+// a warp's mma-layout sums (tile T = 2k + e: columns 16g + 2T, + 1; rows
+// 2t, 2t + 1) into part, [kGvRows][kGvCols] f32
+__device__ __forceinline__ void store_mma_part(float* part, const float (&tot)[8][4], int g,
+                                               int t) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int col = 16 * g + 2 * k;
+    *reinterpret_cast<float2*>(part + (2 * t) * kGvCols + col) = make_float2(tot[k][0], tot[k][2]);
+    *reinterpret_cast<float2*>(part + (2 * t + 1) * kGvCols + col) =
+        make_float2(tot[k][1], tot[k][3]);
+  }
+}
+
+// the warps' partials p4[w * vecs + v] summed in warp order into p4[v],
+// by the kWarps * 32 consumer threads (thread index tid)
+template <int kWarps>
+__device__ __forceinline__ void sum_warp_parts(float4* p4, int vecs, int tid) {
+  for (int v = tid; v < vecs; v += 32 * kWarps) {
+    float4 s = p4[v];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 b = p4[w * vecs + v];
+      s.x += b.x, s.y += b.y, s.z += b.z, s.w += b.w;
+    }
+    p4[v] = s;
+  }
+}
+
+// the sum over the cluster's blocks (the splits of a column block), in
+// rank order, of the float4 at p in each block's shared memory
+__device__ __forceinline__ float4 split_sum(cooperative_groups::cluster_group& cluster,
+                                            const float4* p, int splits) {
+  float4 s = *cluster.map_shared_rank(p, 0);
+  for (int r = 1; r < splits; ++r) {
+    const float4 b = *cluster.map_shared_rank(p, r);
+    s.x += b.x, s.y += b.y, s.z += b.z, s.w += b.w;
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 template <typename Dec>
 constexpr int gemv_smem() {
-  return kGvStages * Dec::kStage + 2 * kGvStages * 8 + 1024;  // + slack to align to 1024
+  return GvRing<kGvStages, Dec::kStage>::kSmem + 1024;  // + slack to align to 1024
 }
 
 // grid (splits, row tiles, column blocks), clusters of (splits, 1, 1).
@@ -311,9 +445,7 @@ __global__ void __launch_bounds__(kGvThreads, 2)
                 "the warps' partials fit the ring");
   namespace cg = cooperative_groups;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = smem_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kGvStages * Dec::kStage);
-  uint64_t* empty = full + kGvStages;
+  const GvRing<kGvStages, Dec::kStage> ring(smem_1024(smem_raw));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int split = blockIdx.x, rt = blockIdx.y, q = blockIdx.z;
@@ -322,26 +454,14 @@ __global__ void __launch_bounds__(kGvThreads, 2)
   const int row0 = rt * kGvRows, mt = min(kGvRows, a.m - row0);
   const int u0 = split * a.per, count = min(a.units, u0 + a.per) - u0;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kGvStages; ++s) {
-      mbar_init(&full[s], 1);   // the producer's arrival and the TMA bytes
-      mbar_init(&empty[s], 1);  // the consuming warp's
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
+  ring.init();
 
   if (warp == kGvWarps) {
     // ---- producer ----
-    if (lane == 0) {
-      RingPos pos;
-      for (int i = 0; i < count; ++i) {
-        mbar_wait(&empty[pos.stage], pos.phase ^ 1);
-        Dec::template load<kBf16>(ring + pos.stage * Dec::kStage, &full[pos.stage], &tm_w,
-                                  &tm_s, &tm_x, a, j, c0, u0 + i, row0);
-        pos.next(kGvStages);
-      }
-    }
+    if (lane == 0)
+      ring.produce(0, count, [&](unsigned char* st, uint64_t* bar, int i) {
+        Dec::template load<kBf16>(st, bar, &tm_w, &tm_s, &tm_x, a, j, c0, u0 + i, row0);
+      });
   } else {
     // ---- consumers: warp w takes the stages w, w + 4, ... ----
     float tot[8][4];  // bf16: tile T (mma layout); f32: row r, the lane's 4 columns
@@ -352,10 +472,7 @@ __global__ void __launch_bounds__(kGvThreads, 2)
     const int g = lane >> 2, t = lane & 3;
     const float* xr = nullptr;
     if constexpr (!kBf16) xr = static_cast<const float*>(a.x) + (size_t)row0 * a.d;
-    for (int i = warp; i < count; i += kGvWarps) {
-      const int stage = i % kGvStages;
-      mbar_wait(&full[stage], (i / kGvStages) & 1);
-      const unsigned char* st = ring + stage * Dec::kStage;
+    ring.template consume<kGvWarps>(warp, lane, count, [&](const unsigned char* st, int i) {
       if constexpr (Dec::kGroupScale) {
         float acc[8][4];
 #pragma unroll
@@ -395,26 +512,13 @@ __global__ void __launch_bounds__(kGvThreads, 2)
       } else {
         Dec::fma_stage(tot, st, xr, a.d, mt, u0 + i, lane);
       }
-      // every read of the stage is done before its release: a read still in
-      // flight (its value wanted only after the arrive) could see the next
-      // TMA write (generic reads, then an async-proxy write)
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
-    }
+    });
     // every stage is consumed: the ring holds the warps' partials, [8][128]
     // f32 each, then their sum in warp order over warp 0's
     named_bar_sync(1, 32 * kGvWarps);
-    float* part = reinterpret_cast<float*>(ring) + warp * kGvRows * kGvCols;
+    float* part = reinterpret_cast<float*>(ring.base) + warp * kGvRows * kGvCols;
     if constexpr (kBf16) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int col = 16 * g + 2 * k;
-        *reinterpret_cast<float2*>(part + (2 * t) * kGvCols + col) =
-            make_float2(tot[k][0], tot[k][2]);
-        *reinterpret_cast<float2*>(part + (2 * t + 1) * kGvCols + col) =
-            make_float2(tot[k][1], tot[k][3]);
-      }
+      store_mma_part(part, tot, g, t);
     } else {
 #pragma unroll
       for (int r = 0; r < 8; ++r)
@@ -422,17 +526,8 @@ __global__ void __launch_bounds__(kGvThreads, 2)
             make_float4(tot[r][0], tot[r][1], tot[r][2], tot[r][3]);
     }
     named_bar_sync(1, 32 * kGvWarps);
-    float4* p4 = reinterpret_cast<float4*>(ring);
-    constexpr int kVecs = kGvRows * kGvCols / 4;
-    for (int v = threadIdx.x; v < kVecs; v += 32 * kGvWarps) {
-      float4 s = p4[v];
-#pragma unroll
-      for (int w = 1; w < kGvWarps; ++w) {
-        const float4 b = p4[w * kVecs + v];
-        s.x += b.x, s.y += b.y, s.z += b.z, s.w += b.w;
-      }
-      p4[v] = s;
-    }
+    sum_warp_parts<kGvWarps>(reinterpret_cast<float4*>(ring.base), kGvRows * kGvCols / 4,
+                             threadIdx.x);
   }
 
   // ---- the splits of the column block: one cluster, merged in split order
@@ -441,17 +536,13 @@ __global__ void __launch_bounds__(kGvThreads, 2)
   cluster.sync();  // every split's partial is in place
   {
     const int splits = gridDim.x;
-    const float4* mine = reinterpret_cast<const float4*>(ring);
+    const float4* mine = reinterpret_cast<const float4*>(ring.base);
     const int col0 = j * a.bn + c0;  // the block's first output column
     for (int v = split * kGvThreads + threadIdx.x; v < kGvRows * kGvCols / 4;
          v += splits * kGvThreads) {
       const int r = v / (kGvCols / 4), c = (v % (kGvCols / 4)) * 4;
       if (r >= mt || c >= valid) continue;  // BN and n are multiples of 16
-      float4 s = *cluster.map_shared_rank(mine + v, 0);
-      for (int p = 1; p < splits; ++p) {
-        const float4 b = *cluster.map_shared_rank(mine + v, p);
-        s.x += b.x, s.y += b.y, s.z += b.z, s.w += b.w;
-      }
+      float4 s = split_sum(cluster, mine + v, splits);
       if (!Dec::kGroupScale) {
         const float4 cs = *reinterpret_cast<const float4*>(a.scale + col0 + c);
         s.x *= cs.x, s.y *= cs.y, s.z *= cs.z, s.w *= cs.w;

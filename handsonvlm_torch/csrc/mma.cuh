@@ -2,7 +2,8 @@
 // (sm_90a): mma.sync m16n8k16 bf16 with f32 accumulators, ldmatrix, bf16
 // packing, 16-byte cp.async with commit groups, wgmma (register and shared
 // A operands, K- and MN-major B operands), mbarriers, TMA loads and tensor
-// maps, named barriers and register reallocation.
+// maps, named barriers, register reallocation and programmatic dependent
+// launch.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 // A (16 x 16, row-major) a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -448,6 +449,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // a barrier over `count` threads (a multiple of 32) with id 1..15
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// programmatic dependent launch (sm_90): the next kernel of the stream, if
+// launched with cudaLaunchAttributeProgrammaticStreamSerialization, may
+// start once every block of this grid has passed this point (or exited)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the grid this one depends on has completed and its writes are
+// visible (at once in a grid launched without that attribute)
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 template <int N>

@@ -56,7 +56,7 @@ SIGNATURES = {
     "hv_vit_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "hv_qlora_fwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
     "hv_qlora_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
-    "hv_fused_mlp": ([_P] * 10 + [_I] * 6 + [_F, _P], _I),
+    "hv_fused_mlp": ([_P] * 10 + [_I] * 11 + [_F, _I, _P], _I),
     "hv_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -6,11 +6,16 @@ an op over a layer's tiled int4 MLP weights, gated off by `fused_mlp_ok`
 B <= ROWS decode rows it computes rms_norm, the gate and up products,
 silu(gate) * up, the down product and the residual:
 
-- `fused_mlp_stacked` launches `csrc/fused_decode.cu` (one cooperative
-  launch with one grid barrier between the gate/up and the down phase) for
-  CUDA tensors and runs `fused_mlp_stacked_ref` for CPU tensors, no
-  fallback; `fused_mlp_stacked.LAUNCHES` counts launches. It has no
-  backward and raises under grad.
+- `fused_mlp_stacked` runs `csrc/fused_decode.cu` for CUDA tensors (two
+  launches a call on the GEMV's body, `fused_mlp_gate_up_kernel` then
+  `fused_mlp_down_kernel`, the second a programmatic dependent launch that
+  streams its first w_down stages before act is ready) and
+  `fused_mlp_stacked_ref` for CPU tensors, no fallback;
+  `fused_mlp_stacked.LAUNCHES` counts calls. It has no backward and raises
+  under grad.
+- `fused_mlp_plan` splits each phase's contraction (`gemv_split`, from the
+  weights' shapes and the SM count alone, never the row count);
+  `fused_mlp_refusal` mirrors the C entry point's argument rules.
 - `fused_mlp_stacked_ref` repeats the Pallas kernel's roundings: xn =
   bf16(h * rsqrt(mean(h^2) + eps) * nrm) in f32; each weight tile
   dequantized to bf16 as bf16(bf16(nibble) * bf16(scale)); f32 sums; act =
@@ -28,16 +33,30 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Mapping
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from handsonvlm_torch.ops.int8_matmul import _dequant_bf16, tile_int4_stacked, untile_int4_stacked
+from handsonvlm_torch.ops.int8_matmul import (
+    GEMV_COLS,
+    GEMV_MAX_SPLITS,
+    _dequant_bf16,
+    _num_sms,
+    gemv_split,
+    tile_int4_stacked,
+    untile_int4_stacked,
+)
 
 GROUP = 128  # int4 contraction-group size == llama head_dim
 HALF = GROUP // 2
 ROWS = 8  # the most decode rows one call serves
+# a gate/up block's shared memory (csrc/fused_decode.cu): the ring and its
+# barriers with 1 KB of alignment slack, then its split's xn, 256 bytes a
+# group and row; at most SMEM_CAP bytes
+UP_SMEM_FIXED = 6 * (2 * 64 * 128 + 2 * 4 * 128) + 2 * 6 * 8 + 1024
+XN_GROUP_ROW = 256
+SMEM_CAP = 227 * 1024 - 1024
 
 
 def _dequant_tiles(leaf: Mapping, layer_idx: int) -> torch.Tensor:
@@ -94,32 +113,104 @@ def _check(hidden, nrm_scales, wg, wu, wd, layer_idx):
     return b, d, f, bnf, bnd
 
 
-def _launch(hidden, nrm_scales, wg, wu, wd, layer_idx, eps):
+class MlpPlan(NamedTuple):
+    """B11's two launches: grids (splits, 1, blocks), clusters of splits."""
+    blocks1: int  # gate/up column blocks of GEMV_COLS columns of f
+    splits1: int  # splits of d (groups of GROUP rows)
+    per1: int     # groups a gate/up split
+    blocks2: int  # down column blocks of d
+    splits2: int  # splits of f
+    per2: int     # groups a down split
+
+
+def fused_mlp_plan(d: int, f: int, bnf: int, bnd: int, n_sm: int) -> MlpPlan:
+    """Each phase's splits by `gemv_split` (the GEMV's rule: the fewest that
+    make 5/8 of the SMs' worth of blocks), gate/up with at least as many as
+    let a split's xn of ROWS rows fit a block's shared memory. The row count
+    does not enter, so a row sums in the same order alone or among 8."""
+    blocks1 = (f // bnf) * -(-bnf // GEMV_COLS)
+    blocks2 = (d // bnd) * -(-bnd // GEMV_COLS)
+    gd, gf = d // GROUP, f // GROUP
+    splits1, per1 = gemv_split(blocks1, gd, n_sm)
+    per_fit = max(1, (SMEM_CAP - UP_SMEM_FIXED) // (XN_GROUP_ROW * ROWS))
+    if per1 > per_fit:
+        splits1 = -(-gd // per_fit)
+        per1 = -(-gd // splits1)
+    return MlpPlan(blocks1, splits1, per1, blocks2, *gemv_split(blocks2, gf, n_sm))
+
+
+def _covers(units: int, splits: int, per: int) -> bool:
+    return (1 <= splits <= GEMV_MAX_SPLITS and per >= 1 and (splits - 1) * per < units
+            <= splits * per)
+
+
+def fused_mlp_refusal(b: int, d: int, f: int, bnf: int, bnd: int,
+                      plan: MlpPlan) -> Optional[str]:
+    """Why `hv_fused_mlp` (csrc/fused_decode.cu) would refuse these
+    arguments, its checks mirrored; None if it takes them."""
+    if not 1 <= b <= ROWS:
+        return f"{b} rows: B11 takes 1..{ROWS}"
+    if d < GROUP or d % GROUP or f < GROUP or f % GROUP:
+        return f"d={d}, f={f}: B11 takes multiples of {GROUP}"
+    if bnf < 64 or bnf % 64 or f % bnf or bnd < 64 or bnd % 64 or d % bnd:
+        return f"tiles of {bnf} / {bnd} columns: multiples of 64 dividing f={f} / d={d}"
+    if not _covers(d // GROUP, plan.splits1, plan.per1):
+        return f"{plan.splits1} splits of {plan.per1} do not cover {d // GROUP} groups once"
+    if not _covers(f // GROUP, plan.splits2, plan.per2):
+        return f"{plan.splits2} splits of {plan.per2} do not cover {f // GROUP} groups once"
+    if UP_SMEM_FIXED + plan.per1 * XN_GROUP_ROW * b > SMEM_CAP:
+        return f"{plan.per1} groups of xn for {b} rows exceed a block's shared memory"
+    return None
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernel's vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(hidden, nrm_scales, wg, wu, wd, layer_idx, eps, parts=3, act=None):
     from handsonvlm_torch.ops._build import check, load_library, refuse_grad
 
     refuse_grad("fused_mlp_stacked", hidden)
     b, d, f, bnf, bnd = _check(hidden, nrm_scales, wg, wu, wd, layer_idx)
-    h = hidden.contiguous()
-    nrm = nrm_scales[layer_idx].float().contiguous()
-    act = torch.empty((ROWS, f), dtype=torch.bfloat16, device=h.device)
+    h = _aligned(hidden.contiguous())
+    nrm = nrm_scales[layer_idx]
+    if nrm.dtype not in (torch.bfloat16, torch.float32):
+        nrm = nrm.float()
+    nrm = _aligned(nrm.contiguous())
+    plan = fused_mlp_plan(d, f, bnf, bnd, _num_sms(h.device.index or 0))
+    refusal = fused_mlp_refusal(b, d, f, bnf, bnd, plan)
+    if refusal:
+        raise ValueError(f"fused_mlp_stacked: {refusal}")
+    if act is None:
+        act = torch.empty((b, f), dtype=torch.bfloat16, device=h.device)
+    elif (act.shape != (b, f) or act.dtype != torch.bfloat16 or act.device != h.device
+          or not act.is_contiguous()):
+        raise ValueError(f"fused_mlp_part: act must be ({b}, {f}) bf16 on {h.device}, got "
+                         f"{act.dtype} {tuple(act.shape)}")
+    act = _aligned(act)
     out = torch.empty_like(h)
     lib = load_library()
     with torch.cuda.device(h.device):
         status = lib.hv_fused_mlp(
             h.data_ptr(), nrm.data_ptr(),
             *(leaf[k][layer_idx].data_ptr() for leaf in (wg, wu, wd) for k in ("w4t", "gst")),
-            act.data_ptr(), out.data_ptr(), int(h.dtype == torch.bfloat16), b, d, f, bnf, bnd,
-            float(eps), torch.cuda.current_stream().cuda_stream)
+            act.data_ptr(), out.data_ptr(), int(h.dtype == torch.bfloat16),
+            int(nrm.dtype == torch.bfloat16), b, d, f, bnf, bnd, plan.splits1, plan.per1,
+            plan.splits2, plan.per2, float(eps), parts, torch.cuda.current_stream().cuda_stream)
     check(status, "fused_mlp_stacked")
-    fused_mlp_stacked.LAUNCHES += 1
-    return out
+    if parts == 3:
+        fused_mlp_stacked.LAUNCHES += 1
+    return act if parts == 1 else out
 
 
 def fused_mlp_stacked(hidden: torch.Tensor, nrm_scales: torch.Tensor, wg: Mapping,
                       wu: Mapping, wd: Mapping, layer_idx, eps: float = 1e-6) -> torch.Tensor:
-    """One launch for the MLP half of decoder layer `layer_idx`: hidden (B,
-    d) + down(silu(gate(xn)) * up(xn)), xn the rms-normed rows, over tiled
-    int4 leaves wg / wu (from `split_wgu_tiled`) and wd (kernel B11)."""
+    """One call (two launches) for the MLP half of decoder layer
+    `layer_idx`: hidden (B, d) + down(silu(gate(xn)) * up(xn)), xn the
+    rms-normed rows, over tiled int4 leaves wg / wu (from `split_wgu_tiled`)
+    and wd (kernel B11)."""
     layer_idx = int(layer_idx)
     if hidden.is_cuda:
         return _launch(hidden, nrm_scales, wg, wu, wd, layer_idx, eps)
@@ -129,6 +220,19 @@ def fused_mlp_stacked(hidden: torch.Tensor, nrm_scales: torch.Tensor, wg: Mappin
 
 
 fused_mlp_stacked.LAUNCHES = 0
+
+
+def fused_mlp_part(hidden: torch.Tensor, nrm_scales: torch.Tensor, wg: Mapping, wu: Mapping,
+                   wd: Mapping, layer_idx, eps: float, part: int,
+                   act: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One of B11's two kernels alone, for the tests and chip_smoke.py's
+    timing: part 1 (gate/up) returns act (B, f) bf16, part 2 (down) takes
+    act and returns hidden + act @ down. CUDA tensors only; not counted in
+    `fused_mlp_stacked.LAUNCHES`."""
+    if part not in (1, 2) or not hidden.is_cuda or (part == 2) != (act is not None):
+        raise ValueError("fused_mlp_part runs part 1 (no act) or part 2 (act given) of B11 "
+                         "on CUDA tensors")
+    return _launch(hidden, nrm_scales, wg, wu, wd, int(layer_idx), eps, parts=part, act=act)
 
 
 def split_wgu_tiled(wgu: Mapping, f: int):

@@ -20,12 +20,15 @@ requires grad either carries the plain version's gradient or raises. The
 fused QLoRA matmuls B10a / B10b round their outputs to bf16 whatever the
 input dtype, so they take the int4 rule in bf16 for every input. The fused
 decode MLP B11 rounds xn and act to bf16 but keeps an fp32 residual: bf16
-rows take the int4 rule, fp32 rows 3e-4 x max|y| with no per-element term.
+rows take the int4 rule, fp32 rows 3e-4 x max|y| with no per-element term;
+each of its two kernels alone: act by the int4 rule in bf16, the down
+kernel over that act by the int4 rule in the rows' dtype.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from handsonvlm_torch.models.llama import _quantize_kv_rows
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
@@ -77,7 +80,9 @@ from handsonvlm_torch.ops.int8_matmul import (
     transpose_plan,
     untile_int4_stacked,
 )
+from handsonvlm_torch.ops import fused_decode
 from handsonvlm_torch.ops.fused_decode import (
+    fused_mlp_part,
     fused_mlp_stacked,
     fused_mlp_stacked_ref,
     split_wgu_tiled,
@@ -1295,8 +1300,8 @@ def mlp_weights(d, f, device, seed, layers=2):
 @pytest.mark.parametrize("b", [1, 2, 3, 8])
 @pytest.mark.parametrize("shape", ["small", "7b"])
 def test_fused_mlp_kernel(cuda, shape, b, dtype):
-    """B11 over a layer's MLP half: 1-8 rows (the kernel's row count rounds
-    up to 1, 2, 4 or 8), at a small width and at 7B (d 4096, f 11008). Both
+    """B11 over a layer's MLP half: 1-8 rows (mma's N = 8: rows past B are
+    zero), at a small width and at 7B (d 4096, f 11008). Both
     versions round xn and act to bf16 whatever h's dtype, so an f32 row
     differs where an act element's f32 sum, taken in another order, lands
     on the other side of a rounding boundary: a bf16 step of that element
@@ -1320,6 +1325,107 @@ def test_fused_mlp_kernel(cuda, shape, b, dtype):
         err = float((got - want).abs().max())
         assert bool(torch.isfinite(got).all())
         assert err <= B11_FP32_TOL * float(want.abs().max()), err
+
+
+# B11's shapes (d, f): a small width, an f of 9 groups (gate / up tiles of
+# gcd(f, 256) = 128 columns; the down phase's 9 groups in splits of 2, the
+# last short) and 7B (d 4096, f 11008: down in 3 splits of 29 groups, the
+# last 28)
+MLP_SHAPES = {"small": (256, 512), "tile128_short_split": (256, 1152), "7b": (4096, 11008)}
+
+
+def _mlp_case(shape, dtype, device, seed):
+    d, f = MLP_SHAPES[shape]
+    wg, wu, wd = mlp_weights(d, f, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    h = torch.randn((8, d), generator=gen, device=device).to(dtype)
+    nrm = (1.0 + 0.1 * torch.randn((2, d), generator=gen, device=device)).to(torch.bfloat16)
+    return h, (nrm, wg, wu, wd, 1)
+
+
+def assert_b11_kernels_close(h, args):
+    """Each of B11's two kernels against its share of the plain version
+    (fused_mlp_stacked_ref's roundings), and the call as the two in turn:
+    gate/up's act against the plain act by the int4 rule in bf16 (an f32
+    sum taken in another order may flip act's rounding by one bf16 step);
+    down over the kernel's own act against the plain down product over the
+    same act by the int4 rule in h's dtype (the sums' order alone); the
+    call bit-equal to down(gate/up). A flip of act moves an fp32 output by
+    a bf16 step of act times its down weights, which a max|y| gate over the
+    whole call cannot tell from an error; each kernel alone it can."""
+    nrm, wg, wu, wd, layer = args
+    got = fused_mlp_stacked(h, *args)
+    act = fused_mlp_part(h, *args, 1e-6, 1)
+    out = fused_mlp_part(h, *args, 1e-6, 2, act=act)
+    assert torch.equal(got, out)
+    x = h.float()
+    xn = (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * nrm[layer].float())
+    xn = xn.to(torch.bfloat16).float()
+    yg = torch.einsum("bd,jdc->bjc", xn, fused_decode._dequant_tiles(wg, layer).float())
+    yu = torch.einsum("bd,jdc->bjc", xn, fused_decode._dequant_tiles(wu, layer).float())
+    act_p = (F.silu(yg) * yu).to(torch.bfloat16).reshape(act.shape)
+    assert_int4_close(act, act_p, torch.bfloat16)
+    wdq = fused_decode._dequant_tiles(wd, layer).float()  # (NBd, f, BNd)
+    down = torch.einsum("bf,kfn->bkn", act.float(), wdq).reshape(h.shape)
+    assert_int4_close(out, (down + x).to(h.dtype), h.dtype)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(MLP_SHAPES))
+def test_fused_mlp_kernel_row_is_the_same_alone_and_in_any_window(cuda, shape, dtype):
+    """Row i of a B-row B11 call (B = 2, 5, 8) is bit-equal to the same row
+    alone: the plan's splits do not depend on B, a row's norm sums in a
+    fixed order, and mma's columns are independent. Each window's kernels
+    hold against the plain version (assert_b11_kernels_close)."""
+    h, args = _mlp_case(shape, dtype, cuda, seed=11)
+    alone = [fused_mlp_stacked(h[i:i + 1], *args)[0] for i in range(8)]
+    for b in (2, 5, 8):
+        window = assert_b11_kernels_close(h[:b], args)
+        for i in range(b):
+            assert torch.equal(alone[i], window[i]), (b, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("shape", list(MLP_SHAPES))
+def test_fused_mlp_kernel_tile_edges_and_same_bits_twice(cuda, shape, b, dtype):
+    """B11 at its tile and split edges: each kernel against the plain
+    version, the bf16 call by test_fused_mlp_kernel's rule, and two calls
+    give the same bits."""
+    h, args = _mlp_case(shape, dtype, cuda, seed=b + 20)
+    got = assert_b11_kernels_close(h[:b], args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h.shape[1])
+    if dtype == torch.bfloat16:
+        assert_int4_close(got, fused_mlp_stacked_ref(h[:b], *args), torch.bfloat16)
+    assert torch.equal(got, fused_mlp_stacked(h[:b], *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrm_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 5])
+def test_fused_mlp_kernel_is_two_launches(cuda, b, dtype, nrm_dtype):
+    """A B11 call is two launches by name, fused_mlp_gate_up_kernel then
+    fused_mlp_down_kernel (the down kernel a programmatic dependent launch),
+    and nothing else (the norm scale is read in bf16 or f32 as given), and
+    counts one call."""
+    d, f = MLP_SHAPES["7b"]
+    wg, wu, wd = mlp_weights(d, f, cuda, seed=30)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    h = torch.randn((b, d), generator=gen, device=cuda).to(dtype)
+    nrm = (1.0 + 0.1 * torch.randn((2, d), generator=gen, device=cuda)).to(nrm_dtype)
+    fused_mlp_stacked(h, nrm, wg, wu, wd, 1)  # the build and the first launch's set-up
+    before = fused_mlp_stacked.LAUNCHES
+    _, names = _launched_kernels(lambda: fused_mlp_stacked(h, nrm, wg, wu, wd, 1))
+    assert fused_mlp_stacked.LAUNCHES == before + 1
+    assert len(names) == 2, names
+    assert any("fused_mlp_gate_up_kernel" in n for n in names), names
+    assert any("fused_mlp_down_kernel" in n for n in names), names
+    assert_b11_kernels_close(h, (nrm, wg, wu, wd, 1))
 
 
 # ---------------------------------------------------------------------------
