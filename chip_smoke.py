@@ -123,9 +123,10 @@ chain in f32, then timed against the unfused chain.
 Phase 2 also checks B3b (the flash backward) at T = S = 2048 and 4096 and
 B7a / B7b (the int4 transpose products) at the four fused 7B projections,
 m = 16 and 2048. Phase 14 a-c runs right after phase 2 on its own
-`random:7b` model, 14d and 14f on the int8 model before phase 11, phase 15
-last. Phases 7 to 10 and 13a, 13c run before phases 4 and 6 (which convert
-the model), on the model each chat phase loaded.
+`random:7b` model, 14d and 14f on the int8 model before phase 11, phases
+15 and 16 last (each CLI loads its own model). Phases 7 to 10 and 13a, 13c
+run before phases 4 and 6 (which convert the model), on the model each
+chat phase loaded.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -133,10 +134,13 @@ nvcc, and when any check fails: no phase catches its own failure.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import gc
+import glob
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -153,6 +157,10 @@ from handsonvlm_torch.infer.builder import build_model, load_pretrained_model
 from handsonvlm_torch.config import get_config
 from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
 from handsonvlm_torch.core.checkpoint import restore_train_state
+from handsonvlm_torch.data import epic_constants, native_loader, video_io
+from handsonvlm_torch.data.action_sampler import sample_history_frames
+from handsonvlm_torch.data.native_lmdb import write_lmdb_pickled
+from handsonvlm_torch.eval import evaluate as evaluate_cli
 from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video, train_batch
@@ -2596,6 +2604,250 @@ def phase_cli(device: str = "cuda", preset: str = "7b", r: int = LORA_R, steps: 
     return {k: counts[k] for k in ("int8_stacked_fwd", "int8_stacked_bwd")}
 
 
+# phase 16's EK100 clips: (start second, narration, verb, noun); the first
+# row is the train split's, the rest the validation split's (uid = 1, 2, ...)
+EK_CLIPS = ((8.0, "open the fridge", "open", "fridge"),
+            (10.0, "reach for the cup", "reach", "cup"),
+            (14.0, "pick up the knife", "pick", "knife"),
+            (18.0, "wash the plate", "wash", "plate"),
+            (22.0, "cut the onion", "cut", "onion"))
+EK_PARTICIPANT, EK_VIDEO = "P01", "P01_01"
+
+
+def _ek_row(start_sec, narration, verb, noun, cls):
+    def stamp(sec):
+        return f"00:{int(sec // 60):02d}:{sec % 60:05.2f}"
+
+    return {"participant_id": EK_PARTICIPANT, "video_id": EK_VIDEO, "narration": narration,
+            "start_timestamp": stamp(start_sec), "stop_timestamp": stamp(start_sec + 2.0),
+            "start_frame": int(start_sec * epic_constants.ORIGIN_FPS) + 1,
+            "stop_frame": int((start_sec + 2.0) * epic_constants.ORIGIN_FPS),
+            "verb": verb, "verb_class": cls, "noun": noun, "noun_class": cls,
+            "all_nouns": f"['{noun}']", "all_noun_classes": f"[{cls}]"}
+
+
+def _write_csv(path, rows) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")
+        w.writeheader()
+        w.writerows(rows)
+
+
+def _ek_video_info(rng) -> dict:
+    """A training label pkl's payload: both hands' 21-point trajectories."""
+    t = np.linspace(0, 1, 21)[:, None]
+    right = np.asarray([[100.0, 80.0]]) + t * np.asarray([[120.0, 60.0]])
+    left = np.asarray([[300.0, 90.0]]) + t * np.asarray([[-80.0, 40.0]])
+    return {"hand_trajs": {"RIGHT": {"traj": right.astype(np.float32)},
+                           "LEFT": {"traj": left.astype(np.float32)}},
+            "affordance": {"select_points_homo": rng.uniform(50, 200, size=(5, 2))
+                           .astype(np.float32)},
+            "frame_indices": [1]}
+
+
+def write_ek_fixture(root: str, n_val: int = 2, seed: int = 0) -> dict:
+    """The EK100 layout the eval CLI reads, under `root`, from `seed`: the
+    annotation CSVs (train: one clip, validation: `n_val`), actions.csv,
+    video_info.json and the label pkls, the feature LMDB, the reasoning
+    questions JSON and 10 distinct 256x456 JPEG frames per clip. At n_val =
+    2 the tree is the JAX package's tests/test_e2e_eval_cli.py fixture, file
+    for file. Returns {"frames": frames written}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    ann_dir = os.path.join(root, "common", "epic-kitchens-100-annotations")
+    for d in (ann_dir, os.path.join(root, "ek100", "labels"),
+              os.path.join(root, "ek100", "feats"), os.path.join(root, "assets")):
+        os.makedirs(d)
+    rows = [_ek_row(*clip, cls) for cls, clip in enumerate(EK_CLIPS[:n_val + 1])]
+    _write_csv(os.path.join(ann_dir, "EPIC_100_train.csv"), rows[:1])
+    _write_csv(os.path.join(ann_dir, "EPIC_100_validation.csv"), rows[1:])
+    _write_csv(os.path.join(ann_dir, "actions.csv"), [
+        {"verb": r["verb"], "noun": r["noun"], "verb_class": r["verb_class"],
+         "noun_class": r["noun_class"], "action": f"{r['verb']}_{r['noun']}",
+         "action_class": cls} for cls, r in enumerate(rows)])
+    val_uids = list(range(1, n_val + 1))  # row index + len(train)
+    with open(os.path.join(root, "ek100", "video_info.json"), "w") as f:
+        json.dump([0] + val_uids, f)
+    for uid in val_uids:
+        with open(os.path.join(root, "ek100", "labels", f"label_{uid}.pkl"), "wb") as f:
+            pickle.dump(_ek_video_info(rng), f)
+
+    rel_dir = f"{EK_PARTICIPANT}/rgb_frames/{EK_VIDEO}"
+    frames_dir = os.path.join(root, "EPIC-KITCHENS", rel_dir)
+    os.makedirs(frames_dir)
+    entries, last_paths, n_frames = {}, [], 0
+    for row in rows:
+        _, idxs = sample_history_frames(row["start_frame"])
+        names = [epic_constants.FRAME_TEMPLATE.format(i)
+                 for i in idxs][-epic_constants.OBSERVATION_FRAMES_NUM:]
+        for j, name in enumerate(names):
+            img = rng.uniform(0, 255, size=(256, 456, 3)).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(frames_dir, name))
+            n_frames += 1
+            entry = {
+                "GLOBAL_FEAT": rng.normal(size=(1024,)).astype(np.float32),
+                "HAND_RIGHT_FEAT": rng.normal(size=(1024,)).astype(np.float32),
+                "HAND_RIGHT_BBOX": np.asarray([0.5, 0.5, 0.7, 0.8], np.float32),
+                "OBJECT_RIGHT_FEAT": rng.normal(size=(1024,)).astype(np.float32),
+                "OBJECT_RIGHT_BBOX": np.asarray([0.2, 0.2, 0.4, 0.5], np.float32),
+            }
+            if j % 2 == 0:  # the absent-left-hand default path on odd frames
+                entry["HAND_LEFT_FEAT"] = rng.normal(size=(1024,)).astype(np.float32)
+                entry["HAND_LEFT_BBOX"] = np.asarray([0.1, 0.4, 0.3, 0.7], np.float32)
+            entries[f"{rel_dir}/{name}".encode()] = entry
+        last_paths.append(f"{rel_dir}/{names[-1]}")
+    write_lmdb_pickled(os.path.join(root, "ek100", "feats",
+                                    "full_data_chenbao_processed.lmdb"), entries)
+    questions = {p: 'Candidates: "Where should my hand move to next?" '
+                    'or "How do I continue this action?"' for p in last_paths}
+    with open(os.path.join(root, "assets", "ek100_questions_val.json"), "w") as f:
+        json.dump(questions, f)
+    return {"frames": n_frames}
+
+
+class _RecordedEngine(InferenceEngine):
+    """The eval CLI's engine, kept after the CLI returns so the phase can
+    read its decode counts (the scheduler's engine, the speculative
+    stats)."""
+
+    made: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        _RecordedEngine.made.append(self)
+
+
+def _run_eval_cli(name, argv, clips, samples, max_new, kv_quant, out_path) -> dict:
+    """One `handsonvlm_torch.eval.evaluate.main(argv)` with every kernel's
+    count set to 0 just before and read just after: the summary written,
+    every clip scored, none truncated, the launches exact."""
+    _RecordedEngine.made.clear()
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    timed = {}
+
+    def evaluate_timed(*args, **kwargs):  # the CLI's evaluator, its wall taken
+        _sync(dev)
+        t = time.perf_counter()
+        out = evaluate_epic_kitchen_traj(*args, **kwargs)
+        _sync(dev)
+        timed["eval_s"] = time.perf_counter() - t
+        return out
+
+    _sync(dev)
+    reset_launches()
+    evaluate_cli.evaluate_epic_kitchen_traj = evaluate_timed
+    t0 = time.perf_counter()
+    try:
+        res = evaluate_cli.main(argv)
+    finally:
+        evaluate_cli.evaluate_epic_kitchen_traj = evaluate_epic_kitchen_traj
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    (engine,) = _RecordedEngine.made
+    with open(out_path) as f:
+        summary = json.load(f)
+    if set(summary) != {"ade", "fde", "wde", "n"}:
+        raise AssertionError(f"16 {name}: summary {summary}")
+    info = res["val_info"]
+    n_tok = sum(v["num_tokens"] for v in info.values())
+    eos = sampler.EOS_TOKEN_ID
+    truncated = [i for i, v in info.items()
+                 if len(v["gen_ids"]) != max_new and int(v["gen_ids"][-1]) != eos]
+    log(f"  16 {name}: {len(info)} clips x {samples} samples, {n_tok} tokens; CLI wall "
+        f"{wall:.2f} s (model load and dataset included), evaluation {timed['eval_s']:.2f} s, "
+        f"{n_tok / timed['eval_s']:.2f} tok/s aggregate; summary {summary}, "
+        f"{len(truncated)} truncated")
+    if len(info) != clips or truncated or n_tok < clips * samples:
+        raise AssertionError(f"16 {name}: {len(info)} of {clips} clips scored, truncated "
+                             f"{truncated}")
+    if engine.spec_k:
+        steps, prefills, compactions = engine.spec_stats["iters"], 1, 0
+    elif engine.__dict__.get("_batched_scheds"):
+        (sched,) = engine._batched_scheds.values()
+        eng = sched.engine
+        steps, prefills, compactions = eng.decode_steps, eng.prefills, eng.compactions
+    else:
+        steps, prefills, compactions = n_tok - clips * samples, clips * samples, 0
+    log(f"  16 {name}: {prefills} prefills, {steps} decode forwards, {compactions} compactions")
+    expect_launches(counts, serving_launches(engine.model, engine.cfg, kv_quant, steps,
+                                             prefills, compactions))
+    _RecordedEngine.made.clear()
+    return {"wall_s": wall, "eval_s": timed["eval_s"], "tokens": n_tok, "launches": counts}
+
+
+def _frame_decoders(paths) -> None:
+    """The native frame loader (data/native_loader.py, libjpeg, with PIL
+    for what it cannot build or decode) on one clip's JPEGs: which decoder
+    returned each frame, by its counter, and the frames against the CLI's
+    PIL decode (video_io), equal where PIL decoded them, else within the
+    JAX package's native-vs-PIL bound (mean 0.03, 99th percentile 0.25)."""
+    before = dict(native_loader.DECODED)
+    got = native_loader.load_frames(paths)
+    used = {k: native_loader.DECODED[k] - before[k] for k in before}
+    diff = np.abs(got - video_io.load_video_frames(paths))
+    log(f"  16 native frame loader on {len(paths)} frames: decoded by {used}; against the "
+        f"PIL decode mean |diff| {diff.mean():.3e}, 99th percentile "
+        f"{np.quantile(diff, 0.99):.3e}")
+    if sum(used.values()) != len(paths):
+        raise AssertionError(f"16: the loader's counter says {used} for {len(paths)} frames")
+    if used["native"] == 0 and diff.max() > 0:
+        raise AssertionError("16: the PIL fallback differs from the PIL decode")
+    if diff.mean() >= 0.03 or np.quantile(diff, 0.99) >= 0.25:
+        raise AssertionError("16: native frames outside the native-vs-PIL bound")
+
+
+def phase_ek_cli(device: str = "cuda", preset: str = "7b", max_new: int = 32,
+                 slots: int = 4, spec_k: int = SPEC_K) -> dict:
+    """16: the EK100 eval CLI (`handsonvlm_torch.eval.evaluate.main`) at
+    `preset` from `random:<preset>` over an EK100 layout written into a
+    temporary directory (write_ek_fixture, 4 validation clips): (a) bf16,
+    vanilla, 2 clips, serial; (b) `--int4 --kv-int8 --use-reason
+    --num-samples 2 --batched <slots>` over the 4 clips; (c) bf16
+    `--spec <spec_k>`, 1 clip. The frames are JPEGs written with PIL, which
+    the CLI decodes with PIL (data/video_io.py) as on the CPU. Returns the
+    runs' walls, tokens and launch counts."""
+    import PIL
+
+    root = tempfile.mkdtemp(prefix="handsonvlm_ek_")
+    env = {k: os.environ.get(k) for k in ("HANDSONVLM_DATA_ROOT", "HANDSONVLM_ASSETS_DIR")}
+    runs = {}
+    try:
+        t0 = time.perf_counter()
+        written = write_ek_fixture(root, n_val=4)
+        log(f"  16 EK100 layout from seed 0 in {root}: 4 validation clips, "
+            f"{written['frames']} frames in {time.perf_counter() - t0:.2f} s; frame route: "
+            f"JPEGs written and decoded with PIL {PIL.__version__}, as on the CPU")
+        _frame_decoders(sorted(glob.glob(os.path.join(root, "EPIC-KITCHENS", "*", "*", "*",
+                                                      "*.jpg")))[:10])
+        os.environ["HANDSONVLM_DATA_ROOT"] = root
+        os.environ["HANDSONVLM_ASSETS_DIR"] = os.path.join(root, "assets")
+        evaluate_cli.InferenceEngine = _RecordedEngine
+        base = ["--model-path", f"random:{preset}", "--preset", preset, "--device", device,
+                "--max-new-tokens", str(max_new)]
+        for name, extra, clips, samples, kvq in (
+                ("a bf16 vanilla serial", ["--limit", "2"], 2, 1, None),
+                (f"b int4 + kv8 reasoning, 2 samples, batched {slots}",
+                 ["--int4", "--kv-int8", "--use-reason", "--num-samples", "2",
+                  "--batched", str(slots)], 4, 2, "int8"),
+                (f"c bf16 spec {spec_k}", ["--spec", str(spec_k), "--limit", "1"], 1, 1, None)):
+            out = os.path.join(root, f"summary_{len(runs)}.json")
+            runs[name] = _run_eval_cli(name, base + extra + ["--out", out], clips, samples,
+                                       max_new, kvq, out)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        evaluate_cli.InferenceEngine = InferenceEngine
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
 def _host_copy(module) -> dict:
     """The module's tensors copied to the host: the bit-identity check's
     reference, kept off the card so the steps' peak memory is their own."""
@@ -2964,6 +3216,11 @@ def main() -> int:
     log("phase 15: the training CLI at 7B, --qlora int8_fused, LoRA r=128: 2 steps, a "
         "checkpoint, a resumed run, the adapter in a chat turn")
     phase_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 16: the EK100 eval CLI at 7B over an on-disk EK100 layout: bf16 serial, "
+        "int4 + kv8 reasoning batched, bf16 speculative")
+    phase_ek_cli()
 
     launches["flash_attention"] += train.pop("flash_attention")
     launches.update(train)

@@ -13,12 +13,14 @@ Usage (recipe defaults mirror scripts/finetune.sh):
       --qlora int8_fused --lora-r 128 --output-dir ./runs/h7b --synthetic 4 \\
       --samples-per-epoch 4 --batch-size 1 --max-steps 2
 
-Every JAX flag is here. Until their ROADMAP items land, these refuse with
-SystemExit instead of running without them: `--model-axis` or
-`--seq-parallel` above 1 (A11, parallelism), the `--tasks` data paths
-without `--synthetic` (A4 rest, the EK / LITA data modules) and
-`--eval-every` (A4 rest: it needs the EK validation set). `--device`
-(default cuda) picks the device.
+Every JAX flag is here. Without `--synthetic` the data is the `--tasks`
+mixture read from disk: the EPIC conversation group (`epic_kitchen`,
+`reasoning`, `vanilla`) from the EK layout under $HANDSONVLM_DATA_ROOT, the
+LITA tasks and `pretrain` from `--data-path`. `--eval-every N` scores
+`--eval-samples` EK validation clips (ADE/FDE/WDE through
+eval/evaluator.py) every N steps. Until ROADMAP A11 lands, `--model-axis`
+or `--seq-parallel` above 1 refuse with SystemExit instead of running
+without them. `--device` (default cuda) picks the device.
 """
 
 from __future__ import annotations
@@ -78,40 +80,114 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use-percentage", type=float, default=1.0)
     p.add_argument("--save-every", type=int, default=0, help="steps; 0 = per epoch")
     p.add_argument("--eval-every", type=int, default=0,
-                   help="steps between generate+ADE/FDE evals (0 = off; waits for "
-                        "ROADMAP A4 rest)")
-    p.add_argument("--eval-samples", type=int, default=64)
+                   help="steps between generate+ADE/FDE evals (0 = off); "
+                        "replaces HandsOnVLMTrainer.evaluation_loop")
+    p.add_argument("--eval-samples", type=int, default=64,
+                   help="EK validation clips per in-training eval")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--max-steps", type=int, default=0, help="0 = epochs*spe/bs")
     p.add_argument("--tasks", default="epic_kitchen",
-                   help="|| separated task mixture (the data paths wait for ROADMAP A4 "
-                        "rest; run with --synthetic)")
-    p.add_argument("--data-path", default=None)
-    p.add_argument("--task-sample-rates", default=None)
+                   help="|| separated: epic_kitchen, reasoning, pretrain, "
+                        "dvc, event_loc, imgqa, vidqa, temporal_reasoning "
+                        "(the reference's task mixture, arguments.py "
+                        "DataArguments.tasks + llava pretrain stage)")
+    p.add_argument("--data-path", default=None,
+                   help="root of the LITA/LLaVA task data (defaults to "
+                        "$HANDSONVLM_DATA_ROOT)")
+    p.add_argument("--task-sample-rates", default=None,
+                   help="comma list, one rate per dataset group in --tasks order; "
+                        "epic variants (epic_kitchen/reasoning/vanilla) share "
+                        "ONE group at the first epic position (default uniform)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic samples (smoke runs without EK data)")
     return p.parse_args(argv)
 
 
-def _refuse_waiting_flags(args) -> None:
+def _require_ek_layout(args, what: str) -> None:
+    """Refuse before any work when the EK annotations `what` reads are not
+    on disk."""
+    from handsonvlm_torch.data.epic_constants import annotation_dir
+
+    adir = annotation_dir(args.ek_version)
+    if not os.path.isdir(adir):
+        raise SystemExit(f"{what} reads the {args.ek_version} EK layout, but {adir} is "
+                         "missing: set HANDSONVLM_DATA_ROOT to the data root")
+
+
+def _check_flags(args) -> None:
     if args.model_axis > 1 or args.seq_parallel > 1:
         raise SystemExit("--model-axis / --seq-parallel above 1 wait for ROADMAP A11 "
                          "(parallelism): the port trains on one device")
-    if args.eval_every:
-        raise SystemExit("--eval-every waits for ROADMAP A4 rest (the EK validation set)")
-    if not args.synthetic:
-        raise SystemExit(f"--tasks {args.tasks}: the EK / LITA data paths wait for ROADMAP "
-                         "A4 rest; train on --synthetic N")
     if args.qlora and not args.lora_r:
         raise SystemExit("--qlora requires --lora-r (the base is frozen)")
     if args.tune_mm_mlp_adapter and args.lora_r:
         raise SystemExit("--tune-mm-mlp-adapter is exclusive with --lora-r")
+    if args.eval_every:
+        _require_ek_layout(args, "--eval-every (the EK validation set)")
+
+
+def task_datasets(args, tokenizer):
+    """The `--tasks` mixture (JAX train.py:213-290): one dataset group per
+    task in `--tasks` order, the epic variants sharing one group at the
+    first epic position, and the groups' sample rates."""
+    from handsonvlm_torch.data.epic_constants import data_root
+    from handsonvlm_torch.data.epic_dataset import (
+        EpicConversationDataset,
+        EpicMultiturnConversationDataset,
+        EpicReasoningConversationDataset,
+    )
+    from handsonvlm_torch.data.epic_structures import get_epic_hoi_dataset_by_name
+    from handsonvlm_torch.data.lita_datasets import LITA_DATASET_REGISTRY, LlavaPretrainDataset
+
+    data_path = args.data_path or data_root()
+    tasks = args.tasks.split("||")
+    epic_names = {"epic_kitchen", "reasoning", "vanilla"}
+
+    def epic_group():
+        _require_ek_layout(args, f"--tasks {args.tasks}")
+        hoi = get_epic_hoi_dataset_by_name(
+            args.ek_version, "train", load_images=True, rephrase_rate=args.rephrase_rate,
+            use_percentage=args.use_percentage)
+        group = []
+        if "epic_kitchen" in tasks:
+            group.append(EpicMultiturnConversationDataset(tokenizer, hoi))
+        if "reasoning" in tasks:
+            group.append(EpicReasoningConversationDataset(tokenizer, hoi))
+        return group or [EpicConversationDataset(tokenizer, hoi)]
+
+    groups, names = [], []
+    for t in tasks:
+        if t in epic_names:
+            if "epic" not in names:
+                groups.append(epic_group())
+                names.append("epic")
+        elif t == "pretrain":
+            # projector-pretraining stage (llava/train/train.py
+            # LazySupervisedDataset + plain template); pair with
+            # --tune-mm-mlp-adapter for the reference recipe
+            groups.append([LlavaPretrainDataset(data_path, tokenizer)])
+            names.append(t)
+        elif t in LITA_DATASET_REGISTRY:
+            groups.append([cls(data_path, tokenizer)
+                           for cls in LITA_DATASET_REGISTRY[t].values()])
+            names.append(t)
+    if not groups:  # no task recognized: default EK SFT
+        groups.append(epic_group())
+        names.append("epic")
+    if not args.task_sample_rates:
+        return groups, [1.0] * len(groups)
+    rates = [float(x) for x in args.task_sample_rates.split(",")]
+    if len(rates) != len(groups):
+        raise SystemExit(
+            f"--task-sample-rates has {len(rates)} entries but --tasks resolves to "
+            f"{len(groups)} dataset groups {names} (epic variants share one group)")
+    return groups, rates
 
 
 def main(argv=None):
     """Run the CLI; returns the final TrainState (tests read it)."""
     args = parse_args(argv)
-    _refuse_waiting_flags(args)
+    _check_flags(args)
 
     import torch
 
@@ -185,9 +261,13 @@ def main(argv=None):
         print(f"resumed from step {state.step} (restored in "
               f"{time.perf_counter() - t0:.3f} s)", flush=True)
 
-    hybrid = HybridDataset(
-        task_datasets=[[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic)]],
-        task_sample_rate=[1.0], samples_per_epoch=args.samples_per_epoch)
+    if args.synthetic:
+        groups = [[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic)]]
+        rates = [1.0]
+    else:
+        groups, rates = task_datasets(args, tokenizer)
+    hybrid = HybridDataset(task_datasets=groups, task_sample_rate=rates,
+                           samples_per_epoch=args.samples_per_epoch)
     collate = Collator(pad_token_id=tokenizer.pad_token_id, model_max_length=cfg.max_length,
                        num_frames=cfg.num_frames, seq_multiple=args.seq_parallel,
                        splice_extra=cfg.num_visual_tokens - 1)
@@ -196,6 +276,25 @@ def main(argv=None):
     step_fn = make_train_step(cfg, opt, remat=args.remat_policy)
     save_every = args.save_every or steps_per_epoch
     writer = MetricsWriter(args.output_dir)
+
+    # optional generate+score eval during training
+    # (HandsOnVLMTrainer.evaluation_loop equivalent, handsonvlm_trainer.py:110-322)
+    eval_dataset = None
+    if args.eval_every:
+        from handsonvlm_torch.data.epic_dataset import EpicConversationDataset
+        from handsonvlm_torch.data.epic_structures import get_epic_hoi_dataset_by_name
+        from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
+
+        eval_hoi = get_epic_hoi_dataset_by_name(
+            args.ek_version, "validation", load_images=True, rephrase_rate=0.0,
+            use_percentage=1.0)
+        eval_dataset = EpicConversationDataset(tokenizer, eval_hoi, deterministic=True)
+
+    def run_eval(model, step):
+        engine = InferenceEngine(model=model, cfg=cfg, tokenizer=tokenizer)
+        res = evaluate_epic_kitchen_traj(engine, eval_dataset, seed=step, log_every=0,
+                                         limit=args.eval_samples)
+        return {f"eval/{k}": res[k] for k in ("ade", "fde", "wde", "n")}
 
     def save(step):
         t = time.perf_counter()
@@ -208,6 +307,10 @@ def main(argv=None):
     for batch in loader:
         metrics = step_fn(state, batch, 0)
         step = state.step
+        if eval_dataset is not None and step % args.eval_every == 0:
+            em = run_eval(state.model, step)
+            print(json.dumps(dict(em, step=step)), flush=True)
+            writer.log(em, step)
         if step % args.log_every == 0:
             m = dict(metrics, lr=sched(step),
                      sec_per_step=(time.time() - t0) / max(args.log_every, 1))

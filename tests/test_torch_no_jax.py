@@ -1,7 +1,9 @@
 """The port runs without JAX and without the JAX package: importing it,
 and running chip_smoke's phases that a CPU can run, loads no `jax` and no
-`handsonvlm_tpu` module; chip_smoke.py refuses to report a result on a
-machine without a CUDA device."""
+`handsonvlm_tpu` module (the EK data path loads no pandas either, and
+builds its native readers under build/, not in the package);
+chip_smoke.py refuses to report a result on a machine without a CUDA
+device."""
 
 import os
 import subprocess
@@ -48,6 +50,19 @@ MODULES = [
     "handsonvlm_torch.ops.qlora_fused",
     "handsonvlm_torch.ops.fused_decode",
     "handsonvlm_torch.utils.metrics_writer",
+    "handsonvlm_torch.data.epic_constants",
+    "handsonvlm_torch.data.epic_utils",
+    "handsonvlm_torch.data.action_sampler",
+    "handsonvlm_torch.data.native_build",
+    "handsonvlm_torch.data.native_lmdb",
+    "handsonvlm_torch.data.native_loader",
+    "handsonvlm_torch.data.annotation",
+    "handsonvlm_torch.data.epic_structures",
+    "handsonvlm_torch.data.epic_dataset",
+    "handsonvlm_torch.data.lita_datasets",
+    "handsonvlm_torch.eval.evaluate",
+    "handsonvlm_torch.eval.rtl",
+    "handsonvlm_torch.eval.rtl_cli",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -334,6 +349,34 @@ def test_profile_cli_train_rehearses_on_cpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_eval_cli_phase_runs_without_jax():
+    """chip_smoke's phase 16 at tiny224 on the CPU: the EK100 layout written
+    with the stdlib and PIL, the eval CLI's main() in bf16 serial, int4 +
+    kv8 reasoning batched and speculative, each run's summary, clips and
+    (zero) launches checked, the native frame loader's counter read; the
+    native LMDB reader and frame loader built
+    into build/, nothing built beside the package's sources; neither jax,
+    the JAX package nor pandas loaded."""
+    code = ("import glob, os, sys\n"
+            "import chip_smoke as cs\n"
+            "from handsonvlm_torch.data import native_loader\n"
+            "runs = cs.phase_ek_cli(device='cpu', preset='tiny224', max_new=4, slots=2,\n"
+            "                       spec_k=2)\n"
+            "assert len(runs) == 3 and all(r['tokens'] > 0 for r in runs.values()), runs\n"
+            "assert not any(any(r['launches'].values()) for r in runs.values())\n"
+            "native_loader.native_available()\n"
+            "so = glob.glob('handsonvlm_torch/**/*.so', recursive=True)\n"
+            "assert not so, so\n"
+            "assert 'pandas' not in sys.modules\n"
+            "print('phase 16 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 16 ran" in proc.stdout and "frame route: JPEGs written and decoded" in proc.stdout
+    assert "16 native frame loader on 10 frames: decoded by" in proc.stdout
+    assert proc.stdout.count("0 truncated") == 3
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -7,11 +7,13 @@ into a fresh template bit-equal to the state the first run ended with, the
 artifacts, and the builder's load of the output directory. For
 `--qlora int8_fused` (LoRA r=4 over the fused int8 base, B10a / B10b's plain
 versions) and `--tune-mm-mlp-adapter` (the projector alone). The flags that
-wait for a ROADMAP item refuse with SystemExit."""
+wait for a ROADMAP item, and the data paths whose files are missing, refuse
+with SystemExit."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,7 +119,7 @@ def test_cli_trains_saves_resumes(tmp_path, capsys, mode):
 @pytest.mark.parametrize("extra, item", [
     (["--model-axis", "2"], "A11"),
     (["--seq-parallel", "2"], "A11"),
-    (["--eval-every", "5"], "A4 rest"),
+    (["--eval-every", "5"], "EK validation set"),
     (["--qlora", "int8"], "requires --lora-r"),
 ], ids=["model_axis", "seq_parallel", "eval_every", "qlora_without_lora"])
 def test_cli_refuses_what_waits(tmp_path, extra, item):
@@ -125,6 +127,80 @@ def test_cli_refuses_what_waits(tmp_path, extra, item):
         train.main(_argv(tmp_path, 1, extra))
 
 
-def test_cli_refuses_the_task_data_paths(tmp_path):
-    with pytest.raises(SystemExit, match="A4 rest"):
+def test_cli_refuses_the_task_data_paths(tmp_path, monkeypatch):
+    """Without `--synthetic` the default task reads the EK layout: where it
+    is missing the CLI refuses, naming it."""
+    monkeypatch.setenv("HANDSONVLM_DATA_ROOT", str(tmp_path / "absent"))
+    with pytest.raises(SystemExit, match="EK layout"):
         train.main(_argv(tmp_path, 1, [], synthetic=False))
+
+
+def test_pretrain_cli_saves_projector_adapter(tmp_path, capsys):
+    """Port of tests/test_train_cli_pretrain.py: `--tasks pretrain` trains
+    on LLaVA-Pretrain caption pairs (the plain template) and saves the
+    projector-only adapter artifact."""
+    from PIL import Image
+
+    d = tmp_path / "data" / "LLaVA-Pretrain"
+    (d / "images").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    records = []
+    for i in range(4):
+        Image.fromarray(rng.uniform(0, 255, size=(240, 320, 3)).astype(np.uint8)).save(
+            d / "images" / f"img{i}.jpg")
+        records.append({"image": f"img{i}.jpg", "conversations": [
+            {"from": "human", "value": "<image>"},
+            {"from": "gpt", "value": f"a synthetic caption number {i}"}]})
+    (d / "blip_laion_cc_sbu_558k.json").write_text(json.dumps(records))
+    out = tmp_path / "run"
+    train.main(["--model-path", "random:tiny224", "--preset", "tiny224", "--device", "cpu",
+                "--tasks", "pretrain", "--data-path", str(tmp_path / "data"),
+                "--tune-mm-mlp-adapter", "--output-dir", str(out), "--num-frames", "4",
+                "--batch-size", "8", "--samples-per-epoch", "8", "--epochs", "1",
+                "--max-steps", "1", "--log-every", "1"])
+    assert has_artifact(str(out), "mm_projector")
+    proj = restore_artifact(str(out), "mm_projector")
+    assert sorted(proj) == ["bias", "weight"]
+    metrics = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert len(metrics) >= 1 and np.isfinite(metrics[-1]["loss"])
+    assert _json_lines(capsys.readouterr().out)[-1]["step"] == 1
+
+
+def test_cli_trains_on_epic_tasks_and_evaluates(tmp_path, monkeypatch, capsys):
+    """`--tasks epic_kitchen --eval-every 1` at tiny224 over an on-disk EK100
+    layout (chip_smoke's, its train clip labeled too): one step on the
+    multiturn EPIC conversations, then the ADE/FDE evaluation of the
+    validation clips through the engine and evaluator, its line printed and
+    logged."""
+    import pickle
+
+    import chip_smoke
+
+    root = tmp_path / "ek"
+    chip_smoke.write_ek_fixture(str(root), n_val=2)
+    with open(root / "ek100" / "labels" / "label_0.pkl", "wb") as f:
+        pickle.dump(chip_smoke._ek_video_info(np.random.default_rng(1)), f)
+    # the validation questions also cover the train clip's last frame
+    (root / "assets" / "ek100_questions.json").write_text(
+        (root / "assets" / "ek100_questions_val.json").read_text())
+    monkeypatch.setenv("HANDSONVLM_DATA_ROOT", str(root))
+    monkeypatch.setenv("HANDSONVLM_ASSETS_DIR", str(root / "assets"))
+    out = tmp_path / "run"
+    state = train.main(["--model-path", "random:tiny224", "--preset", "tiny224", "--device",
+                        "cpu", "--tasks", "epic_kitchen||reasoning", "--eval-every", "1",
+                        "--eval-samples", "2", "--output-dir", str(out), "--batch-size", "2",
+                        "--samples-per-epoch", "2", "--max-steps", "1", "--log-every", "1",
+                        "--task-sample-rates", "1.0"])
+    assert state.step == 1
+    lines = _json_lines(capsys.readouterr().out)
+    evals = [m for m in lines if "eval/n" in m]
+    assert len(evals) == 1 and evals[0]["step"] == 1
+    assert 0 <= evals[0]["eval/n"] <= 2
+    steps = [m for m in lines if "loss" in m]
+    assert len(steps) == 1 and np.isfinite(steps[0]["loss"])
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert any("eval/ade" in r for r in records)
+    with pytest.raises(SystemExit, match="2 entries but --tasks resolves to 1"):
+        train.main(["--model-path", "random:tiny224", "--preset", "tiny224", "--device",
+                    "cpu", "--tasks", "epic_kitchen", "--output-dir", str(tmp_path / "r2"),
+                    "--task-sample-rates", "1,1"])
