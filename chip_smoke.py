@@ -113,7 +113,16 @@ Phases (each prints its lines; the last line is the JSON status):
    checkpoint restored bit-equal into a fresh template, the same command
    with one more step in its own process resuming from it, the LoRA
    artifact merged by the builder answering a chat turn; the checkpoint's
-   bytes and save / restore seconds.
+   bytes and save / restore seconds;
+16. the EK100 eval CLI at 7B over an EK100 layout written from seed 0
+   (`phase_ek_cli`);
+17. the HTTP serving stack at 7B in this process on 127.0.0.1 ephemeral
+   ports (`phase_serving`): the controller, a bf16 worker (continuous
+   batching on 4 slots, speculative decode, two r=128 LoRA adapters with
+   one resident) with a burst of 8 requests, a stream, adapter requests,
+   the web server's proxy and test_message; then an int4 + int8-cache
+   worker with the dynamic batcher. Launches exact, the base model
+   unchanged by the adapters, greedy first tokens of a burst as alone.
 
 Phase 13c runs B11 over the int4 model's 32 layers for one token (the JAX
 package's `tools/perf_fused_mlp.py` chain; no decoder takes B11), its
@@ -147,6 +156,9 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -156,7 +168,7 @@ from handsonvlm_torch.infer import sampler
 from handsonvlm_torch.infer.builder import build_model, load_pretrained_model
 from handsonvlm_torch.config import get_config
 from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
-from handsonvlm_torch.core.checkpoint import restore_train_state
+from handsonvlm_torch.core.checkpoint import restore_train_state, save_artifact
 from handsonvlm_torch.data import epic_constants, native_loader, video_io
 from handsonvlm_torch.data.action_sampler import sample_history_frames
 from handsonvlm_torch.data.native_lmdb import write_lmdb_pickled
@@ -241,8 +253,12 @@ from handsonvlm_torch.ops.qlora_fused import (
     mm_f32,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
+from handsonvlm_torch.serve import test_message
 from handsonvlm_torch.serve.continuous import ContinuousEngine
+from handsonvlm_torch.serve.controller import serve_controller
+from handsonvlm_torch.serve.model_worker import ModelWorker, serve_worker
 from handsonvlm_torch.serve.scheduler import ContinuousScheduler
+from handsonvlm_torch.serve.web_server import serve_web
 from handsonvlm_torch.train import train as train_cli
 from handsonvlm_torch.train.step import loss_fn, make_train_step
 from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
@@ -2848,6 +2864,323 @@ def phase_ek_cli(device: str = "cuda", preset: str = "7b", max_new: int = 32,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the HTTP serving stack
+# ---------------------------------------------------------------------------
+
+
+def _http(url: str, payload: dict, timeout: float = 600.0):
+    """POST JSON; a stream's b'\\0'-delimited chunks come back as a list."""
+    req = urllib.request.Request(url, json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+    if url.endswith(("_stream", "/generate")):
+        return [json.loads(c) for c in body.split(b"\0") if c]
+    return json.loads(body)
+
+
+def _serving(server) -> str:
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def write_adapters(root: str, cfg, device, names=("styleA", "styleB"), r: int = LORA_R,
+                   b_std: float = 0.02, seed: int = 0) -> None:
+    """LoRA adapters (every target, rank r, alpha 2r) from seeds, A as
+    init_lora draws it and B ~ b_std N(0, 1) so that each moves the output,
+    written as the train CLI writes them (`<root>/<name>/lora`, the
+    module's state dict in f32)."""
+    for i, name in enumerate(names):
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        lora = init_lora(gen, cfg.llama, r=r, alpha=2.0 * r, device=device)
+        with torch.no_grad():
+            for ad in lora.adapters.values():
+                ad.b.normal_(0.0, b_std, generator=gen)
+        save_artifact(os.path.join(root, name), "lora",
+                      {k: v.cpu() for k, v in lora.state_dict().items()},
+                      meta={"base": "random", "r": r, "alpha": 2.0 * r})
+        del lora
+
+
+def _tokens_finished(eng) -> list:
+    """Record (generated length, last token) of every request the engine
+    finishes."""
+    lengths = []
+    finalize = eng._finalize
+
+    def wrapped(slot):
+        lengths.append((len(slot.tokens), slot.tokens[-1]))
+        return finalize(slot)
+
+    eng._finalize = wrapped
+    return lengths
+
+
+def _engine_counts(eng) -> tuple:
+    return eng.decode_steps, eng.prefills, eng.compactions
+
+
+def _expect_since(name, model, cfg, kv_quant, eng, before, extra_steps=0, extra_prefills=0):
+    """The launches since `before` (the scheduler engine's counts then)
+    against what its prefills, decode forwards and compactions since, plus
+    the solo path's, must make."""
+    steps, prefills, compactions = (a - b for a, b in zip(_engine_counts(eng), before))
+    counts = read_launches()
+    log(f"  17{name}: {prefills + extra_prefills} prefills, {steps + extra_steps} decode "
+        f"forwards, {compactions} compactions")
+    expect_launches(counts, serving_launches(model, cfg, kv_quant, steps + extra_steps,
+                                             prefills + extra_prefills, compactions))
+    return counts
+
+
+def _burst(url, payloads) -> list:
+    with ThreadPoolExecutor(len(payloads)) as pool:
+        return list(pool.map(lambda p: _http(url, p), payloads))
+
+
+def _first_tokens_as_solo(name, w_addr, prompts) -> None:
+    """Greedy, one new token: each request of a concurrent burst answers
+    as it does alone (the solo runs first, one at a time)."""
+    greedy = [{"prompt": p, "max_new_tokens": 1, "temperature": 0.0} for p in prompts]
+    solo = [_http(w_addr + "/worker_generate", p)["text"] for p in greedy]
+    burst = [o["text"] for o in _burst(w_addr + "/worker_generate", greedy)]
+    log(f"  17{name}: greedy first token alone {solo}, in the burst {burst}")
+    if solo != burst:
+        raise AssertionError(f"17{name}: a burst request's greedy first token differs "
+                             "from its solo run's")
+
+
+def phase_serving(device: str = "cuda", preset: str = "7b", new_tokens: int = 32,
+                  n_burst: int = 8, slots: int = 4, spec_k: int = SPEC_K,
+                  lora_r: int = LORA_R, b_std: float = 0.02) -> dict:
+    """17: the HTTP serving stack (controller, model worker, web server,
+    test_message) in this process on 127.0.0.1 ephemeral ports, from
+    `random:<preset>`.
+
+    (a) bf16 worker: `continuous_slots`, `spec_k`, two rank-`lora_r` LoRA
+    adapters (B ~ `b_std` N(0, 1)) in its `lora_dir` with one resident, loaded after its HTTP
+    server binds. /healthz says "loading" and /worker_generate answers 503
+    before the load; it registers with the controller; a burst of `n_burst`
+    concurrent /worker_generate (`new_tokens`, temperature 0.5, top-p 0.9)
+    runs through the continuous scheduler; a /worker_generate_stream's
+    chunks grow by prefix and the last carries `finish` and `pred_hands`;
+    greedy, each of 4 burst requests' first token equals its solo run's;
+    two adapter requests (the `lora` field, a `<model>:<adapter>` name)
+    take the speculative solo path and at temperature 0 answer other than
+    the base, and the second again as a stream gives its text in bursts;
+    the base model's `lora` stays None and one adapter is
+    evicted; the web server's /generate proxies one stream, and
+    test_message.main runs against the controller.
+    (b) int4 + int8-cache worker with the dynamic batcher (4 rows, a 200 ms
+    window): after one warm request, 4 concurrent requests run in fewer
+    than 4 batches; greedy first tokens as in (a).
+    Every kernel's launches are exact from the scheduler engine's, the
+    speculative loop's and the batcher's own counts. Returns each burst's
+    wall, aggregate tok/s, TTFT p50 / p95 and batches."""
+    root = tempfile.mkdtemp(prefix="handsonvlm_serve_")
+    controller, ctrl_server = serve_controller("127.0.0.1", 0)
+    ctrl_addr = _serving(ctrl_server)
+    servers, workers, stats = [ctrl_server], [], {}
+    try:
+        cfg = get_config(preset)
+        t0 = time.perf_counter()
+        write_adapters(os.path.join(root, "lora"), cfg, device, r=lora_r, b_std=b_std)
+        log(f"  17a two rank-{lora_r} adapters written in {time.perf_counter() - t0:.2f} s "
+            f"({_dir_bytes(os.path.join(root, 'lora'))} bytes)")
+        worker = ModelWorker(ctrl_addr, None, f"random:{preset}", preset=preset,
+                             model_name=f"handsonvlm-{preset}", continuous_slots=slots,
+                             spec_k=spec_k, lora_dir=os.path.join(root, "lora"),
+                             lora_resident=1, defer_load=True, device=device)
+        workers.append(worker)
+        w_server = serve_worker(worker, "127.0.0.1", 0)
+        servers.append(w_server)
+        worker.worker_addr = w_addr = _serving(w_server)
+        with urllib.request.urlopen(w_addr + "/healthz", timeout=10) as r:
+            health = json.loads(r.read())["status"]
+        try:
+            _http(w_addr + "/worker_generate", {"prompt": "x"})
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        log(f"  17a before load: /healthz {health!r}, /worker_generate HTTP {refused}")
+        if health != "loading" or refused != 503:
+            raise AssertionError("17a: the worker did not answer 'loading' and 503")
+        t0 = time.perf_counter()
+        worker.load()
+        _sync(device)
+        log(f"  17a worker loaded in {time.perf_counter() - t0:.2f} s")
+        name = f"handsonvlm-{preset}"
+        if _http(ctrl_addr + "/get_worker_address", {"model": name})["address"] != w_addr:
+            raise AssertionError("17a: the controller does not route to the worker")
+        model, eng = worker.engine.model, worker.scheduler.engine
+        lengths = _tokens_finished(eng)
+        prompts = [f"Where should my hand move to reach the cup? (request {i})"
+                   for i in range(n_burst)]
+
+        _sync(device)
+        reset_launches()
+        before = _engine_counts(eng)
+        t0 = time.perf_counter()
+        outs = _burst(w_addr + "/worker_generate",
+                      [{"prompt": p, "max_new_tokens": new_tokens, "temperature": 0.5,
+                        "top_p": 0.9} for p in prompts])
+        _sync(device)
+        wall = time.perf_counter() - t0
+        bad = [o for o in outs if o["error_code"] != 0
+               or np.asarray(o["pred_hands"]).shape != (1, 2, 4, 2)]
+        truncated = [n for n, last in lengths
+                     if n != new_tokens and last != sampler.EOS_TOKEN_ID]
+        if bad or truncated or len(lengths) != n_burst:
+            raise AssertionError(f"17a burst: {len(bad)} bad answers, {len(lengths)} finished, "
+                                 f"truncated {truncated}")
+        _expect_since("a burst", model, cfg, None, eng, before)
+        st = worker.status()["continuous"]
+        n_tok = sum(n for n, _ in lengths)
+        stats["a"] = {"wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+                      "ttft_p50_s": st["ttft_p50_s"], "ttft_p95_s": st["ttft_p95_s"],
+                      "joins": list(eng.join_group_sizes), "compactions": st["compactions"]}
+        log(f"  17a burst of {n_burst} x {new_tokens} tokens on {slots} slots: wall "
+            f"{wall:.3f} s, {n_tok} tokens, {n_tok / wall:.2f} tok/s aggregate; "
+            f"TTFT p50 {st['ttft_p50_s']} s, p95 {st['ttft_p95_s']} s; group joins "
+            f"{eng.join_group_sizes}, compactions {st['compactions']}")
+
+        # a stream, the web proxy and test_message, all through the scheduler
+        reset_launches()
+        before = _engine_counts(eng)
+        chunks = _http(w_addr + "/worker_generate_stream",
+                       {"prompt": prompts[0], "max_new_tokens": new_tokens})
+        texts = [c["text"] for c in chunks]
+        if (any(c["error_code"] for c in chunks) or not chunks[-1].get("finish")
+                or "pred_hands" not in chunks[-1]
+                or not all(texts[i + 1].startswith(texts[i]) for i in range(len(texts) - 1))):
+            raise AssertionError(f"17a stream: chunks {chunks}")
+        web = serve_web(ctrl_addr, "127.0.0.1", 0, logdir=os.path.join(root, "logs"))
+        servers.append(web)
+        proxied = _http(_serving(web) + "/generate",
+                        {"model": name, "prompt": prompts[1], "max_new_tokens": 16})
+        if not proxied[-1].get("finish") or proxied[-1]["error_code"]:
+            raise AssertionError(f"17a web proxy: {proxied[-1]}")
+        out = test_message.main(["--controller", ctrl_addr, "--model", name,
+                                 "--max-new-tokens", "8"])
+        if out["error_code"]:
+            raise AssertionError(f"17a test_message: {out}")
+        log(f"  17a stream: {len(chunks)} chunks; web proxy: {len(proxied)} chunks; "
+            "test_message answered")
+        _expect_since("a stream, web proxy, test_message", model, cfg, None, eng, before)
+
+        reset_launches()
+        before = _engine_counts(eng)
+        _first_tokens_as_solo("a", w_addr, prompts[:4])
+        _expect_since("a greedy first tokens", model, cfg, None, eng, before)
+
+        # adapters: the speculative solo path, one request at a time
+        greedy = {"prompt": prompts[2], "max_new_tokens": new_tokens, "temperature": 0.0}
+        base_text = _http(w_addr + "/worker_generate", greedy)["text"]
+        adapter_texts = {}
+        for label, payload in (("lora field", dict(greedy, lora="styleA")),
+                               ("model name", dict(greedy, model=f"{name}:styleB"))):
+            reset_launches()
+            before = _engine_counts(eng)
+            t0 = time.perf_counter()
+            text = _http(w_addr + "/worker_generate", payload)["text"]
+            _sync(device)
+            spec = worker.engine.spec_stats
+            log(f"  17a adapter by {label}: {spec['tokens']} tokens in {spec['iters']} "
+                f"verify forwards, {time.perf_counter() - t0:.3f} s; differs from the base: "
+                f"{text != base_text}")
+            if text == base_text:
+                raise AssertionError(f"17a: the adapter ({label}) left the greedy text as "
+                                     "the base's")
+            _expect_since(f"a adapter by {label}", model, cfg, None, eng, before,
+                          extra_steps=spec["iters"], extra_prefills=1)
+            adapter_texts[label] = text
+        # the stream's solo route: speculative bursts, one per verify forward
+        reset_launches()
+        before = _engine_counts(eng)
+        chunks = _http(w_addr + "/worker_generate_stream", dict(greedy, model=f"{name}:styleB"))
+        spec = worker.engine.spec_stats
+        texts = [c["text"] for c in chunks]
+        log(f"  17a adapter stream: {len(chunks)} chunks, {spec['iters']} verify forwards; "
+            f"the request's text: {texts[-1] == adapter_texts['model name']}")
+        if (any(c["error_code"] for c in chunks) or not chunks[-1].get("finish")
+                or "pred_hands" not in chunks[-1]
+                or not all(texts[i + 1].startswith(texts[i]) for i in range(len(texts) - 1))
+                or texts[-1] != adapter_texts["model name"]):
+            raise AssertionError(f"17a adapter stream: chunks {chunks}")
+        _expect_since("a adapter stream", model, cfg, None, eng, before,
+                      extra_steps=spec["iters"], extra_prefills=1)
+        log(f"  17a base model lora after the adapter requests: {model.lora}; adapter "
+            f"evictions {worker.lora.evictions}")
+        if model.lora is not None or worker.lora.evictions != 1:
+            raise AssertionError("17a: the base model changed or the LRU did not evict")
+        worker.stop()
+        w_server.shutdown()
+        del model, eng, worker
+        workers.clear()
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b) int4 weights + int8 cache, the dynamic batcher
+        worker = ModelWorker(None, None, f"random:{preset}", preset=preset,
+                             quantize="int4", kv_quant="int8", max_batch=4,
+                             batch_wait_ms=200.0, device=device)
+        workers.append(worker)
+        worker.engine.max_new_tokens = new_tokens  # the batcher decodes at these settings
+        w_server = serve_worker(worker, "127.0.0.1", 0)
+        servers.append(w_server)
+        w_addr = _serving(w_server)
+        model, batcher = worker.engine.model, worker.batcher
+        decoded = []  # per batch: each row's generated length
+        infer_batch = worker.engine.infer_batch
+
+        def recorded(*args, **kwargs):
+            out = infer_batch(*args, **kwargs)
+            decoded.append([len(ids) for ids in out[2]])
+            return out
+
+        worker.engine.infer_batch = recorded
+
+        def counted(label, fn):
+            reset_launches()
+            del decoded[:]
+            runs = batcher.batches_run
+            t0 = time.perf_counter()
+            outs = fn()
+            _sync(device)
+            wall = time.perf_counter() - t0
+            n = batcher.batches_run - runs
+            # a batch prefills once and decodes until its longest row ends
+            steps = sum(max(rows) - 1 for rows in decoded)
+            log(f"  17b {label}: {n} batches of {[len(r) for r in decoded]} rows, {n} "
+                f"prefills, {steps} decode forwards, wall {wall:.3f} s")
+            expect_launches(read_launches(), serving_launches(model, cfg, "int8", steps, n, 0))
+            return outs, n, wall, sum(sum(rows) for rows in decoded)
+
+        counted("warm request", lambda: _http(w_addr + "/worker_generate",
+                                              {"prompt": prompts[0]}))
+        outs, n, wall, tokens = counted("burst of 4", lambda: _burst(
+            w_addr + "/worker_generate", [{"prompt": p} for p in prompts[:4]]))
+        if n >= 4 or any(o["error_code"] for o in outs):
+            raise AssertionError(f"17b: 4 requests ran in {n} batches")
+        stats["b"] = {"wall_s": wall, "batches": n, "tokens": tokens, "tok_s": tokens / wall}
+        log(f"  17b burst of 4 x {new_tokens} tokens (the engine's max_new_tokens): {n} "
+            f"batches, wall {wall:.3f} s, {tokens} tokens, {tokens / wall:.2f} tok/s aggregate")
+        worker.engine.temperature = 0.0
+        worker.engine.max_new_tokens = 1
+        counted("greedy first tokens", lambda: _first_tokens_as_solo("b", w_addr, prompts[:4]))
+    finally:
+        for w in workers:
+            w.stop()
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        controller.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return stats
+
+
 def _host_copy(module) -> dict:
     """The module's tensors copied to the host: the bit-identity check's
     reference, kept off the card so the steps' peak memory is their own."""
@@ -3221,6 +3554,14 @@ def main() -> int:
     log("phase 16: the EK100 eval CLI at 7B over an on-disk EK100 layout: bf16 serial, "
         "int4 + kv8 reasoning batched, bf16 speculative")
     phase_ek_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 17: the HTTP serving stack at 7B: controller, bf16 worker (continuous "
+        "batching, speculative, two LoRA adapters), web server, test_message; int4 + kv8 "
+        "worker with the dynamic batcher")
+    t0 = time.perf_counter()
+    phase_serving()
+    log(f"  phase 17 wall {time.perf_counter() - t0:.2f} s")
 
     launches["flash_attention"] += train.pop("flash_attention")
     launches.update(train)

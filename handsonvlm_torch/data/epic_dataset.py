@@ -64,6 +64,12 @@ class EpicConversationDataset:
     def __len__(self) -> int:
         return len(self.epic)
 
+    def route_draws(self, rng, np_rng) -> None:
+        """Draw from `rng` / `np_rng` from now on, here and in the EPIC HOI
+        dataset this one wraps (data/draws.seed_mixture)."""
+        self.rng = self.epic.rng = rng
+        self.epic.np_rng = np_rng
+
     def get_sources(self, i: int) -> Dict:
         d, _ = self.epic[i]
         question = self.rng.choice(ACTION_QUESTION_TEMPLATES).format(d["narration"])

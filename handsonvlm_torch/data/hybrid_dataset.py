@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from handsonvlm_torch.constants import IGNORE_INDEX
+from handsonvlm_torch.data.draws import ItemSeeds
 
 
 @dataclasses.dataclass
@@ -36,8 +37,13 @@ class HybridDataset:
     task_sample_rate: List[float]
     samples_per_epoch: int = 48296  # reference epoch size (BASELINE.md)
     dataset_sample_rates: Optional[List[List[float]]] = None
+    # the task draws' seed (data/draws.seed_mixture); None takes fresh
+    # entropy, so runs differ as the reference's do
+    seed: Optional[np.random.SeedSequence] = None
 
     def __post_init__(self):
+        self._seeds = ItemSeeds(self.seed if self.seed is not None
+                                else np.random.SeedSequence())
         s = sum(self.task_sample_rate)
         self.task_sample_rate = [x / s for x in self.task_sample_rate]
         assert len(self.task_sample_rate) == len(self.task_datasets)
@@ -53,7 +59,7 @@ class HybridDataset:
         return self.samples_per_epoch
 
     def __getitem__(self, idx: int) -> Dict:
-        rng = np.random.RandomState()  # local rng, like the reference
+        rng = np.random.default_rng(self._seeds.next_sequence())
         task = rng.choice(len(self.task_datasets), p=self.task_sample_rate)
         ds = rng.choice(len(self.task_datasets[task]), p=self.dataset_sample_rates[task])
         # datasets draw their own random index internally (idx 0 by contract)

@@ -103,6 +103,10 @@ class LitaBaseDataset:
     def __len__(self):
         return len(self.list_data_dict)
 
+    def route_draws(self, rng, np_rng) -> None:
+        """Draw from `rng` / `np_rng` from now on (data/draws.seed_mixture)."""
+        self.rng, self.np_rng = rng, np_rng
+
     def _frames_for_vid(self, vid: str) -> List[str]:
         frames = sorted(glob.glob(os.path.join(self.image_folder, vid, "*" + self.ext)))
         idx = np.round(np.linspace(0, len(frames) - 1, self.num_frames)).astype(int)

@@ -125,21 +125,27 @@ class InferenceEngine:
         return ids, attn
 
     def infer(self, question: str, images: np.ndarray, generator, model=None, history=(), *,
-              temperature=None, top_p=None, max_new_tokens=None):
+              temperature=None, top_p=None, max_new_tokens=None, on_token=None,
+              stop_strs=None):
         """question + (1, T, 3, H, W) frames -> (pred (1,2,4,2), valid,
         generated ids). `model` overrides self.model for this call;
         `temperature` / `top_p` / `max_new_tokens` override the defaults
-        for this call only."""
+        for this call only. `on_token` (token_id -> None) streams the
+        tokens as they are sampled (in bursts under speculative decode);
+        `stop_strs` finish the host decode at a stop string."""
         preds, valids, gen = self.infer_batch(
             [question], images, generator, model=model, histories=[history],
-            temperature=temperature, top_p=top_p, max_new_tokens=max_new_tokens)
+            temperature=temperature, top_p=top_p, max_new_tokens=max_new_tokens,
+            on_token=on_token, stop_strs=stop_strs)
         return preds, valids, gen[0]
 
     def infer_batch(self, questions, images: np.ndarray, generator, model=None,
-                    histories=None, *, temperature=None, top_p=None, max_new_tokens=None):
+                    histories=None, *, temperature=None, top_p=None, max_new_tokens=None,
+                    on_token=None, stop_strs=None):
         """B questions + (B, T, ...) frames -> (pred (B,2,4,2), valid (B,),
         [generated ids per row]); draws come from `generator` (on the
-        model's device)."""
+        model's device). `on_token` / `stop_strs` as in `infer` (row 0's
+        tokens)."""
         histories = histories or [()] * len(questions)
         temperature = self.temperature if temperature is None else temperature
         top_p = self.top_p if top_p is None else top_p
@@ -152,19 +158,20 @@ class InferenceEngine:
         if self.spec_k > 0 and len(rows) == 1:
             out = self._infer_spec(model, ids, attn, images, frame_map, generator,
                                    temperature=temperature, top_p=top_p,
-                                   max_new_tokens=max_new_tokens)
+                                   max_new_tokens=max_new_tokens, on_token=on_token)
         else:
             out = generate_host(
                 model, self.cfg, ids, images, generator, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_p=top_p, attn_mask=attn, frame_map=frame_map,
-                kv_quant=self.kv_quant)
+                on_token=on_token, stop_strs=stop_strs,
+                tokenizer=self.tokenizer, kv_quant=self.kv_quant)
         pred, valid = clip_pred_hands(out.pred_hands, out.num_hands)
         gen_ids = [np.asarray(out.sequences[i, : int(out.num_tokens[i])])
                    for i in range(len(rows))]
         return pred, valid, gen_ids
 
     def _infer_spec(self, model, ids, attn, images, frame_map, generator, *, temperature,
-                    top_p, max_new_tokens):
+                    top_p, max_new_tokens, on_token=None):
         """The B = 1 latency path: speculative decode with the template
         bank, tokenized once per engine."""
         if not hasattr(self, "_spec_bank"):
@@ -172,7 +179,8 @@ class InferenceEngine:
         out, stats = generate_spec(
             model, self.cfg, ids, images, generator, max_new_tokens=max_new_tokens,
             k=self.spec_k, temperature=temperature, top_p=top_p, attn_mask=attn,
-            frame_map=frame_map, bank_ids=self._spec_bank, kv_quant=self.kv_quant)
+            frame_map=frame_map, bank_ids=self._spec_bank, on_token=on_token,
+            kv_quant=self.kv_quant)
         self.spec_stats = stats  # the last request's, for callers that report yield
         return out
 

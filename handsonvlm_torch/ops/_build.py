@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -85,15 +86,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhandsonvlm_torch_{h.hexdigest()[:16]}.so"
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; declare signatures.
 
     The build log (nvcc's per-kernel register and shared-memory usage and
-    the build time) is written beside the library as `<name>.log`."""
+    the build time) is written beside the library as `<name>.log`. The
+    first calls of several threads (a serving worker's requests) build it
+    once: the build's work directory is named by the process."""
     path = library_path()
-    if not path.exists():
-        _build(path)
+    with _BUILD_LOCK:
+        if not path.exists():
+            _build(path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -18,7 +18,10 @@ mixture read from disk: the EPIC conversation group (`epic_kitchen`,
 `reasoning`, `vanilla`) from the EK layout under $HANDSONVLM_DATA_ROOT, the
 LITA tasks and `pretrain` from `--data-path`. `--eval-every N` scores
 `--eval-samples` EK validation clips (ADE/FDE/WDE through
-eval/evaluator.py) every N steps. Until ROADMAP A11 lands, `--model-axis`
+eval/evaluator.py) every N steps. Each dataset of the mixture draws from
+generators of its own, seeded from `--seed`, its place in the mixture and
+the step the run starts from (data/draws.py): one seed gives one stream of
+items, and a resumed run draws new ones. Until ROADMAP A11 lands, `--model-axis`
 or `--seq-parallel` above 1 refuse with SystemExit instead of running
 without them. `--device` (default cuda) picks the device.
 """
@@ -100,6 +103,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "ONE group at the first epic position (default uniform)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic samples (smoke runs without EK data)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the --tasks data draws, each dataset's own, derived "
+                        "with its place in the mixture and the step the run starts "
+                        "from (data/draws.py)")
     return p.parse_args(argv)
 
 
@@ -197,6 +204,7 @@ def main(argv=None):
         save_artifact,
         save_train_state,
     )
+    from handsonvlm_torch.data.draws import seed_mixture
     from handsonvlm_torch.data.hybrid_dataset import Collator, HybridDataset
     from handsonvlm_torch.data.synthetic import SyntheticConversationDataset
     from handsonvlm_torch.infer.builder import load_pretrained_model
@@ -261,13 +269,15 @@ def main(argv=None):
         print(f"resumed from step {state.step} (restored in "
               f"{time.perf_counter() - t0:.3f} s)", flush=True)
 
+    mixture_seed = None
     if args.synthetic:
         groups = [[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic)]]
         rates = [1.0]
     else:
         groups, rates = task_datasets(args, tokenizer)
+        groups, mixture_seed = seed_mixture(groups, args.seed, state.step)
     hybrid = HybridDataset(task_datasets=groups, task_sample_rate=rates,
-                           samples_per_epoch=args.samples_per_epoch)
+                           samples_per_epoch=args.samples_per_epoch, seed=mixture_seed)
     collate = Collator(pad_token_id=tokenizer.pad_token_id, model_max_length=cfg.max_length,
                        num_frames=cfg.num_frames, seq_multiple=args.seq_parallel,
                        splice_extra=cfg.num_visual_tokens - 1)

@@ -38,6 +38,14 @@ MODULES = [
     "handsonvlm_torch.infer.viz",
     "handsonvlm_torch.serve.continuous",
     "handsonvlm_torch.serve.scheduler",
+    "handsonvlm_torch.serve.controller",
+    "handsonvlm_torch.serve.lora_registry",
+    "handsonvlm_torch.serve.batcher",
+    "handsonvlm_torch.serve.model_worker",
+    "handsonvlm_torch.serve.web_server",
+    "handsonvlm_torch.serve.register_worker",
+    "handsonvlm_torch.serve.test_message",
+    "handsonvlm_torch.data.draws",
     "handsonvlm_torch.eval.traj_metrics",
     "handsonvlm_torch.eval.evaluator",
     "handsonvlm_torch.train.train_state",
@@ -377,6 +385,26 @@ def test_chip_smoke_eval_cli_phase_runs_without_jax():
     assert "phase 16 ran" in proc.stdout and "frame route: JPEGs written and decoded" in proc.stdout
     assert "16 native frame loader on 10 frames: decoded by" in proc.stdout
     assert proc.stdout.count("0 truncated") == 3
+
+
+def test_chip_smoke_serving_stack_phase_runs_without_jax():
+    """chip_smoke's phase 17 at tiny on the CPU: the controller, the bf16
+    worker (continuous batching, speculative decode, two LoRA adapters with
+    one resident), a burst, a stream, the web proxy, test_message, the
+    adapter requests, then the int4 + kv8 worker's dynamic batcher, every
+    check of the phase run (launches are 0 off the card); neither jax nor
+    the JAX package loaded."""
+    code = ("import chip_smoke as cs\n"
+            "st = cs.phase_serving(device='cpu', preset='tiny', new_tokens=6, spec_k=2,\n"
+            "                      lora_r=4, b_std=0.5)\n"
+            "assert st['a']['tokens'] == 48 and st['b']['batches'] < 4, st\n"
+            "print('phase 17 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 17 ran" in proc.stdout
+    assert "17a base model lora after the adapter requests: None; adapter evictions 1" in (
+        proc.stdout)
 
 
 def test_chip_smoke_fails_without_cuda():
