@@ -122,7 +122,22 @@ Phases (each prints its lines; the last line is the JSON status):
    one resident) with a burst of 8 requests, a stream, adapter requests,
    the web server's proxy and test_message; then an int4 + int8-cache
    worker with the dynamic batcher. Launches exact, the base model
-   unchanged by the adapters, greedy first tokens of a burst as alone.
+   unchanged by the adapters, greedy first tokens of a burst as alone;
+18. the HOI-forecast side: (b) LITA-HOI over the bf16 7B decoder of phase
+   3 (no second decoder: new heads from seed 18), fuse mode 'hoi', 8 clips
+   x 10 frames x 5 streams = 50 rows a clip with streams missing at some
+   frames: B3 / B3b first held against their plain versions (and timed) at
+   that shape, then the loss, its backward into the HOI encoder and the
+   heads through the frozen decoder, the decoder's hidden states and the
+   rollout, under attn_impl "auto" (plain at 50 rows) and "flash" (B3 32
+   launches per encode, B3b 32 per backward); (c) `visual_pipeline` in the
+   'origin' mode on 10 frames through the CLIP-L tower (B2, 23 launches)
+   and the plain route. After phase 4 leaves the model in fp32, the same
+   on the plain routes in fp32 is the reference of phase 4's rule for
+   18b's hidden states and input gradients and 18c's tokens. (a) the
+   hoi_train CLI at the reference width (embed 512, batch 128) over the
+   EK100 layout with a train label: two epochs with evaluation, then the
+   same command resuming from step 2.
 
 Phase 13c runs B11 over the int4 model's 32 layers for one token (the JAX
 package's `tools/perf_fused_mlp.py` chain; no decoder takes B11), its
@@ -133,9 +148,10 @@ Phase 2 also checks B3b (the flash backward) at T = S = 2048 and 4096 and
 B7a / B7b (the int4 transpose products) at the four fused 7B projections,
 m = 16 and 2048. Phase 14 a-c runs right after phase 2 on its own
 `random:7b` model, 14d and 14f on the int8 model before phase 11, phases
-15 and 16 last (each CLI loads its own model). Phases 7 to 10 and 13a, 13c
-run before phases 4 and 6 (which convert the model), on the model each
-chat phase loaded.
+15 and 16 last (each CLI loads its own model), then 17 and 18a. Phases 7
+to 10, 13a, 13c and 18b-c run before phases 4 and 6 (which convert the
+model), on the model each chat phase loaded; 18b-c's fp32 reference right
+after phase 4.
 
 It exits non-zero, printing no result, when there is no CUDA device or
 nvcc, and when any check fails: no phase catches its own failure.
@@ -177,6 +193,7 @@ from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitch
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video, train_batch
 from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
+from handsonvlm_torch.models.lita_hoi import LitaHoi, lita_hoi_forward, lita_hoi_inference
 from handsonvlm_torch.models.llama import (
     Int4Weight,
     Int8Weight,
@@ -190,6 +207,7 @@ from handsonvlm_torch.models.llama import (
     rms_norm,
 )
 from handsonvlm_torch.models.lora import LoRA, init_lora
+from handsonvlm_torch.models.visual_tokens import visual_pipeline
 from handsonvlm_torch.ops import _build
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
 from handsonvlm_torch.ops.attention import FLASH_MIN_T, attention_xla
@@ -2661,13 +2679,15 @@ def _ek_video_info(rng) -> dict:
             "frame_indices": [1]}
 
 
-def write_ek_fixture(root: str, n_val: int = 2, seed: int = 0) -> dict:
+def write_ek_fixture(root: str, n_val: int = 2, seed: int = 0, train_label: bool = False) -> dict:
     """The EK100 layout the eval CLI reads, under `root`, from `seed`: the
     annotation CSVs (train: one clip, validation: `n_val`), actions.csv,
     video_info.json and the label pkls, the feature LMDB, the reasoning
     questions JSON and 10 distinct 256x456 JPEG frames per clip. At n_val =
     2 the tree is the JAX package's tests/test_e2e_eval_cli.py fixture, file
-    for file. Returns {"frames": frames written}."""
+    for file. `train_label` also writes the train clip's label pkl (uid 0),
+    which the hoi-forecast trainer's train split needs. Returns {"frames":
+    frames written}."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -2685,7 +2705,7 @@ def write_ek_fixture(root: str, n_val: int = 2, seed: int = 0) -> dict:
     val_uids = list(range(1, n_val + 1))  # row index + len(train)
     with open(os.path.join(root, "ek100", "video_info.json"), "w") as f:
         json.dump([0] + val_uids, f)
-    for uid in val_uids:
+    for uid in ([0] if train_label else []) + val_uids:
         with open(os.path.join(root, "ek100", "labels", f"label_{uid}.pkl"), "wb") as f:
             pickle.dump(_ek_video_info(rng), f)
 
@@ -3424,6 +3444,356 @@ def phase_train_int8_fused(model, cfg, unfused: list, rows: int = TRAIN_ROWS, r:
     return {k: counts[k] for k in ("int8_stacked_fwd", "int8_stacked_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the HOI-forecast side
+# ---------------------------------------------------------------------------
+
+HOI_CLIPS, HOI_FRAMES = 8, 10  # 18b: 8 clips x 10 frames x 5 streams = 50 rows a clip
+
+
+def hoi_batch(device, b: int = HOI_CLIPS, t: int = HOI_FRAMES, seed: int = 18) -> dict:
+    """A LITA-HOI batch from `seed`: TSN-width features N(0, 1), boxes
+    uniform, the global stream valid at every frame and the hand / object
+    streams missing at about a third of the frames (holes inside the
+    sequence), future hands, contact points, clip 1's right hand and clip
+    3's left hand invalid."""
+    rng = np.random.default_rng(seed)
+    valid = (rng.uniform(size=(b, 5, t)) > 0.3).astype(np.float32)
+    valid[:, 0] = 1.0
+    fv = np.ones((b, 2), np.float32)
+    fv[1, 0] = fv[3, 1] = 0.0
+    batch = {"feat": rng.normal(size=(b, 5, t, 1024)).astype(np.float32),
+             "bbox_feat": rng.uniform(size=(b, 4, t, 4)).astype(np.float32),
+             "valid_mask": valid,
+             "future_hands": rng.uniform(size=(b, 2, 5, 2)).astype(np.float32),
+             "contact_point": rng.uniform(size=(b, 2)).astype(np.float32),
+             "future_valid": fv,
+             "gt_hand_valid": fv[:, :, None].repeat(5, axis=2) > 0}
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def hoi_draws(cfg, b: int, device, seed: int = 18):
+    """The CVAE noise of a LITA-HOI loss and the rollout's latents, drawn
+    once so every route reads the same numbers."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lat, zs = cfg.traj.latent_dim, cfg.traj.z_scale
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    eps = {"traj": n(b * 2 * 4, lat), "obj_r": n(b, lat), "obj_l": n(b, lat)}
+    z = {"first_r": zs * n(b, lat), "first_l": zs * n(b, lat), "roll_r": zs * n(4, b, lat),
+         "roll_l": zs * n(4, b, lat), "contact_r": zs * n(b, lat), "contact_l": zs * n(b, lat)}
+    return eps, z
+
+
+def _hoi_flash_check(cfg, batch, device) -> None:
+    """B3 and B3b at the shape this path gives them, (8, 50, 32, 128) with
+    the clips' key mask (holes inside the sequence), against their plain
+    versions: B3 per element at phase 2's tolerance, B3b by phase 2's
+    gradient rule (bf16 also held to the fp32 plain version). The global
+    stream leaves every row a valid key."""
+    b, t = batch["valid_mask"].shape[0], batch["valid_mask"].shape[2]
+    h, d = cfg.llama.num_heads, cfg.llama.head_dim_
+    mask = batch["valid_mask"].transpose(1, 2).reshape(b, t * 5).bool().contiguous()
+    gen = torch.Generator(device=device).manual_seed(181)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    for dtype in (torch.float32, torch.bfloat16):  # bf16 last: the times below take it
+        q, k, v, do = (torch.randn((b, t * 5, h, d), generator=gen, device=device).to(dtype)
+                       for _ in range(4))
+        out, lse = flash_attention(q, k, v, key_mask=mask)
+        want, want_lse = flash_attention_ref(q, k, v, key_mask=mask)
+        _check(f"18b B3 ({b},{t * 5},{h},{d}) stream holes", out, want, dtype, errs[dtype])
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"18b B3: logsumexp max_abs_err {lse_err:.3e} > 1e-3")
+        got = flash_attention_bwd(q, k, v, out, lse, do, key_mask=mask)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, key_mask=mask)
+        want32 = [None] * 3
+        if dtype == torch.bfloat16:
+            want32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse,
+                                             do.float(), key_mask=mask)
+        for name, g, w, w32 in zip(("dq", "dk", "dv"), got, want, want32):
+            _check_grad(f"18b B3b ({b},{t * 5},{h},{d}) {name}", g, w, w32, dtype, errs[dtype])
+    if device.type != "cuda":
+        return
+    # bf16 times at this shape: the kernels, their plain versions, sdpa with
+    # the same pairs as a boolean mask (and its backward); the bounds count
+    # the attended pairs
+    n = t * 5
+    pairs_ok = torch.tril(torch.ones((n, n), dtype=torch.bool, device=device))[None] & mask[:, None]
+    pairs = int(pairs_ok.sum())
+    out, lse = flash_attention(q, k, v, key_mask=mask)
+    ms = cuda_time_ms(lambda i: flash_attention(q, k, v, key_mask=mask))
+    plain_ms = cuda_time_ms(lambda i: flash_attention_ref(q, k, v, key_mask=mask), iters=20)
+    lib_ms = cuda_time_ms(lambda i: _sdpa(q, k, v, pairs_ok[:, None]))
+    bound_ms, bound_by = bound(4 * b * n * h * d * 2, 4 * pairs * h * d)
+    log(f"  18b B3 time ({b},{n},{h},{d}) bf16, stream holes: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (sdpa, boolean mask) {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); {_shares(ms, bound_ms, lib_ms)}")
+    ms = cuda_time_ms(lambda i: flash_attention_bwd(q, k, v, out, lse, do, key_mask=mask))
+    plain_ms = cuda_time_ms(lambda i: flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                              key_mask=mask), iters=20)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=pairs_ok[:, None])
+    do_t = do.transpose(1, 2)
+    lib_ms = cuda_time_ms(lambda i: torch.autograd.grad(sdpa_out, leaves, do_t,
+                                                        retain_graph=True))
+    bound_ms, bound_by = bound(8 * b * n * h * d * 2 + 2 * b * h * n * 4, 10 * pairs * h * d)
+    log(f"  18b B3b time ({b},{n},{h},{d}) bf16, stream holes: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (sdpa backward) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); {_shares(ms, bound_ms, lib_ms)}")
+
+
+def _input_grads(lita) -> torch.Tensor:
+    """The gradients that reached the HOI encoder and the projector, which
+    lie below the decoder: each passed back through its 32 layers."""
+    return torch.cat([p.grad.float().flatten() for m in (lita.hoi_encoder, lita.projector)
+                      for p in m.parameters() if p.grad is not None]).cpu()
+
+
+def _lita_route(lita, cfg, batch, eps, z, impl: str) -> dict:
+    """One route of 18b: lita_hoi_forward's loss and its backward, the
+    decoder's final hidden states over the clips' valid tokens, and
+    lita_hoi_inference, each with the launch counts set to 0 before it and
+    held after it (under "flash" B3 once per layer and pass, B3b once per
+    layer in the backward; nothing under the plain routes)."""
+    dev = batch["feat"].device
+    n_layers = cfg.llama.num_layers
+    fwd = {"flash_attention": n_layers} if impl == "flash" else {}
+    bwd = {"flash_attention_bwd": n_layers} if impl == "flash" else {}
+    counts = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    lita.zero_grad(set_to_none=True)
+    ms = {}
+
+    def run(part, want, fn):
+        _sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms[part] = (time.perf_counter() - t0) * 1e3
+        got = read_launches()
+        expect_launches(got, want)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return out
+
+    loss, terms = run("forward", fwd, lambda: lita_hoi_forward(lita, cfg, batch, eps=eps,
+                                                                attn_impl=impl))
+    run("backward", bwd, loss.backward)
+    grads = _input_grads(lita)
+    lita.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        def encode():
+            tokens, attn = visual_pipeline(lita, cfg, feat=batch["feat"],
+                                           bbox_feat=batch["bbox_feat"],
+                                           valid_mask=batch["valid_mask"], attn_impl=impl)
+            hidden, _ = apply_llama(lita.llama, cfg.llama, inputs_embeds=tokens,
+                                    attn_mask=attn, attn_impl=impl)
+            return hidden[attn].float().cpu()
+
+        hidden = run("encode", fwd, encode)
+        hand, contact = run("inference", fwd, lambda: lita_hoi_inference(
+            lita, cfg, batch, z=z, attn_impl=impl))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    out = {"loss": float(loss.detach()), "terms": {k: float(v.detach()) for k, v in terms.items()},
+           "grads": grads, "hidden": hidden, "hand": hand.float().cpu(),
+           "contact": contact.float().cpu(), "ms": ms, "counts": counts, "peak": peak}
+    if not (np.isfinite(out["loss"]) and all(bool(torch.isfinite(out[k]).all())
+                                             for k in ("grads", "hidden", "hand", "contact"))):
+        raise AssertionError(f"18b {impl}: a non-finite loss, gradient or output")
+    dtype = str(next(lita.oct_decoder.parameters()).dtype).split(".")[-1]
+    log(f"  18b {dtype} attn_impl={impl!r}: loss {out['loss']:.6f} "
+        f"({', '.join(f'{k} {v:.4f}' for k, v in out['terms'].items())}); wall ms: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in ms.items())}; peak {peak:.3f} GiB; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    return out
+
+
+def phase_hoi_7b(model, cfg) -> dict:
+    """18b and 18c on a loaded HandsOnVLM in its own dtype (bf16 at 7B).
+
+    18b: LITA-HOI over the model's decoder (no second decoder is built):
+    new heads (the HOI encoder, projector, ObjectTransformer decoder, CVAE
+    heads) from seed 18 in the model's dtype, fuse mode 'hoi', video_arch
+    'none', 8 clips x 10 frames x 5 streams = 50 rows a clip with stream
+    holes. The loss and its backward (the decoder frozen, its gradients
+    flowing through to the HOI encoder and projector), the hidden states
+    and the rollout, under attn_impl "auto" (the plain route at 50 rows) and
+    "flash" (B3, B3b), after B3 / B3b are held against their plain versions
+    at this shape. 18c: `visual_pipeline` in the 'origin' mode on the 10
+    frames of `random_video` through the model's CLIP tower and projector,
+    "auto" (B2, once per CLIP layer) and "xla". Returns what
+    `phase_hoi_7b_reference` compares once the model is in fp32."""
+    dev = model.llama.embed_tokens.weight.device
+    dtype = str(model.llama.embed_tokens.weight.dtype).split(".")[-1]
+    hcfg = dataclasses.replace(cfg, fuse_input_mode="hoi", video_arch="none",
+                               mm_hidden_size=1024, param_dtype=dtype, compute_dtype=dtype)
+    t0 = time.perf_counter()
+    lita = LitaHoi(hcfg, llama=model.llama, device=dev)
+    lita.init_weights(torch.Generator(device=dev).manual_seed(18), init_llama=False)
+    _sync(dev)
+    n_heads = sum(p.numel() for n, p in lita.named_parameters() if not n.startswith("llama."))
+    log(f"  18b LITA-HOI heads over the loaded decoder: {n_heads / 1e9:.3f} B params in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = hoi_batch(dev)
+    eps, z = hoi_draws(hcfg, HOI_CLIPS, dev)
+    _hoi_flash_check(hcfg, batch, dev)
+    # one untimed, uncounted pass first: the heads' first products and the
+    # first backward through them carry one-time costs (cuBLAS plans)
+    loss, _ = lita_hoi_forward(lita, hcfg, batch, eps=eps)
+    loss.backward()
+    with torch.no_grad():
+        lita_hoi_inference(lita, hcfg, batch, z=z)
+    runs = {impl: _lita_route(lita, hcfg, batch, eps, z, impl) for impl in ("auto", "flash")}
+    log(f"  18b {dtype} flash vs plain: loss "
+        f"{runs['flash']['loss']:.6f} vs {runs['auto']['loss']:.6f}, hidden rel L2 "
+        f"{_rel(runs['flash']['hidden'], runs['auto']['hidden']):.3e}, input gradients rel L2 "
+        f"{_rel(runs['flash']['grads'], runs['auto']['grads']):.3e}")
+
+    ocfg = dataclasses.replace(cfg, fuse_input_mode="origin")
+    video, _ = random_video(cfg)
+    images = torch.as_tensor(video, device=dev)
+    n_clip = cfg.vision.num_layers + cfg.vision.select_layer + 1
+    origin = {}
+    with torch.no_grad():
+        for impl, want in (("auto", {"vit_attention": n_clip}), ("xla", {})):
+            _sync(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            tokens, attn = visual_pipeline(model, ocfg, images=images, attn_impl=impl)
+            _sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_launches()
+            expect_launches(counts, want)
+            if not (bool(torch.isfinite(tokens).all()) and bool(attn.all())
+                    and tokens.shape == (1, cfg.num_visual_tokens - cfg.num_frames
+                                         + video.shape[1], cfg.llama.hidden_size)):
+                raise AssertionError(f"18c {impl}: tokens {tuple(tokens.shape)} not finite "
+                                     f"or of the wrong shape")
+            origin[impl] = {"tokens": tokens.float().cpu(), "counts": counts}
+            log(f"  18c origin pipeline attn_impl={impl!r}: {video.shape[1]} frames -> tokens "
+                f"{tuple(tokens.shape)}, wall {wall:.1f} ms, launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+    log(f"  18c kernel vs plain route: tokens rel L2 "
+        f"{_rel(origin['auto']['tokens'], origin['xla']['tokens']):.3e}")
+    return {"lita": lita, "cfg": hcfg, "ocfg": ocfg, "batch": batch, "eps": eps, "z": z,
+            "runs": runs, "origin": origin, "images": images}
+
+
+def phase_hoi_7b_reference(model, hoi: dict) -> dict:
+    """18b and 18c's reference, once phase 4 has left the model in fp32:
+    the same computations on the plain routes with every weight in fp32 (the
+    LITA-HOI heads cast from the same values). Phase 4's rule: the bf16
+    kernel route may lie at most BF16_VS_PLAIN x as far from the fp32
+    reference as the bf16 plain route, for 18b's decoder hidden states over
+    the valid tokens and the gradients that reached the HOI encoder and
+    projector through the decoder (B3, B3b), and for 18c's tokens (B2).
+    Returns the kernel routes' launch counts."""
+    lita, cfg = hoi["lita"], hoi["cfg"]
+    # phase 4 cast the decoder under inference_mode, which leaves inference
+    # tensors that autograd cannot save for the backward: make them normal
+    with torch.no_grad():
+        for module in lita.llama.modules():
+            for name, p in list(module.named_parameters(recurse=False)):
+                setattr(module, name, torch.nn.Parameter(p.detach().clone(),
+                                                         requires_grad=False))
+    lita.float()
+    ref = _lita_route(lita, cfg, hoi["batch"], hoi["eps"], hoi["z"], "xla")
+    low = hoi["runs"]
+    checks = {}
+    for what in ("hidden", "grads"):
+        d_k, d_p = _rel(low["flash"][what], ref[what]), _rel(low["auto"][what], ref[what])
+        checks[f"18b {what}"] = (d_k, d_p)
+    for what in ("loss", "hand", "contact"):
+        k, p, r = (torch.as_tensor(x[what]) for x in (low["flash"], low["auto"], ref))
+        log(f"  18b {what} from the fp32 plain route: bf16 flash {_rel(k, r):.3e}, "
+            f"bf16 plain {_rel(p, r):.3e}")
+    with torch.no_grad():
+        tokens, _ = visual_pipeline(model, hoi["ocfg"], images=hoi["images"].float(),
+                                    attn_impl="xla")
+    tok32 = tokens.float().cpu()
+    checks["18c tokens"] = (_rel(hoi["origin"]["auto"]["tokens"], tok32),
+                            _rel(hoi["origin"]["xla"]["tokens"], tok32))
+    for what, (d_k, d_p) in checks.items():
+        ok = np.isfinite(d_k) and d_k <= BF16_VS_PLAIN * d_p
+        log(f"  {what} relative L2 from the fp32 plain route: kernels {d_k:.3e}, plain "
+            f"{d_p:.3e} (ratio {d_k / d_p if d_p else float('nan'):.3f}, limit "
+            f"{BF16_VS_PLAIN}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}: the kernel route lies {d_k:.3e} from the fp32 "
+                                 f"reference, limit {BF16_VS_PLAIN * d_p:.3e}")
+    counts = {}
+    for part in (low["flash"]["counts"], hoi["origin"]["auto"]["counts"]):
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_hoi_cli(device: str = "cuda", epochs: int = 2, extra=()) -> dict:
+    """18a: the hoi-forecast training CLI (`handsonvlm_torch.train.hoi_train
+    .main`) at its defaults (embed 512, 6 encoder and 4 decoder blocks, 8
+    heads, CVAE hidden 512 / latent 256, batch 128; `extra` flags override)
+    over write_ek_fixture's EK100 layout with the train clip's label (1
+    train, 4 validation clips; each batch draws 128 clips with
+    replacement): `--epochs 2 --eval-every 1`, then the same command again,
+    which restores step 2 and runs its epochs from epoch 0 with the
+    restored step (the JAX CLI's behaviour). Each epoch's losses, the
+    validation ADE / FDE / WDE, the step ms and the walls are printed."""
+    import contextlib
+    import io
+
+    from handsonvlm_torch.train import hoi_train
+
+    root = tempfile.mkdtemp(prefix="handsonvlm_hoi_")
+    env = os.environ.get("HANDSONVLM_DATA_ROOT")
+    runs = []
+    try:
+        write_ek_fixture(os.path.join(root, "ek"), n_val=4, train_label=True)
+        os.environ["HANDSONVLM_DATA_ROOT"] = os.path.join(root, "ek")
+        argv = ["--epochs", str(epochs), "--eval-every", "1", "--device", device,
+                "--output-dir", os.path.join(root, "run"), *extra]
+        for run in range(2):
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                hoi_train.main(argv)
+            wall = time.perf_counter() - t0
+            lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+            for x in lines:
+                log(f"  18a run {run}: {json.dumps(x)}")
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+            log(f"  18a run {run}: wall {wall:.2f} s, peak {peak:.3f} GiB")
+            train = [x for x in lines if "total_loss" in x]
+            val = [x for x in lines if "val/ade" in x]
+            if [x["epoch"] for x in train] != list(range(epochs)) or len(val) != epochs:
+                raise AssertionError(f"18a run {run}: epochs {train}, evaluations {val}")
+            if not all(np.isfinite(x[k]) for x in train for k in ("total_loss", "step_ms")) or \
+                    not all(np.isfinite(x[k]) for x in val for k in ("val/ade", "val/fde")):
+                raise AssertionError(f"18a run {run}: non-finite losses or metrics")
+            restored = [x["restored_step"] for x in lines if "restored_step" in x]
+            if restored != ([] if run == 0 else [epochs]):
+                raise AssertionError(f"18a run {run}: restored {restored}")
+            runs.append({"wall": wall, "train": train, "val": val})
+        steps = sorted(int(d) for d in os.listdir(os.path.join(root, "run", "ckpt"))
+                       if d.isdigit())
+        if steps != list(range(1, 2 * epochs + 1)):
+            raise AssertionError(f"18a: checkpoints at steps {steps}")
+        log(f"  18a checkpoints at steps {steps}: the second run went on from step {epochs}")
+    finally:
+        if env is None:
+            os.environ.pop("HANDSONVLM_DATA_ROOT", None)
+        else:
+            os.environ["HANDSONVLM_DATA_ROOT"] = env
+        shutil.rmtree(root, ignore_errors=True)
+    return {"runs": runs}
+
+
 def model_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -3474,10 +3844,19 @@ def main() -> int:
     launches["flash_attention"] = counts["flash_attention"]
     log("phase 10a: speculative chat at 7B, bf16")
     phase_spec(model, cfg, tokenizer, video, frame_map)
+    log("phase 18b/18c: LITA-HOI over the 7B decoder (loss, backward, rollout; plain and "
+        "flash routes) and the origin visual pipeline at CLIP-L, bf16")
+    t0 = time.perf_counter()
+    hoi = phase_hoi_7b(model, cfg)
+    log(f"  phase 18b/18c bf16 wall {time.perf_counter() - t0:.2f} s")
     log("phase 4: bf16 kernel path against plain path at 7B, chat and long prompt")
     h_dense, tok_dense, launches["decode_attention"] = phase_kernel_vs_plain(
         model, cfg, tokenizer, video, frame_map, long_text=long_text)
-    del model
+    log("phase 18b/18c reference: the same on the plain routes in fp32")
+    t0 = time.perf_counter()
+    hoi_launches = phase_hoi_7b_reference(model, hoi)
+    log(f"  phase 18b/18c reference wall {time.perf_counter() - t0:.2f} s")
+    del model, hoi
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3562,9 +3941,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serving()
     log(f"  phase 17 wall {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 18a: the hoi-forecast training CLI at the reference width (embed 512, batch "
+        "128): 2 epochs with evaluation, then a resumed run")
+    t0 = time.perf_counter()
+    phase_hoi_cli()
+    log(f"  phase 18a wall {time.perf_counter() - t0:.2f} s")
 
     launches["flash_attention"] += train.pop("flash_attention")
     launches.update(train)
+    for name, n in hoi_launches.items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,7 +61,36 @@ def _c(value, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
-class AdamW(torch.optim.Optimizer):
+class CountedOptimizer(torch.optim.Optimizer):
+    """An optimizer whose state is optax's: a step count (`self.count`, which
+    the schedule reads) and each parameter's moments."""
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def state_dict(self) -> dict:
+        """The count and each parameter's moments (by its index over the
+        param groups), in their own dtypes."""
+        return {"count": self.count,
+                "state": {i: dict(self.state[p]) for i, p in enumerate(self._params())
+                          if self.state[p]}}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """The inverse of `state_dict` into an optimizer over the same
+        parameters: the moments copied to each parameter's device, their
+        dtypes kept (torch's own loader would cast a bf16 first moment to
+        the parameter's dtype)."""
+        params = self._params()
+        for i, st in state_dict["state"].items():
+            p = params[int(i)]
+            if any(v.shape != p.shape for v in st.values()):
+                raise ValueError(f"optimizer state {i}: shapes {[tuple(v.shape) for v in st.values()]} "
+                                 f"do not fit the parameter {tuple(p.shape)}")
+            self.state[p] = {k: v.to(p.device, copy=True) for k, v in st.items()}
+        self.count = int(state_dict["count"])
+
+
+class AdamW(CountedOptimizer):
     """optax.chain(clip_by_global_norm(max_grad_norm), adamw(...)) over the
     param groups; `step()` returns the global norm of the gradients it
     clipped (the trainable leaves')."""
@@ -109,30 +138,6 @@ class AdamW(torch.optim.Optimizer):
             st["nu"] = nu
         self.count = count
         return norm
-
-    def _params(self):
-        return [p for g in self.param_groups for p in g["params"]]
-
-    def state_dict(self) -> dict:
-        """optax's state: the count and each parameter's moments (by its
-        index over the param groups), in their own dtypes."""
-        return {"count": self.count,
-                "state": {i: dict(self.state[p]) for i, p in enumerate(self._params())
-                          if self.state[p]}}
-
-    def load_state_dict(self, state_dict: dict) -> None:
-        """The inverse of `state_dict` into an optimizer over the same
-        parameters: the moments copied to each parameter's device, their
-        dtypes kept (torch's own loader would cast a bf16 first moment to
-        the parameter's dtype)."""
-        params = self._params()
-        for i, st in state_dict["state"].items():
-            p = params[int(i)]
-            if any(v.shape != p.shape for v in st.values()):
-                raise ValueError(f"optimizer state {i}: shapes {[tuple(v.shape) for v in st.values()]} "
-                                 f"do not fit the parameter {tuple(p.shape)}")
-            self.state[p] = {k: v.to(p.device, copy=True) for k, v in st.items()}
-        self.count = int(state_dict["count"])
 
 
 def make_optimizer(

@@ -1589,6 +1589,57 @@ def test_flash_attention_bwd_kernel_gives_the_same_bits_twice(cuda, case):
         assert torch.equal(a, b), name
 
 
+# LITA-HOI's encode (models/lita_hoi.py): 8 clips of T frames x 5 streams,
+# a key mask with holes inside the sequence (a stream missing at some
+# frames), below one query tile; clip 1 also lacks its first 3 tokens, so
+# its first query rows have no valid key (compared on valid rows only: the
+# kernel and its plain version give 0 / NEG_INF there, attention_xla
+# averages).
+def hoi_stream_inputs(t, seed):
+    rng = np.random.default_rng(seed)
+    n = t * 5 if t == 10 else t
+    q, k, v = (rng.normal(size=(8, n, 32, 128)).astype(np.float32) for _ in range(3))
+    mask = rng.uniform(size=(8, n)) > 0.3
+    mask[:, ::5] = True  # the global stream at every frame
+    mask[1, :3] = False
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [10, 64], ids=["T50", "T64"])
+def test_flash_attention_kernels_at_the_hoi_shapes(cuda, t, dtype):
+    """B3 and B3b at LITA-HOI's encode shapes, T = S = 50 (10 frames x 5
+    streams) and 64, causal, the stream-hole key mask: output and
+    logsumexp at test_flash_attention_kernel's tolerances, dq / dk / dv by
+    test_flash_attention_bwd_kernel's rule, on the rows with a valid key."""
+    q, k, v, mask = hoi_stream_inputs(t, seed=t)
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    t_mask = torch.from_numpy(mask).to(cuda)
+    before = (flash_attention.LAUNCHES, flash_attention_bwd.LAUNCHES)
+    out, lse = flash_attention(q, k, v, key_mask=t_mask)
+    want, want_lse = flash_attention_ref(q, k, v, key_mask=t_mask)
+    live = (want_lse > -1e29).transpose(1, 2)  # (B, T, H)
+    assert not bool(live.all()) and bool(live[0].all())
+    torch.testing.assert_close(out.float()[live], want.float()[live], **CUDA_TOL[dtype])
+    torch.testing.assert_close(lse[want_lse > -1e29], want_lse[want_lse > -1e29],
+                               atol=1e-3, rtol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    do = torch.randn(q.shape, generator=gen, device=cuda)
+    do = torch.where(live[..., None], do, 0.0).to(dtype).contiguous()
+    got = flash_attention_bwd(q, k, v, out, lse, do, key_mask=t_mask)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention_bwd.LAUNCHES) == (before[0] + 1,
+                                                                        before[1] + 1)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, key_mask=t_mask)
+    ref32 = [None] * 3
+    if dtype == torch.bfloat16:
+        ref32 = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse, do.float(),
+                                        key_mask=t_mask)
+    for name, g, w, w32 in zip(("dq", "dk", "dv"), got, ref, ref32):
+        assert_grad_close(g, w, dtype, name, w32)
+
+
 DECODE_EDGE_LENGTHS = [1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 1000]
 
 

@@ -71,6 +71,18 @@ MODULES = [
     "handsonvlm_torch.eval.evaluate",
     "handsonvlm_torch.eval.rtl",
     "handsonvlm_torch.eval.rtl_cli",
+    "handsonvlm_torch.models.visual_tokens",
+    "handsonvlm_torch.models.object_transformer",
+    "handsonvlm_torch.models.lita_hoi",
+    "handsonvlm_torch.convert.object_transformer",
+    "handsonvlm_torch.train.hoi_trainer",
+    "handsonvlm_torch.train.hoi_train",
+    "handsonvlm_torch.utils.meters",
+    "handsonvlm_torch.utils.logging",
+    "handsonvlm_torch.utils.profiling",
+    "handsonvlm_torch.eval.gpt_review",
+    "handsonvlm_torch.convert.delta",
+    "handsonvlm_torch.convert.to_hf",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -405,6 +417,37 @@ def test_chip_smoke_serving_stack_phase_runs_without_jax():
     assert "phase 17 ran" in proc.stdout
     assert "17a base model lora after the adapter requests: None; adapter evictions 1" in (
         proc.stdout)
+
+
+def test_chip_smoke_hoi_phases_run_without_jax():
+    """chip_smoke's phase 18 at tiny on the CPU in bf16: 18b (LITA-HOI over
+    the model's decoder: B3 / B3b at the path's shape against their plain
+    versions, the loss, backward, hidden states and rollout on the plain
+    and flash routes) and 18c (the origin pipeline), then phase 4, which
+    leaves the model in fp32 under inference_mode, and 18b/c's fp32
+    reference with phase 4's rule; 18a, the hoi_train CLI at tiny widths
+    over the EK100 fixture, two epochs and a resumed run. Neither jax nor
+    the JAX package loaded."""
+    code = ("import torch\n"
+            "import chip_smoke as cs\n"
+            "model, cfg, tok = cs.load_pretrained_model('random:tiny', 'tiny', 'cpu')\n"
+            "model.to(torch.bfloat16)\n"
+            "video, frame_map = cs.random_video(cfg)\n"
+            "hoi = cs.phase_hoi_7b(model, cfg)\n"
+            "cs.phase_kernel_vs_plain(model, cfg, tok, video, frame_map)\n"
+            "cs.phase_hoi_7b_reference(model, hoi)\n"
+            "cs.phase_hoi_cli(device='cpu', extra=['--embed-dim', '32', '--coord-dim', '8',\n"
+            "    '--num-heads', '4', '--enc-depth', '1', '--dec-depth', '1', '--hidden-dim',\n"
+            "    '16', '--latent-dim', '8', '--batch-size', '8', '--num-samples', '2'])\n"
+            "print('phase 18 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 18 ran" in proc.stdout
+    for line in ("18b grads relative L2 from the fp32 plain route",
+                 "18c tokens relative L2 from the fp32 plain route",
+                 "18a checkpoints at steps [1, 2, 3, 4]"):
+        assert line in proc.stdout, line
 
 
 def test_chip_smoke_fails_without_cuda():
