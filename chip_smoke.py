@@ -137,7 +137,25 @@ Phases (each prints its lines; the last line is the JSON status):
    18b's hidden states and input gradients and 18c's tokens. (a) the
    hoi_train CLI at the reference width (embed 512, batch 128) over the
    EK100 layout with a train label: two epochs with evaluation, then the
-   same command resuming from step 2.
+   same command resuming from step 2;
+19. parallelism (`phase_parallel`): (a) on this card, each rank's
+   tensor-parallel shard at tp = 2 and 4 of the four fused 7B projections
+   (tiled: B4b at m = 1, B5b at 391 rows; flat: B4c, B5a) and of the 32
+   heads (B1 over a bf16 cache, B6 over an int8 one, T = 1 and 5), the
+   ranks' outputs concatenated against the unsharded kernel by phase 2's
+   rules; the tiled wgu (43 tiles) must be the one weight left whole; (b)
+   one NCCL rank a card (`parallel/distributed.spawn`): the 7B model cut
+   for each rank (`parallel/tp.shard_llama_tp`) in bf16 and in int4 +
+   kv8, a greedy prefill and 4 steps fed rank 0's unsharded run's tokens,
+   held by phase 4's rule against the fp32 reference on rank 0's card, a
+   32-token greedy decode (launches exact, collectives a step, bytes a
+   rank, step wall and device time); FSDP2 full SFT over the ranks
+   (`parallel/partition.shard_model`), 2 steps on one 2048-row sample a
+   rank, all 32 layers on two cards or more, 16 on one; the ring
+   (`--seq-parallel N`): LoRA r = 128 over the bf16 base on one sample of
+   2048 x N rows, its adapters' gradients held by phase 4's rule against
+   the same rows' flash route (B3 / B3b) on rank 0's card alone, the fp32
+   flash route the reference.
 
 Phase 13c runs B11 over the int4 model's 32 layers for one token (the JAX
 package's `tools/perf_fused_mlp.py` chain; no decoder takes B11), its
@@ -148,7 +166,7 @@ Phase 2 also checks B3b (the flash backward) at T = S = 2048 and 4096 and
 B7a / B7b (the int4 transpose products) at the four fused 7B projections,
 m = 16 and 2048. Phase 14 a-c runs right after phase 2 on its own
 `random:7b` model, 14d and 14f on the int8 model before phase 11, phases
-15 and 16 last (each CLI loads its own model), then 17 and 18a. Phases 7
+15 and 16 last (each CLI loads its own model), then 17, 18a and 19. Phases 7
 to 10, 13a, 13c and 18b-c run before phases 4 and 6 (which convert the
 model), on the model each chat phase loaded; 18b-c's fp32 reference right
 after phase 4.
@@ -277,8 +295,12 @@ from handsonvlm_torch.serve.controller import serve_controller
 from handsonvlm_torch.serve.model_worker import ModelWorker, serve_worker
 from handsonvlm_torch.serve.scheduler import ContinuousScheduler
 from handsonvlm_torch.serve.web_server import serve_web
+from handsonvlm_torch.parallel.distributed import spawn
+from handsonvlm_torch.parallel.mesh import create_mesh
+from handsonvlm_torch.parallel.partition import bytes_per_rank, shard_model
+from handsonvlm_torch.parallel.tp import TPGroup, shard_int4_stacked, shard_llama_tp
 from handsonvlm_torch.train import train as train_cli
-from handsonvlm_torch.train.step import loss_fn, make_train_step
+from handsonvlm_torch.train.step import draw_eps, loss_fn, make_train_step, step_generator
 from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
 
 # kernel vs plain version, max abs error for attention (bf16 rounds p and
@@ -1723,14 +1745,14 @@ def check_launches(run: dict, expect_per: dict) -> None:
 
 
 def _greedy_decode(model, cfg, ids, images, frame_map, max_len, impl, fed=None,
-                   kv_quant=None, step_impl=None):
+                   kv_quant=None, step_impl=None, tp=None):
     """Greedy prefill + 4 decode steps with attention `impl` (the steps
     with `step_impl` when given); `fed` feeds another run's tokens instead
-    of this run's own argmax. Returns (final hidden fp32, this run's own 5
-    greedy tokens)."""
+    of this run's own argmax; `tp` runs this rank's tensor-parallel shard.
+    Returns (final hidden fp32, this run's own 5 greedy tokens)."""
     hidden, cache, mask = sampler.prefill(model, cfg, ids, images, max_len,
                                           attn_impl=impl, frame_map=frame_map,
-                                          kv_quant=kv_quant)
+                                          kv_quant=kv_quant, tp=tp)
     no_waypoint = torch.zeros((1, 2, 2), device=ids.device)
     greedy = []
     for step in range(5):
@@ -1741,7 +1763,8 @@ def _greedy_decode(model, cfg, ids, images, frame_map, max_len, impl, fed=None,
         feed = tok if fed is None else torch.tensor([fed[step]], device=ids.device)
         emb = embed_next_token(model, cfg, feed, no_waypoint)
         out, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=emb[:, None],
-                                 attn_mask=mask, kv_cache=cache, attn_impl=step_impl or impl)
+                                 attn_mask=mask, kv_cache=cache, attn_impl=step_impl or impl,
+                                 tp=tp)
         hidden = out[:, 0]
     return hidden.float(), greedy
 
@@ -3794,6 +3817,542 @@ def phase_hoi_cli(device: str = "cuda", epochs: int = 2, extra=()) -> dict:
     return {"runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: parallelism (tensor-parallel decode, FSDP2 training, the ring)
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)  # the groups phase 19a cuts the 7B shapes for, on one card
+PAR_NEW_TOKENS = 32  # greedy tokens of the world run's tensor-parallel decode
+PAR_PROFILE_STEPS = 8  # decode steps traced for the device time
+SFT_LAYERS_ONE_CARD = 16  # full SFT's depth when one card holds it all
+# the tiled layout's fallback at 7B (NB = 43 divides neither 2 nor 4); the
+# flat layout splits every projection (22016 / 4 = 5504 = 43 x 128)
+TP_FALLBACKS = {"tiled": ["wgu"], "flat": []}
+
+
+def check_tp_shards() -> None:
+    """19a: the tensor-parallel shards at 7B's shapes, rank by rank on this
+    card: each rank's column shard of the four fused int4 projections
+    (tiled: B4b at m = 1, B5b at m = PREFILL_ROWS; flat: B4c, B5a), its
+    outputs concatenated, against the unsharded kernel on the whole weight,
+    by phase 2's int4 rule; each rank's 8 of 32 heads (16 of 32 at tp = 2)
+    through B1 over the bf16 cache and B6 over the int8 cache, T = 1 and T
+    = 5, concatenated over the heads, against the unsharded kernel, by
+    phase 2's attention rule. A weight the JAX package's rule leaves whole
+    is counted; at 7B only the tiled wgu may be."""
+    cfg = get_config("7b").llama
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs = []
+    fallbacks = {(layout, tp): set() for layout in TP_FALLBACKS for tp in TP_SIZES}
+    for name, (din, dout) in int4_projection_shapes(cfg).items():
+        w4t, gst = _int4_stack(din, dout, 1, gen)
+        w4, gs = untile_int4_stacked(w4t, gst)
+        layouts = {"tiled": (w4t, gst, int4_gemv_tiled, int4_matmul_prefill_tiled),
+                   "flat": (w4, gs, int4_gemv_flat, int4_matmul_prefill)}
+        for layout, (w, s, gemv, prefill) in layouts.items():
+            for m, fn in ((1, gemv), (PREFILL_ROWS, prefill)):
+                x = _rand(gen, (1, m, din), torch.bfloat16)
+                want = fn(x, w, s, 0)
+                for tp in TP_SIZES:
+                    parts = [shard_int4_stacked(w, s, r, tp) for r in range(tp)]
+                    if parts[0] is None:
+                        fallbacks[(layout, tp)].add(name)
+                        continue
+                    got = torch.cat([fn(x, *p, 0) for p in parts], dim=-1)
+                    _check_int4(f"19a {layout} {name} m={m} tp={tp}: {tp} column shards "
+                                f"({w.shape[1] // tp if w.dim() == 5 else dout // tp} "
+                                f"{'tiles' if w.dim() == 5 else 'columns'} each) vs unsharded",
+                                got, want, torch.bfloat16, errs)
+    for (layout, tp), names in fallbacks.items():
+        log(f"  19a {layout} tp={tp}: unsharded on every rank (the JAX rule's fallback): "
+            f"{sorted(names) or 'none'}")
+        if sorted(names) != TP_FALLBACKS[layout]:
+            raise AssertionError(f"19a {layout} tp={tp}: fallbacks {sorted(names)}, expected "
+                                 f"{TP_FALLBACKS[layout]}")
+
+    L, B, S, K, D = 2, 1, 520, cfg.kv_heads, cfg.head_dim_
+    ck, cv = (_rand(gen, (L, B, S, K, D), torch.bfloat16) for _ in range(2))
+    k8, ks = _quantize_kv_rows(ck)
+    v8, vs = _quantize_kv_rows(cv)
+    ks, vs = ks.transpose(2, 3).contiguous(), vs.transpose(2, 3).contiguous()
+    for tw in (1, SPEC_K + 1):
+        q = _rand(gen, (B, tw, cfg.num_heads, D), torch.bfloat16)
+        want = decode_attention_stacked(q, ck, cv, 1, DECODE_LEN)
+        want_q = decode_attention_stacked_q(q, k8, v8, ks, vs, 1, DECODE_LEN)
+        for tp in TP_SIZES:
+            def part(t, r, dim):
+                n = t.shape[dim] // tp
+                return t.narrow(dim, r * n, n).contiguous()
+
+            got = torch.cat([decode_attention_stacked(
+                part(q, r, 2), part(ck, r, 3), part(cv, r, 3), 1, DECODE_LEN)
+                for r in range(tp)], dim=2)
+            _check(f"19a B1 T={tw} tp={tp}: {cfg.num_heads // tp} of {cfg.num_heads} heads a "
+                   "rank vs unsharded", got, want, torch.bfloat16, errs)
+            got = torch.cat([decode_attention_stacked_q(
+                part(q, r, 2), part(k8, r, 3), part(v8, r, 3), part(ks, r, 2),
+                part(vs, r, 2), 1, DECODE_LEN) for r in range(tp)], dim=2)
+            _check(f"19a B6 T={tw} tp={tp}: {cfg.num_heads // tp} of {cfg.num_heads} heads a "
+                   "rank vs unsharded", got, want_q, torch.bfloat16, errs)
+
+
+def _limit(dtype, d_plain: float) -> float:
+    """Phase 4's limit on a path's distance from the fp32 reference: in
+    bf16 BF16_VS_PLAIN x the bf16 plain path's, in fp32 FP32_REL_L2."""
+    return FP32_REL_L2 if dtype == torch.float32 else BF16_VS_PLAIN * d_plain
+
+
+def _say(rank: int):
+    return log if rank == 0 else (lambda _msg: None)
+
+
+def _peak_gib(device) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+
+
+def _reset_peak(device) -> None:
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _free(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _device_ms(fn, steps: int, device):
+    """(compute, NCCL) device ms per step of fn() (which runs `steps`
+    steps) from a torch.profiler trace: the self time of the CUDA kernels
+    other than NCCL's, and of NCCL's apart (they run on a stream of their
+    own and include the wait for the other ranks); NaN off the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return float("nan"), float("nan")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower())
+    total = sum(e.self_device_time_total for e in kernels)
+    return (total - nccl) / 1e3 / steps, nccl / 1e3 / steps
+
+
+def _cache_bytes(cfg, kv_heads: int, max_len: int, kv_quant) -> int:
+    n = cfg.llama.num_layers * max_len * kv_heads * cfg.llama.head_dim_
+    if kv_quant:
+        return 2 * n + 2 * 4 * n // cfg.llama.head_dim_
+    return 2 * n * 2
+
+
+def _tp_decode(rank: int, world: int, quantize, kv_quant, device, preset,
+               new_tokens: int = PAR_NEW_TOKENS) -> dict:
+    """19b decode: the 7B model (`random:7b`, `quantize`) on every rank.
+    Rank 0 first runs it unsharded on its card: the greedy prefill + 4
+    steps of phase 4 through the kernels, the plain path fed the same
+    tokens, the fp32 reference (the weights cast, or dequantized, to fp32,
+    plain path), and a 32-token greedy decode. Then every rank cuts its
+    shard (`shard_llama_tp`) and runs the same greedy prefill + 4 steps fed
+    the unsharded run's tokens (phase 4's rule: its final hidden at most
+    BF16_VS_PLAIN x as far from the reference as the plain path's) and a
+    32-token greedy decode (its tokens against the unsharded stream, the
+    common prefix logged; step wall, device time, tok/s, collectives per
+    step, bytes per rank). The launches of both tensor-parallel runs are
+    exact. Returns rank 0's launch counts of those runs."""
+    import copy
+
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel import tp as tp_mod
+
+    say = _say(rank)
+    label = f"{quantize or 'bf16'}{' + kv8' if kv_quant else ''}"
+    tp = TPGroup.world() if world > 1 else None
+    model, cfg, tokenizer = load_pretrained_model(f"random:{preset}", preset, device,
+                                                  quantize=quantize)
+    video, frame_map = random_video(cfg)
+    args = _greedy_args(model, cfg, tokenizer, video, frame_map)
+    ids, images = args[2], args[3]
+    gen_args = dict(max_new_tokens=new_tokens, temperature=0.0, eos_token_id=-1,
+                    frame_map=frame_map, kv_quant=kv_quant)
+    fed = [None]
+    with torch.inference_mode():
+        if rank == 0:
+            h_u, tok_u = _greedy_decode(*args, "auto", kv_quant=kv_quant)
+            h_p, _ = _greedy_decode(*args, "xla", fed=tok_u, kv_quant=kv_quant)
+            ref = copy.deepcopy(model)
+            if quantize:
+                dequantize_llama(ref.llama, cfg.llama, torch.float32)
+            ref.float()
+            h_ref, tok_ref = _greedy_decode(ref, *args[1:], "xla", fed=tok_u, kv_quant=kv_quant)
+            del ref
+            _free(device)
+            stream_u = sampler.generate_host(model, cfg, ids, images,
+                                             torch.Generator(device=device), **gen_args)
+            fed = [tok_u]
+        if world > 1:
+            dist.broadcast_object_list(fed, src=0)
+        shard_llama_tp(model.llama, cfg.llama, rank, world)
+        _free(device)
+        layout = model.llama.tp_layout
+        say(f"  19b {label} tp={world}: heads split {layout.heads}, int4 splits "
+            f"{layout.int4 or 'dense'}, fallbacks {layout.fallbacks or 'none'}")
+
+        reset_launches()
+        h_tp, tok_tp = _greedy_decode(*args, "auto", fed=fed[0], kv_quant=kv_quant, tp=tp)
+        counts = read_launches()
+        if rank == 0:
+            expect_launches(counts, serving_launches(model, cfg, kv_quant, 4, 1, 0))
+        launches = dict(counts)
+
+        stamps = []
+        c0 = tp_mod.COLLECTIVES
+        reset_launches()
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        stream = sampler.generate_host(model, cfg, ids, images, torch.Generator(device=device),
+                                       on_token=lambda _t: stamps.append(time.perf_counter()),
+                                       tp=tp, **gen_args)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        n = int(stream.num_tokens[0])
+        steps = n - 1
+        coll = (tp_mod.COLLECTIVES - c0) / max(steps + 1, 1)
+        if rank == 0:
+            expect_launches(counts, serving_launches(model, cfg, kv_quant, steps, 1, 0))
+        for k, v in counts.items():
+            launches[k] += v
+
+        # decode steps alone: wall (host, synchronized) and device time
+        max_len = ids.shape[1] + cfg.num_visual_tokens - 1 + PAR_PROFILE_STEPS + 2
+        _, cache, mask = sampler.prefill(model, cfg, ids, images, max_len,
+                                         frame_map=frame_map, kv_quant=kv_quant, tp=tp)
+        index = cache.index
+        tok = torch.tensor([int(stream.sequences[0, 0])], device=device)
+        wp = torch.zeros((1, 2, 2), device=device)
+
+        def steps_fn():
+            cache.index = index
+            t, w = tok, wp
+            for _ in range(PAR_PROFILE_STEPS):
+                t, w, _c = sampler.decode_step(model, cfg, cache, mask, t, w, None,
+                                               temperature=0.0, tp=tp)
+
+        steps_fn()
+        _sync(device)
+        t1 = time.perf_counter()
+        steps_fn()
+        _sync(device)
+        step_ms = (time.perf_counter() - t1) * 1e3 / PAR_PROFILE_STEPS
+        dev_ms, nccl_ms = _device_ms(steps_fn, PAR_PROFILE_STEPS, device)
+        kv_heads = layout.kv_heads(cfg.llama.kv_heads)
+        cache_b = _cache_bytes(cfg, kv_heads, ids.shape[1] + cfg.num_visual_tokens
+                               + new_tokens, kv_quant)
+        tok_s = (len(stamps) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else float("nan")
+        say(f"  19b {label} tp={world}: {n} greedy tokens in {wall:.3f} s, decode "
+            f"{tok_s:.2f} tok/s; a decode step {step_ms:.2f} ms wall, {dev_ms:.3f} ms device "
+            f"in compute kernels ({dev_ms / step_ms:.1%} busy) and {nccl_ms:.3f} ms in NCCL's "
+            f"(their waits included), {coll:.1f} collectives a step (prefill's "
+            "included in the mean over the run's forwards); per rank: weights "
+            f"{model_bytes(model) / 2**30:.3f} GiB (decoder {model_bytes(model.llama) / 2**30:.3f}), "
+            f"cache {cache_b / 2**20:.1f} MiB for {kv_heads} kv heads; peak "
+            f"{_peak_gib(device):.3f} GiB")
+        if rank == 0:
+            d_tp, d_u, d_p = _rel(h_tp, h_ref), _rel(h_u, h_ref), _rel(h_p, h_ref)
+            same = int(np.argmin(np.append(stream.sequences[0] == stream_u.sequences[0], False)))
+            say(f"  19b {label}: greedy tokens (fed the unsharded run's): unsharded kernels "
+                f"{tok_u[:4]}, tp={world} {tok_tp[:4]}, fp32 plain {tok_ref[:4]}; "
+                f"{new_tokens}-token streams agree on their first {same} tokens")
+            limit = _limit(model.llama.embed_tokens.weight.dtype, d_p)
+            say(f"  19b {label}: final hidden relative L2 from the fp32 plain path: tp={world} "
+                f"{d_tp:.3e}, unsharded kernels {d_u:.3e}, plain {d_p:.3e} (limit "
+                f"{limit:.3e})")
+            toks = stream.sequences[0, :n]
+            if n != new_tokens or toks.min() < 0 or toks.max() >= cfg.llama.vocab_size:
+                raise AssertionError(f"19b {label}: bad stream {toks}")
+            if not (np.isfinite(d_tp) and d_tp <= limit):
+                raise AssertionError(f"19b {label} tp={world}: the final hidden lies {d_tp:.3e} "
+                                     f"from the fp32 reference, limit {limit:.3e}")
+    del model, cache
+    _free(device)
+    return launches
+
+
+def _rows_batch(cfg, n: int, rows: int = TRAIN_ROWS) -> dict:
+    """`n` samples of `rows` rows (train_batch with seeds 0..n-1), the
+    frames' slot map shared."""
+    parts = [train_batch(cfg, rows, seed=i) for i in range(n)]
+    return {k: parts[0][k] if k == "frame_map" else np.concatenate([p[k] for p in parts])
+            for k in parts[0]}
+
+
+FSDP_LOSS_RTOL = 1e-2  # the sharded step-0 loss against one card's, both bf16
+FSDP_NORM_RTOL = 5e-2  # its grad_norm (bf16 gradients reduce-scattered in bf16)
+# the step-1 loss: bf16 weights after one Adam step, whose update is about
+# lr x sign(g) an element, so an element whose gradient sign differs
+# between the two reductions moves the other way
+FSDP_LOSS1_RTOL = 5e-2
+
+
+def _one_card_steps(model, cfg, batch, eps0, eps1) -> tuple:
+    """One card's unsharded reference of the sharded steps 0 and 1:
+    step 0's loss and grad_norm (forward + backward of `batch`, CVAE draws
+    `eps0`), the same AdamW step, then step 1's loss (a forward, draws
+    `eps1`). The optimizer's moments exist only after the backward, so a
+    7B model whose training step does not fit one card fits here."""
+    device = model.llama.embed_tokens.weight.device
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    opt = make_optimizer(model, TRAIN_LR)  # the trainable set: all but the CLIP tower
+    opt.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, cfg, batch, eps=eps0, attn_impl="auto", remat="full")
+    loss.backward()
+    loss0, norm0 = float(loss.detach()), float(opt.step())
+    opt.zero_grad(set_to_none=True)
+    del loss
+    with torch.no_grad():
+        loss1, _ = loss_fn(model, cfg, batch, eps=eps1, attn_impl="auto", remat=False)
+    return loss0, norm0, float(loss1)
+
+
+def _fsdp_sft(rank: int, world: int, device, preset, rows: int) -> dict:
+    """19b FSDP: full SFT (the CLIP tower frozen) of the 7B model at its
+    widths, all 32 layers on 2 or more ranks, SFT_LAYERS_ONE_CARD on one,
+    sharded by FSDP2 over the ranks, 2 steps on a global batch of one
+    2048-row sample a rank; per step the loss, wall ms, tokens/s and peak
+    GiB a rank, launches exact; the bytes a rank holds. Before sharding,
+    rank 0 runs the whole global batch's two steps on its card alone
+    (`_one_card_steps`, the same CVAE draws): the sharded step 0's loss
+    and grad_norm lie within FSDP_LOSS_RTOL / FSDP_NORM_RTOL of its, step
+    1's loss within FSDP_LOSS1_RTOL. After the steps, the gather a checkpoint makes (the whole model and
+    Adam moments to rank 0's CPU, one tensor at a time) is timed, with its
+    peak a rank; nothing is written."""
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel.partition import full_state_dict
+
+    say = _say(rank)
+    base = get_config(preset)
+    layers = base.llama.num_layers if world > 1 else min(SFT_LAYERS_ONE_CARD,
+                                                          base.llama.num_layers)
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(base.llama, num_layers=layers))
+    model = build_model(cfg, device)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    full = model_bytes(model)
+    batch = _rows_batch(cfg, world, rows)
+    eps = [draw_eps(model, cfg, world, step_generator(0, i, device)) for i in range(2)]
+    if rank == 0:  # the reference updates its weights: the model is built again
+        ref = _one_card_steps(model, cfg, batch, *eps)
+        del model
+        _free(device)
+        model = build_model(cfg, device)
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
+    if dist.is_initialized():
+        dist.barrier()
+    mesh = create_mesh(device=device.type)
+    shard_model(model, mesh)
+    _free(device)
+    opt = make_optimizer(model, TRAIN_LR)
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, opt, attn_impl="auto", remat="full", mesh=mesh)
+    held = bytes_per_rank(model)
+    cut = layers < base.llama.num_layers
+    say(f"  19b FSDP full SFT at {preset} widths, {layers} layers"
+        f"{f' (cut from {base.llama.num_layers}: their states do not fit one card)' if cut else ''}"
+        f", {world} rank(s), {world} x {rows} rows: the whole model "
+        f"{full / 2**30:.3f} GiB; a rank holds parameters {held['params'] / 2**30:.3f} GiB "
+        f"(its shards and the replicated ones), buffers {held['buffers'] / 2**30:.3f} GiB")
+    want = _train_launches(cfg, rows)
+    launches = {}
+    for i in range(2):
+        reset_launches()
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        m = step(state, batch, 0, eps=eps[i])
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gib(device)
+        counts = read_launches()
+        launched = {k: v for k, v in counts.items() if v}
+        moments = sum(t.to_local().numel() * t.element_size() if hasattr(t, "to_local")
+                      else t.numel() * t.element_size()
+                      for st in opt.state.values() for t in st.values())
+        say(f"  19b FSDP step {i}: loss {m['loss']:.4f} (text {m['text_loss']:.4f}, traj "
+            f"{m['traj_loss']:.4f}, kl {m['traj_kl_loss']:.4f}), grad_norm {m['grad_norm']:.4f}; wall "
+            f"{wall:.1f} ms, {world * rows / wall * 1e3:.1f} tokens/s, peak {peak:.3f} "
+            f"GiB a rank (Adam moments {moments / 2**30:.3f} GiB a rank); launches {launched}")
+        if rank == 0 and device.type == "cuda" and launched != want:
+            raise AssertionError(f"19b FSDP: launches {launched}, expected {want}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"19b FSDP: metrics not finite: {m}")
+        if rank == 0:
+            checks = [("loss", m["loss"], ref[2 * i], FSDP_LOSS1_RTOL if i else FSDP_LOSS_RTOL)]
+            if i == 0:
+                checks.append(("grad_norm", m["grad_norm"], ref[1], FSDP_NORM_RTOL))
+            say(f"  19b FSDP step {i} against one card's unsharded step on the same "
+                f"{world} x {rows} rows: " + ", ".join(
+                    f"{k} {v:.6f} / {r:.6f} (rel {abs(v - r) / abs(r):.3e}, limit {tol:.0e})"
+                    for k, v, r, tol in checks))
+            if any(abs(v - r) > tol * abs(r) for _, v, r, tol in checks):
+                raise AssertionError(f"19b FSDP: step {i} departs from the one-card reference")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    whole = full_state_dict(model), opt.state_dict()
+    _sync(device)
+    gather_s = time.perf_counter() - t0
+    host = sum(t.numel() * t.element_size() for t in whole[0].values()) + sum(
+        t.numel() * t.element_size() for st in whole[1]["state"].values() for t in st.values())
+    say(f"  19b FSDP checkpoint gather (whole model and moments to rank 0's CPU, not "
+        f"written): {gather_s:.2f} s, {host / 2**30:.3f} GiB on this rank's host, peak "
+        f"{_peak_gib(device):.3f} GiB a rank")
+    del model, opt, state, whole
+    _free(device)
+    return launches
+
+
+def _seq_parallel(rank: int, world: int, device, preset, rows_a_rank: int) -> dict:
+    """19b ring: LoRA r=128 over the bf16 7B base on one sample of 2048 x N
+    rows, `--seq-parallel N`: FSDP2 over a ('data', 'seq') mesh of 1 x N,
+    each rank 2048 rows, ring attention over the N ranks. Rank 0 first runs
+    the same rows on its card alone: the flash route (B3 / B3b) in bf16,
+    then the weights cast to fp32 (the flash route in fp32, the reference),
+    the adapters' gradients of one step each. The ring step's gradients
+    (the same CVAE draws) may lie at most BF16_VS_PLAIN x as far from the
+    reference as the one-card bf16 route's; its wall and peak a rank beside
+    the one-card forward + backward's; launches exact."""
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel.partition import full_tensor
+
+    say = _say(rank)
+    rows = rows_a_rank * world
+    model, cfg, _ = load_pretrained_model(f"random:{preset}", preset, device)
+    r = LORA_R if preset == "7b" else 2
+    gen = torch.Generator(device=device).manual_seed(1)
+    model.lora = init_lora(gen, cfg.llama, r, 2.0 * r, device=device)
+    with torch.no_grad():  # b ~ 0.02 N(0, 1), so that every adapter has a gradient
+        for ad in model.lora.adapters.values():
+            ad.b.normal_(0.0, 0.02, generator=gen)
+    batch = train_batch(cfg, rows)
+    eps = draw_eps(model, cfg, 1, step_generator(0, 0, device))
+    if rank == 0:
+        make_optimizer(model, TRAIN_LR, freeze_top_keys=("vision", "llama"))
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        g_one = _lora_grads(model, cfg, batch, eps, "auto")
+        _sync(device)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        one_peak = _peak_gib(device)
+        base = [child for name, child in model.named_children() if name != "lora"]
+        dtype = model.llama.embed_tokens.weight.dtype
+        for child in base:  # bf16 -> fp32 -> bf16 is exact; the adapters stay f32
+            child.float()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        g_32 = _lora_grads(model, cfg32, batch, eps.float(), "auto")
+        for child in base:
+            child.to(dtype)
+        model.zero_grad(set_to_none=True)
+        _free(device)
+    mesh = create_mesh(seq=world, device=device.type)
+    shard_model(model, mesh)
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=("vision", "llama"))
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, opt, attn_impl="auto", remat="full", mesh=mesh,
+                           seq_mesh=mesh if world > 1 else None)
+    reset_launches()
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    m = step(state, batch, 0, eps=eps)
+    _sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = _peak_gib(device)
+    counts = read_launches()
+    g_ring = torch.cat([full_tensor(p.grad).float().flatten() for p in model.lora.parameters()])
+    want = {"vit_attention": cfg.vision.num_layers + cfg.vision.select_layer + 1}
+    if world == 1:  # no ring: the one-card route, B3 / B3b
+        want = _train_launches(cfg, rows)
+    launched = {k: v for k, v in counts.items() if v}
+    say(f"  19b ring LoRA r={r} step, {rows} rows over {world} rank(s) ({rows_a_rank} a "
+        f"rank): loss {m['loss']:.4f}, wall {wall:.1f} ms, {rows / wall * 1e3:.1f} tokens/s, "
+        f"peak {peak:.3f} GiB a rank; launches {launched}")
+    if rank == 0:
+        d_r, d_1 = _rel(g_ring, g_32), _rel(g_one, g_32)
+        limit = _limit(model.llama.embed_tokens.weight.dtype, d_1)
+        say(f"  19b one card, the same {rows} rows (flash route, forward + backward): wall "
+            f"{one_ms:.1f} ms, peak {one_peak:.3f} GiB")
+        say(f"  19b adapter gradients ({g_ring.numel()} values), relative L2 from the fp32 "
+            f"reference: ring {d_r:.3e}, one-card flash {d_1:.3e} (ratio "
+            f"{d_r / d_1 if d_1 else float('nan'):.3f}; limit {limit:.3e})")
+        if device.type == "cuda" and launched != want:
+            raise AssertionError(f"19b ring: launches {launched}, expected {want}")
+        if not (np.isfinite(d_r) and d_r <= limit):
+            raise AssertionError(f"19b ring: gradients lie {d_r:.3e} from the reference, limit "
+                                 f"{limit:.3e}")
+    if dist.is_initialized():
+        dist.barrier()
+    del model, opt, state
+    _free(device)
+    return counts
+
+
+def _parallel_rank(rank: int, world: int, device: str = "cuda", preset: str = "7b",
+                   rows: int = TRAIN_ROWS, new_tokens: int = PAR_NEW_TOKENS) -> dict:
+    """One rank of phase 19b (NCCL, one card a rank; gloo on the CPU at a
+    small preset for the rehearsal); returns its launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device(device)
+    say = _say(rank)
+    launches = {name: 0 for name in WRAPPERS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for quantize, kv_quant in ((None, None), ("int4", "int8")):
+        t0 = time.perf_counter()
+        add(_tp_decode(rank, world, quantize, kv_quant, device, preset, new_tokens))
+        say(f"  19b decode {quantize or 'bf16'} wall {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    add(_fsdp_sft(rank, world, device, preset, rows))
+    say(f"  19b FSDP wall {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    add(_seq_parallel(rank, world, device, preset, rows))
+    say(f"  19b ring wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def phase_parallel(device: str = "cuda", preset: str = "7b", ranks: int = 0,
+                   rows: int = TRAIN_ROWS, new_tokens: int = PAR_NEW_TOKENS) -> dict:
+    """Phase 19: 19a on this card, then 19b over every card (`ranks`: that
+    many), one NCCL rank each (a rank that fails fails the phase). On the
+    CPU (`device="cpu"`, gloo ranks, a small `preset`, `rows` and
+    `new_tokens`) 19b alone
+    runs, its kernels' plain versions in place of the kernels. Returns rank
+    0's launches of 19b's runs."""
+    if device == "cuda":
+        log("phase 19a: the tensor-parallel shards at 7B's shapes, rank by rank on one card")
+        t0 = time.perf_counter()
+        check_tp_shards()
+        log(f"  phase 19a wall {time.perf_counter() - t0:.2f} s")
+    n = ranks or torch.cuda.device_count()
+    log(f"phase 19b: the world run over {n} rank(s): {preset} tensor-parallel decode (bf16, "
+        "int4 + kv8), FSDP2 full SFT, the ring (--seq-parallel) LoRA step")
+    _free(torch.device(device))
+    t0 = time.perf_counter()
+    launches = spawn(_parallel_rank, n, device, preset, rows, new_tokens, device=device,
+                     timeout=900)[0]
+    log(f"  phase 19b wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def model_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in list(model.parameters()) + list(model.buffers()))
@@ -3948,10 +4507,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_hoi_cli()
     log(f"  phase 18a wall {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel()
 
     launches["flash_attention"] += train.pop("flash_attention")
     launches.update(train)
     for name, n in hoi_launches.items():
+        launches[name] += n
+    for name, n in parallel.items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -28,6 +28,12 @@ Tensors are loaded memory-mapped on the CPU and copied into the template's
 tensors, so a 7B restore does not hold a second copy on the card. The port
 reads its own format, not Orbax: JAX-trained weights cross over as the
 HF-layout state dict (`convert.from_hf`).
+
+A model sharded over ranks (`parallel/partition.shard_model`) saves and
+restores the same files: every rank gathers the whole state dicts, the
+first rank writes them, and at a restore each rank reads them and keeps
+its shards, so a checkpoint of N ranks resumes in one and the other way
+round.
 """
 
 from __future__ import annotations
@@ -64,13 +70,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def save_train_state(ckpt_dir: str, state, step: int, max_to_keep: int = 100) -> int:
     """Write the state's model, optimizer and step under `<ckpt_dir>/<step>/`;
     returns the bytes written."""
+    from handsonvlm_torch.parallel.partition import full_state_dict, is_sharded
+
+    sharded = is_sharded(state.model)
+    model_state = full_state_dict(state.model) if sharded else state.model.state_dict()
+    optimizer_state = state.optimizer.state_dict()
+    if sharded and torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()  # the first rank writes
+        return 0
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, str(int(step)))
     tmp = f"{final}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    torch.save(state.model.state_dict(), os.path.join(tmp, MODEL_FILE))
-    torch.save(state.optimizer.state_dict(), os.path.join(tmp, OPTIMIZER_FILE))
+    torch.save(model_state, os.path.join(tmp, MODEL_FILE))
+    torch.save(optimizer_state, os.path.join(tmp, OPTIMIZER_FILE))
     with open(os.path.join(tmp, STEP_FILE), "w") as f:
         json.dump({"step": int(state.step)}, f)
     nbytes = sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
@@ -78,6 +92,8 @@ def save_train_state(ckpt_dir: str, state, step: int, max_to_keep: int = 100) ->
     steps = sorted(int(d) for d in os.listdir(ckpt_dir) if re.fullmatch(r"\d+", d))
     for old in steps[:-max_to_keep] if max_to_keep > 0 else []:
         shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    if sharded:
+        torch.distributed.barrier()
     return nbytes
 
 
@@ -88,8 +104,14 @@ def restore_train_state(ckpt_dir: str, template_state, step: Optional[int] = Non
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         return None
+    from handsonvlm_torch.parallel.partition import is_sharded, load_full_state_dict
+
     path = os.path.join(os.path.abspath(ckpt_dir), str(int(step)))
-    template_state.model.load_state_dict(_load(os.path.join(path, MODEL_FILE)))
+    model_state = _load(os.path.join(path, MODEL_FILE))
+    if is_sharded(template_state.model):
+        load_full_state_dict(template_state.model, model_state)
+    else:
+        template_state.model.load_state_dict(model_state)
     template_state.optimizer.load_state_dict(_load(os.path.join(path, OPTIMIZER_FILE)))
     with open(os.path.join(path, STEP_FILE)) as f:
         template_state.step = int(json.load(f)["step"])

@@ -13,6 +13,13 @@ categorical draw (temperature <= 0: greedy argmax). Draws come from a
 `kv_quant="int8"` decodes over the int8 cache: the prefill attends over a
 cache in the model's dtype, which is then quantized, as the JAX package
 does.
+
+`tp` (a `parallel.tp.TPGroup`, the JAX package's `tp_mesh`) runs every
+rank of the group on its shard of the decoder (`parallel.tp.shard_llama_tp`)
+over a cache of its kv heads; the rest of the model is whole on every rank.
+Every rank samples from the same generator over the same logits; the
+group's first rank's token and waypoint are then broadcast, so the ranks
+feed the same token back whatever their sampling did.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from handsonvlm_torch.models.handsonvlm import (
     splice_visual_tokens,
 )
 from handsonvlm_torch.models.llama import KVCache, apply_llama, lm_logits, quantize_kv_cache
+from handsonvlm_torch.parallel.tp import broadcast_from_first, check_layout, tp_size
 
 MAX_HAND_STEPS = 10  # generous cap; eval pads/clips to 4
 
@@ -104,6 +112,7 @@ def prefill(
     frame_map: Optional[torch.Tensor] = None,
     kv_quant: Optional[str] = None,
     positions_from_mask: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Encode the video, splice, run the prompt through the decoder once.
 
@@ -124,7 +133,9 @@ def prefill(
     t_out = sp.embeds.shape[1]
     if t_out + 1 > max_len:
         raise ValueError(f"prompt {t_out} does not fit cache {max_len}")
-    cache = KVCache.create(cfg.llama, b, max_len, sp.embeds.dtype, sp.embeds.device)
+    layout = check_layout(model.llama, tp)
+    cache = KVCache.create(cfg.llama, b, max_len, sp.embeds.dtype, sp.embeds.device,
+                           kv_heads=layout.kv_heads(cfg.llama.kv_heads) if layout else None)
     cache_mask = torch.cat([sp.attn_mask, torch.ones((b, max_len - t_out), dtype=torch.bool,
                                                      device=sp.embeds.device)], dim=1)
     positions = None
@@ -132,18 +143,21 @@ def prefill(
         positions = (torch.cumsum(sp.attn_mask.long(), dim=1) - 1).clamp(min=0)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
                                 attn_mask=cache_mask, positions=positions, kv_cache=cache,
-                                attn_impl=attn_impl, lora=model.lora)
+                                attn_impl=attn_impl, lora=model.lora, tp=tp)
     if kv_quant == "int8":
         cache = quantize_kv_cache(cache)
     return hidden[:, -1, :], cache, cache_mask
 
 
-def _sample_and_hook(model, cfg, hidden, generator, temperature, top_p, z):
+def _sample_and_hook(model, cfg, hidden, generator, temperature, top_p, z, tp=None):
     """Sample the next token from `hidden` (B, D) and decode the waypoint
-    that goes with it (used if the token is <hand_traj>)."""
+    that goes with it (used if the token is <hand_traj>); under `tp` the
+    group's first rank's pair."""
     logits = lm_logits(model.llama, cfg.llama, hidden)
     token = _sample_token(generator, logits, temperature, top_p)
     waypoint = decode_hand_waypoint(model, cfg, hidden, z=z, generator=generator)
+    if tp_size(tp) > 1:
+        token, waypoint = broadcast_from_first((token, waypoint), tp)
     return token, waypoint
 
 
@@ -161,15 +175,16 @@ def decode_step(
     top_p: float = 0.9,
     attn_impl: str = "auto",
     z: Optional[torch.Tensor] = None,
+    tp=None,
 ):
     """One cached decode step: feed cur_token (with its waypoint if it is
     <hand_traj>), sample the next token. Returns (token, waypoint, cache)."""
     emb = embed_next_token(model, cfg, cur_token, cur_waypoint)
     hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=emb[:, None, :],
                                 attn_mask=cache_mask, kv_cache=cache, attn_impl=attn_impl,
-                                lora=model.lora)
+                                lora=model.lora, tp=tp)
     token, waypoint = _sample_and_hook(model, cfg, hidden[:, 0], generator,
-                                       temperature, top_p, z)
+                                       temperature, top_p, z, tp)
     return token, waypoint, cache
 
 
@@ -194,9 +209,11 @@ def generate_host(
     tokenizer=None,
     z_steps: Optional[Sequence] = None,
     kv_quant: Optional[str] = None,
+    tp=None,
 ) -> SampleOutput:
     """Prefill + host-driven per-token decode (`kv_quant="int8"`: over the
-    int8 cache).
+    int8 cache; `tp`: this rank's shard of a tensor-parallel group, every
+    rank of which calls this with the same arguments).
 
     `on_token` (token_id -> None) streams row 0's tokens as they are sampled.
     `stop_strs` (+ `tokenizer`) finish a row when the decoded tail of its
@@ -221,9 +238,9 @@ def generate_host(
 
     last_hidden, cache, cache_mask = prefill(
         model, cfg, input_ids, images, max_len, attn_mask=attn_mask,
-        attn_impl=attn_impl, frame_map=frame_map, kv_quant=kv_quant)
+        attn_impl=attn_impl, frame_map=frame_map, kv_quant=kv_quant, tp=tp)
     token, waypoint = _sample_and_hook(model, cfg, last_hidden, generator,
-                                       temperature, top_p, z_at(0))
+                                       temperature, top_p, z_at(0), tp)
 
     tokens = np.zeros((b, max_new_tokens), np.int32)
     num_tokens = np.zeros((b,), np.int32)
@@ -261,7 +278,7 @@ def generate_host(
         token, waypoint, cache = decode_step(
             model, cfg, cache, cache_mask, torch.as_tensor(tok_h, device=device).long(),
             waypoint, generator, temperature=temperature, top_p=top_p,
-            attn_impl=attn_impl, z=z_at(step))
+            attn_impl=attn_impl, z=z_at(step), tp=tp)
         tok_h = record(step, token, waypoint)
         step += 1
 

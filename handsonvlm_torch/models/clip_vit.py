@@ -70,6 +70,10 @@ class ClipLayer(nn.Module):
         self.mlp = ClipMLP(d, cfg.intermediate_size, **factory)
         self.layer_norm2 = LayerNorm(d, **factory)
 
+    def forward(self, hidden, cfg: ClipVisionConfig, attn_impl: str):
+        """`_encoder_layer` on this layer, as a module call (for FSDP2's hooks)."""
+        return _encoder_layer(hidden, self, cfg, attn_impl)
+
 
 class ClipEncoder(nn.Module):
     def __init__(self, cfg: ClipVisionConfig, **factory):
@@ -136,7 +140,7 @@ def apply_clip_vision(
 
     n_run = cfg.num_layers + cfg.select_layer + 1
     for lp in vision.encoder.layers[:n_run]:
-        x = _encoder_layer(x, lp, cfg, attn_impl)
+        x = lp(x, cfg, attn_impl)
     if cfg.select_feature == "patch":
         x = x[:, 1:]
     return x

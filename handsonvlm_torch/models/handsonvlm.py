@@ -54,6 +54,12 @@ class HandsOnVLM(nn.Module):
         self.traj = TrajCVAE(cfg.traj, cfg.llama.hidden_size // 2, **factory)
         self.lora = None  # a models.lora.LoRA once adapters are attached
 
+    def forward(self, cfg: HandsOnVLMConfig, **kwargs) -> Dict[str, torch.Tensor]:
+        """The module-level `forward(self, cfg, **kwargs)` as a module call,
+        so that hooks on the model (FSDP2's gathers and gradient reduction)
+        run around it."""
+        return forward(self, cfg, **kwargs)
+
     def init_weights(self, generator: torch.Generator) -> None:
         self.llama.init_weights(generator)
         self.vision.init_weights(generator)
@@ -209,14 +215,17 @@ def splice_visual_tokens(
 
 
 def extract_hand_embeddings(
-    hidden: torch.Tensor,  # (B, T, D)
+    hidden: torch.Tensor,  # (B, T', D): positions [start, start + T')
     labels: torch.Tensor,  # (B, T)
     future_valid: torch.Tensor,  # (B, 2)
+    start=0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hidden states at the positions predicting the first 4 <hand_traj>
     labels -> ((B, 2, 4, D//2), future_valid). A row with no hand token
-    gets zeros and future_valid 0."""
-    b, t, d = hidden.shape
+    gets zeros and future_valid 0. `hidden` may hold a block of positions
+    from `start` on (a rank's rows of a sequence spread over ranks); a
+    hand position outside it gives zeros."""
+    b, tl, d = hidden.shape
     mask = labels == HAND_TOKEN_ID
     # position p predicts label p+1: shift left, pad False
     shifted = torch.cat([mask[:, 1:], torch.zeros((b, 1), dtype=torch.bool,
@@ -225,7 +234,10 @@ def extract_hand_embeddings(
     rows, cols = torch.nonzero(shifted & (rank < NUM_HAND_TOKENS), as_tuple=True)
     pos = torch.zeros((b, NUM_HAND_TOKENS), dtype=torch.long, device=hidden.device)
     pos[rows, rank[rows, cols]] = cols
-    emb = hidden[torch.arange(b, device=hidden.device)[:, None], pos]  # (B, 4, D)
+    here = (pos >= start) & (pos < start + tl)
+    emb = hidden[torch.arange(b, device=hidden.device)[:, None],
+                 (pos - start).clamp(0, tl - 1)]  # (B, 4, D)
+    emb = torch.where(here[..., None], emb, 0.0)
     emb = emb.reshape(b, NUM_HAND_TOKENS, d // 2, 2).permute(0, 3, 1, 2)
     ok = shifted.any(dim=1)
     emb = torch.where(ok[:, None, None, None], emb, 0.0)
@@ -237,14 +249,22 @@ def extract_hand_embeddings(
 # ---------------------------------------------------------------------------
 
 
-def cross_entropy_shifted(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over non-ignored shifted positions (HF CrossEntropyLoss)."""
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, 0)
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Each position's target: the next label; the last position gets none."""
+    return torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)], dim=1)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CE summed over the non-ignored targets and divided by `count` (by
+    default their number: HF CrossEntropyLoss's mean)."""
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    if count is None:
+        count = valid.sum()
+    return (nll * valid).sum() / count.clamp(min=1)
 
 
 def forward(
@@ -263,6 +283,8 @@ def forward(
     lora=None,
     remat=False,
     frame_map: Optional[torch.Tensor] = None,
+    data_parallel: bool = False,
+    seq=None,
 ) -> Dict[str, torch.Tensor]:
     """Teacher-forced forward: logits, hidden, and with labels the losses.
 
@@ -270,7 +292,18 @@ def forward(
     visual tokens, adds gt coordinate embeddings at <hand_traj> inputs, runs
     the decoder, computes shifted CE + CVAE losses. `lora` (default: the
     model's attached `model.lora`) and `remat` go to `apply_llama`;
-    `frame_map` (the unique frames' slot map) goes to `encode_video`."""
+    `frame_map` (the unique frames' slot map) goes to `encode_video`.
+
+    `data_parallel`: the batch is spread over the ranks of the default
+    group (train/step.py), each holding some of its rows, and the losses
+    are this rank's share, the shares of all ranks summing to the whole
+    batch's: the CE's target count and the KL quirk's valid count are
+    summed over the ranks. `seq` (a mesh with a 'seq' axis) also spreads
+    the positions: the decoder runs on this rank's T/P of them with ring
+    attention (logits and hidden are then those positions'), the hand
+    hidden states are summed over the ring from the rank holding each, and
+    the CVAE terms, which every rank of a ring computes for the same rows,
+    are divided by P."""
     train = labels is not None
     if train:
         future_hands = future_hands[:, :, 1:]
@@ -284,21 +317,43 @@ def forward(
                           frame_map=frame_map).to(text_embeds.dtype)
     sp = splice_visual_tokens(text_embeds, input_ids, visual, attn_mask=attn_mask,
                               labels=labels)
-    hidden, _ = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
-                            attn_mask=sp.attn_mask, attn_impl=attn_impl,
-                            lora=model.lora if lora is None else lora, remat=remat)
+    embeds, mask, positions = sp.embeds, sp.attn_mask, None
+    targets = shift_labels(sp.labels) if train else None
+    n_seq, start = 1, 0
+    if seq is not None:
+        from handsonvlm_torch.parallel.mesh import mesh_shape
+        from handsonvlm_torch.parallel.ring_attention import shard_sequence
+
+        b, t = embeds.shape[:2]
+        positions = torch.arange(t, device=embeds.device)[None].expand(b, t)
+        embeds, mask, positions = (shard_sequence(x, seq) for x in (embeds, mask, positions))
+        targets = shard_sequence(targets, seq) if train else None
+        n_seq, start = mesh_shape(seq)["seq"], positions[0, 0]
+    hidden, _ = apply_llama(model.llama, cfg.llama, inputs_embeds=embeds, attn_mask=mask,
+                            positions=positions, attn_impl=attn_impl,
+                            lora=model.lora if lora is None else lora, remat=remat, seq=seq)
     logits = lm_logits(model.llama, cfg.llama, hidden)
 
     out = {"logits": logits, "hidden": hidden}
     if train:
-        text_loss = cross_entropy_shifted(logits, sp.labels)
-        emb, fv = extract_hand_embeddings(hidden, sp.labels, future_valid)
+        from handsonvlm_torch.parallel.distributed import all_reduce_sum, all_reduce_sum_grad
+
+        count = kl_valid = None
+        if data_parallel:
+            count = all_reduce_sum((targets != IGNORE_INDEX).sum().float())
+        text_loss = cross_entropy(logits, targets, count)
+        emb, fv = extract_hand_embeddings(hidden, sp.labels, future_valid, start=start)
+        if seq is not None:
+            emb = all_reduce_sum_grad(emb, seq.get_group("seq"))
+        if data_parallel:
+            kl_valid = all_reduce_sum(fv.float().sum()) / n_seq
         losses = traj_decoder_loss(
             model.traj, cfg.traj, emb, future_hands, fv,
-            cfg.lambda_traj, cfg.lambda_traj_kl, eps=eps, generator=generator)
-        out.update(losses)
-        out["text_loss"] = text_loss
-        out["loss"] = cfg.hoi_lambda * losses["total_loss"] + text_loss
+            cfg.lambda_traj, cfg.lambda_traj_kl, eps=eps, generator=generator,
+            kl_valid=kl_valid)
+        traj, kl = losses["traj_loss"] / n_seq, losses["traj_kl_loss"] / n_seq
+        out.update(text_loss=text_loss, traj_loss=traj, traj_kl_loss=kl, total_loss=traj + kl,
+                   loss=cfg.hoi_lambda * (traj + kl) + text_loss)
     return out
 
 

@@ -77,6 +77,13 @@ from handsonvlm_torch.ops.int8_matmul import (
     tiled_shapes,
 )
 from handsonvlm_torch.ops.qlora_fused import int8_lora_matmul_stacked, int8_matmul_stacked
+from handsonvlm_torch.parallel.tp import (
+    check_layout,
+    head_parallel,
+    int4_matmul_stacked_tp,
+    local_heads,
+    row_parallel_linear,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +102,10 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int, dtype,
-               device) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim_)
+               device, kv_heads: Optional[int] = None) -> "KVCache":
+        """`kv_heads` (default: the config's) is a tensor-parallel rank's
+        share (`parallel.tp.TPLayout.kv_heads`)."""
+        shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.kv_heads, cfg.head_dim_)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -174,7 +183,10 @@ class LlamaMLP(nn.Module):
 
 class LlamaLayer(nn.Module):
     """One block's weights; `dense=False` (the quantized modes) keeps only
-    the norms, the projections living in `Llama.int4` or `Llama.proj`."""
+    the norms, the projections living in `Llama.int4` or `Llama.proj`.
+    Calling the module runs `_layer` on it, so that the hooks of a layer
+    FSDP2 shards (`parallel/partition.shard_model`) gather its parameters
+    around the call."""
 
     def __init__(self, cfg: LlamaConfig, dense: bool = True, **factory):
         super().__init__()
@@ -182,6 +194,9 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, **factory) if dense else None
         self.input_layernorm = RMSNorm(cfg.hidden_size, **factory)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, **factory)
+
+    def forward(self, llama, cfg, hidden, *args, **kwargs):
+        return _layer(llama, self, cfg, hidden, *args, **kwargs)
 
 
 def int4_projection_shapes(cfg: LlamaConfig):
@@ -284,6 +299,7 @@ class Llama(nn.Module):
                        if quantize == "int4_proj" else Int8Weight(din, dout, L, device))
                 for name, (din, dout) in projection_shapes(cfg).items()}))
         self.quantize = quantize
+        self.tp_layout = None  # a parallel.tp.TPLayout once cut for tensor parallelism
         if cfg.tie_word_embeddings:
             self.lm_head = None
         elif dense:
@@ -497,6 +513,9 @@ def _layer(
     blocks: Optional[BlockList] = None,
     lora_layer=None,
     lora_scale=0.0,
+    tp=None,
+    layout=None,
+    seq=None,
 ) -> torch.Tensor:
     """One decoder block, dense, fused int4 (`Llama.int4`), per projection
     int8 / flat int4 (`Llama.proj`) or fused QLoRA int8 (`Llama.proj` under
@@ -505,12 +524,23 @@ def _layer(
     before attention reads them; a decode window attends over the forward's
     compacted block list `blocks`. `lora_layer` (the layer's adapter views,
     `LoRA.layer(i)`) adds each target's low-rank delta where the JAX
-    package's `_layer` adds it (on the fused route, inside the kernel)."""
+    package's `_layer` adds it (on the fused route, inside the kernel).
+
+    `tp` (a `parallel.tp.TPGroup`) with `layout` (the decoder's
+    `TPLayout`) runs this rank's shard, as the JAX package's `tp_mesh`:
+    int4 projections column-parallel with their outputs gathered, the
+    attention over this rank's heads and cache (gathered after it on the
+    int4 route, which feeds the column-parallel wo), dense o / down
+    row-parallel. `seq` (a mesh with a 'seq' axis) makes the attention of a
+    cache-less forward ring attention over its ranks, each holding T/P rows
+    (`parallel/ring_attention.py`), as the JAX package's `seq_mesh`."""
     b, t, _ = hidden.shape
     h, k, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     int4, proj = llama.int4, llama.proj
     plain = attn_impl == "xla"
     fused = llama.quantize == "int8_fused"
+    heads = layout is not None and layout.heads
+    mlp_rows = layout is not None and layout.mlp
 
     def fproj(x, name):  # the fused QLoRA route, the JAX package's proj8
         w = proj[name]
@@ -521,7 +551,10 @@ def _layer(
         return int8_matmul_stacked(x, w.w8, w.scale, layer_idx, plain=plain)
 
     def iproj(x, name):
-        return int4_matmul_stacked(x, *int4[name].packed(), layer_idx, plain=plain)
+        if layout is None:
+            return int4_matmul_stacked(x, *int4[name].packed(), layer_idx, plain=plain)
+        return int4_matmul_stacked_tp(x, *int4[name].packed(), layer_idx, plain=plain,
+                                      tp=tp if layout.int4[name] else None)
 
     def pproj(x, name):
         return maybe_int8_matmul(x, proj[name].leaf(layer_idx), plain=plain)
@@ -531,6 +564,12 @@ def _layer(
             return pproj(x, name)
         sub, lin = _PROJ[name]
         return getattr(getattr(lp, sub), lin)(x)
+
+    def dense_rows(x, name, split):  # o / down: row-parallel when this rank holds a split
+        if not split:
+            return dense(x, name)
+        sub, lin = _PROJ[name]
+        return row_parallel_linear(x, getattr(getattr(lp, sub), lin).weight, tp)
 
     def split(delta, widths):  # lora_delta_multi's three forms -> a tuple
         if isinstance(delta, tuple):
@@ -552,26 +591,33 @@ def _layer(
     else:
         dqkv = split(dqkv, qkv_widths)
         q, kx, vx = (_add(dense(x, n), dy) for n, dy in zip(("wq", "wk", "wv"), dqkv))
-    q = apply_rope(q.reshape(b, t, h, hd), cos, sin)
-    kx = apply_rope(kx.reshape(b, t, k, hd), cos, sin)
-    vx = vx.reshape(b, t, k, hd)
+    # a dense shard's projections give this rank's heads alone, hence -1
+    q = apply_rope(q.reshape(b, t, -1, hd), cos, sin)
+    kx = apply_rope(kx.reshape(b, t, -1, hd), cos, sin)
+    vx = vx.reshape(b, t, -1, hd)
+    head_split = heads and int4 is not None  # every head projected: attend this rank's
+    if head_split:
+        kx, vx = local_heads(kx, tp), local_heads(vx, tp)
 
-    if kv_cache is None:
-        out = attention(q, kx, vx, key_mask=key_mask, causal=True, impl=attn_impl)
-    elif isinstance(kv_cache, QuantKVCache):
-        _write_quant_kv(kv_cache, layer_idx, kx, vx)
-        idx, c = kv_cache.index, kv_cache
-        if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode", "stacked"):
-            out = decode_attention_stacked_q(q, c.k, c.v, c.ks, c.vs, layer_idx, idx + t,
-                                             key_mask=key_mask, blocks=blocks)
-        else:
+    def attend(q):
+        if kv_cache is None:
+            if seq is not None:
+                from handsonvlm_torch.parallel.ring_attention import ring_attention
+
+                return ring_attention(q, kx, vx, mesh=seq, causal=True, key_mask=key_mask)
+            return attention(q, kx, vx, key_mask=key_mask, causal=True, impl=attn_impl)
+        if isinstance(kv_cache, QuantKVCache):
+            _write_quant_kv(kv_cache, layer_idx, kx, vx)
+            idx, c = kv_cache.index, kv_cache
+            if t <= MAX_T_WINDOW and attn_impl in ("auto", "decode", "stacked"):
+                return decode_attention_stacked_q(q, c.k, c.v, c.ks, c.vs, layer_idx, idx + t,
+                                                  key_mask=key_mask, blocks=blocks)
             # plain route, as the JAX package's: dequantize the layer and
             # attend over all of it (keys past the written prefix masked)
             k_l = (c.k[layer_idx].float() * c.ks[layer_idx].transpose(1, 2)[..., None])
             v_l = (c.v[layer_idx].float() * c.vs[layer_idx].transpose(1, 2)[..., None])
-            out = attention(q, k_l.to(q.dtype), v_l.to(q.dtype), key_mask=key_mask,
-                            causal=True, q_offset=idx, impl="xla")
-    else:
+            return attention(q, k_l.to(q.dtype), v_l.to(q.dtype), key_mask=key_mask,
+                             causal=True, q_offset=idx, impl="xla")
         idx = kv_cache.index
         kv_cache.k[layer_idx, :, idx:idx + t] = kx
         kv_cache.v[layer_idx, :, idx:idx + t] = vx
@@ -582,10 +628,11 @@ def _layer(
         # a fully masked (left-pad) query row then averages over all S_max
         # keys there (the flash kernel gives such a row 0; it is never read)
         impl = "xla" if attn_impl == "flash" and t <= MAX_T_WINDOW else attn_impl
-        out = attention(
+        return attention(
             q, kv_cache.k[layer_idx], kv_cache.v[layer_idx], key_mask=key_mask,
             causal=True, q_offset=idx, impl=impl, decode_length=idx + t, blocks=blocks)
-    out = out.reshape(b, t, h * hd)
+
+    out = head_parallel(attend, q, tp if head_split else None).reshape(b, t, -1)
     f = cfg.intermediate_size
     if fused:
         hidden = hidden + fproj(out, "wo")
@@ -603,12 +650,14 @@ def _layer(
         gu = F.silu(gate) * up
         return _add(hidden + iproj(gu, "w_down"),
                     lora_delta(lora_layer, "w_down", gu, lora_scale))
-    hidden = hidden + _add(dense(out, "wo"), lora_delta(lora_layer, "wo", out, lora_scale))
+    hidden = hidden + _add(dense_rows(out, "wo", heads),
+                           lora_delta(lora_layer, "wo", out, lora_scale))
 
     x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
     dgu = split(lora_delta_multi(lora_layer, ("w_gate", "w_up"), x, lora_scale), [f, f])
     gu = F.silu(_add(dense(x, "w_gate"), dgu[0])) * _add(dense(x, "w_up"), dgu[1])
-    return hidden + _add(dense(gu, "w_down"), lora_delta(lora_layer, "w_down", gu, lora_scale))
+    return hidden + _add(dense_rows(gu, "w_down", mlp_rows),
+                         lora_delta(lora_layer, "w_down", gu, lora_scale))
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +713,8 @@ def apply_llama(
     attn_impl: str = "auto",
     lora=None,
     remat=False,
+    tp=None,
+    seq=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack.
 
@@ -681,8 +732,23 @@ def apply_llama(
     saves nothing, "dots" every matmul output, "dots_nobatch" those
     without batch dimensions, "save_lora" only the adapters' x @ a.
 
+    `tp` (a `parallel.tp.TPGroup`) runs this rank's shard of a decoder cut
+    by `parallel.tp.shard_llama_tp` for it, over a cache of its kv heads
+    (the JAX package's `tp_mesh`). `seq` (a mesh with a 'seq' axis) runs a
+    cache-less forward sequence-parallel: each rank passes its T/P rows and
+    their global `positions`, and the attention is ring attention (the JAX
+    package's `seq_mesh`).
+
     Returns the final-normed hidden states (B,T,D) and the cache (or None).
     """
+    layout = check_layout(llama, tp)
+    if layout is not None and lora is not None and llama.int4 is None:
+        raise ValueError("LoRA adapters on a dense tensor-parallel shard: merge them into "
+                         "the weights first (models.lora.merge_lora), then cut the shards")
+    if layout is not None and kv_cache is not None and (
+            kv_cache.k.shape[3] != layout.kv_heads(cfg.kv_heads)):
+        raise ValueError(f"the cache holds {kv_cache.k.shape[3]} kv heads, this rank's shard "
+                         f"{layout.kv_heads(cfg.kv_heads)}")
     if inputs_embeds is None:
         inputs_embeds = llama.embed_tokens(input_ids)
     b, t, _ = inputs_embeds.shape
@@ -720,8 +786,8 @@ def apply_llama(
 
     def run(i, lp, hidden):
         lora_layer = lora.layer(i) if lora is not None else None
-        return _layer(llama, lp, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl,
-                      blocks, lora_layer, lora_scale)
+        return lp(llama, cfg, hidden, cos, sin, key_mask, kv_cache, i, attn_impl,
+                  blocks, lora_layer, lora_scale, tp, layout, seq)
 
     hidden = inputs_embeds
     for i, lp in enumerate(llama.layers):

@@ -101,7 +101,12 @@ def traj_decoder_loss(
     *,
     eps: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    kl_valid: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
+    """`kl_valid`, when given, is the valid count of the whole batch the KL
+    quirk below multiplies by, for a rank that holds some of its rows
+    (train/step.py under data parallelism): the rank's share of the KL
+    term is then lambda_traj_kl * sum(its KLD) * kl_valid."""
     b, _, t_pred, token_dim = pred_hand_embeddings.shape
     cond = pred_hand_embeddings.reshape(-1, token_dim)
     gt = future_hands.reshape(-1, 2).to(cond.dtype)
@@ -112,9 +117,11 @@ def traj_decoder_loss(
     # flattened batch and scaled by each sample's valid count, not masked
     # per sample like the recon term
     traj_per_b = (recon.sum(-1) * valid).sum(1)
-    kl_per_b = kld.float().sum() * valid.sum(1)
     traj_loss = lambda_traj * traj_per_b.sum()
-    kl_loss = lambda_traj_kl * kl_per_b.sum()
+    if kl_valid is None:
+        kl_loss = lambda_traj_kl * (kld.float().sum() * valid.sum(1)).sum()
+    else:
+        kl_loss = lambda_traj_kl * (kld.float().sum() * kl_valid)
     return {"traj_loss": traj_loss, "traj_kl_loss": kl_loss,
             "total_loss": traj_loss + kl_loss}
 

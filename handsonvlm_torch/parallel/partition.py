@@ -1,0 +1,244 @@
+"""Parameter partitioning rules and FSDP2 sharding of the train path.
+
+Port of `handsonvlm_tpu/parallel/partition.py`. The rule table maps a
+parameter's name to a spec, one mesh axis name (or None) per dimension;
+the first matching rule wins and an unmatched parameter is replicated. The
+JAX rules are written for its (L, din, dout) leaves; here they are
+translated to the port's names and HF layouts ((dout, din) weights, one
+module per layer), so `'data'` lands on the same logical dimension.
+`_clamp_spec` drops an axis from a dimension it does not divide, and an
+axis the mesh does not have, as the JAX package's does (the 32101-row
+embedding and head stay whole on 2 or 4 ranks).
+
+`shard_model(model, mesh)` applies FSDP2 (`fully_shard`) over the mesh's
+`data` axis: one unit per decoder layer, one per CLIP layer, and the root.
+A parameter whose clamped spec has `'data'` is sharded on that dimension;
+the rest (norms, biases, scales, position and class embeddings, and the
+dimensions no rank count divides) stay whole on every rank, outside FSDP,
+and `sync_replicated_grads` averages their gradients over the ranks as
+FSDP2 does its own. On a ('data', 'seq') mesh the units are hybrid:
+sharded over `data`, replicated over `seq`, gradients reduced over both.
+FSDP2 shards parameters, not buffers: the frozen int4 / int8 QLoRA bases
+are buffers and stay whole on each rank. The LoRA adapters stay whole too,
+beside the table's rule for them: they are f32 master weights over a bf16
+base, and FSDP2 takes one dtype a unit, while the adapters are read inside
+every decoder layer's unit (r = 128 at 7B: 1.2 GiB of f32 a rank, with
+their Adam moments three times that).
+
+`full_state_dict` / `load_full_state_dict` move between the sharded model
+and the whole state dict a one-rank run saves, so a checkpoint written by
+N ranks resumes in one and the other way round.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+from handsonvlm_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, mesh_shape
+
+Spec = Tuple[Optional[str], ...]
+
+# decoder: HF (dout, din) weights; JAX's (L, din, dout) 'data' on din is dim 1 here
+LLAMA_RULES: List[Tuple[str, Spec]] = [
+    (r"llama\.embed_tokens\.weight$", ("data", "model")),  # (V, D), as JAX's
+    (r"self_attn\.(q|k|v)_proj\.weight$", ("model", "data")),
+    (r"self_attn\.o_proj\.weight$", ("data", "model")),
+    (r"mlp\.(gate|up)_proj\.weight$", ("model", "data")),
+    (r"mlp\.down_proj\.weight$", ("data", "model")),
+    (r"llama\.layers\.\d+\.(input_layernorm|post_attention_layernorm)\.weight$", ()),
+    (r"llama\.norm\.weight$", ()),
+    (r"llama\.lm_head\.weight$", ("model", "data")),  # JAX (D, V) P('data', 'model')
+]
+
+VISION_RULES: List[Tuple[str, Spec]] = [
+    # conv (cout, cin, kh, kw); JAX's (kh, kw, cin, cout) shards cout
+    (r"vision\..*patch_embedding\.weight$", ("data", None, None, None)),
+    (r"vision\..*(q_proj|k_proj|v_proj|fc1)\.weight$", ("model", "data")),
+    (r"vision\..*(out_proj|fc2)\.weight$", ("data", "model")),
+    (r"vision\..*(position_embedding\.weight|class_embedding)$", ()),
+    (r"vision\..*bias$", ()),
+    (r"vision\..*(layernorm|layrnorm|layer_norm\d)\.weight$", ()),
+]
+
+LORA_RULES: List[Tuple[str, Spec]] = [
+    # adapters stacked (L, din, r) / (L, r, dout): FSDP-shard the big dim
+    (r"lora\.adapters\..*\.a$", (None, "data", None)),
+    (r"lora\.adapters\..*\.b$", (None, None, "data")),
+]
+
+HEAD_RULES: List[Tuple[str, Spec]] = [
+    # mm projector: JAX kernel (1024, D) P('data', 'model') is (D, 1024) here
+    (r"projector\.weight$", ("model", "data")),
+    (r"projector\.bias$", ("model",)),
+    # CVAE head: small MLPs, FSDP only (JAX kernel (din, dout) on din)
+    (r"traj\..*weight$", (None, "data")),
+    (r"traj\..*bias$", ()),
+]
+
+QUANT_RULES: List[Tuple[str, Spec]] = [
+    # int4 stacked buffers: column-parallel over `model` (parallel/tp.py)
+    (r"\.w4$", (None, None, None, "model")),
+    (r"\.gscale$", (None, None, "model")),
+    (r"\.w4t$", (None, "model", None, None, None)),
+    (r"\.gst$", (None, "model", None, None)),
+    # int8 stacked (L, din, dout): the dense rules' layout
+    (r"proj\.(wq|wk|wv|w_gate|w_up)\.w8$", (None, "data", "model")),
+    (r"proj\.(wo|w_down)\.w8$", (None, "model", "data")),
+    (r"lm_head\.w8$", ("model", "data")),  # (V, D)
+    (r"(wq|wk|wv|wo|w_gate|w_up|w_down|lm_head)\.scale$", ()),
+]
+
+DEFAULT_RULES: List[Tuple[str, Spec]] = (
+    QUANT_RULES + LLAMA_RULES + VISION_RULES + LORA_RULES + HEAD_RULES
+)
+
+
+def spec_for_path(path: str, rules=None) -> Spec:
+    rules = DEFAULT_RULES if rules is None else rules
+    for pat, spec in rules:
+        if re.search(pat, path):
+            return spec
+    return ()
+
+
+def _clamp_spec(spec: Spec, shape, mesh) -> Spec:
+    """Drop an axis from a dimension it does not divide, and every axis the
+    mesh lacks (the rules name 'model', a --seq-parallel mesh is ('data',
+    'seq'): those dimensions stay whole)."""
+    sizes = mesh_shape(mesh) if not isinstance(mesh, dict) else mesh
+    out = []
+    for dim, axis in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if axis is None or axis not in sizes:
+            out.append(None)
+            continue
+        out.append(axis if dim % sizes[axis] == 0 else None)
+    return tuple(out)
+
+
+def data_dim(name: str, shape, mesh, rules=None) -> Optional[int]:
+    """The dimension FSDP shards over `data` (None: replicated)."""
+    spec = _clamp_spec(spec_for_path(name, rules), shape, mesh)
+    return spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+
+
+def _fsdp_mesh(mesh):
+    """The mesh FSDP2 takes: the `data` axis, or on ('data', 'seq') a
+    (seq, data) mesh, replicated over seq and sharded over data."""
+    if SEQ_AXIS not in mesh.mesh_dim_names:
+        return mesh[DATA_AXIS]
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(mesh.device_type, mesh.mesh.t().contiguous(),
+                      mesh_dim_names=(SEQ_AXIS, DATA_AXIS))
+
+
+def shard_model(model: nn.Module, mesh, rules=None):
+    """Apply FSDP2 over `mesh`'s data axis following the rule table: one
+    unit per decoder layer and per CLIP layer, then the root. Parameters
+    the table keeps whole are left out of FSDP (`model.replicated_params`,
+    whose gradients `sync_replicated_grads` averages). Returns the model."""
+    from torch.distributed.fsdp import fully_shard
+
+    fmesh = _fsdp_mesh(mesh)
+    names = {p: n for n, p in model.named_parameters()}
+    dims = {p: data_dim(n, p.shape, mesh, rules) for p, n in names.items()}
+    if getattr(model, "lora", None) is not None:
+        dims.update({p: None for p in model.lora.parameters()})
+    replicated = [p for p, d in dims.items() if d is None]
+
+    def place(p):
+        return Shard(dims[p]) if dims.get(p) is not None else None
+
+    ignored = set(replicated)
+    units = list(model.llama.layers)
+    if getattr(model, "vision", None) is not None:
+        units += list(model.vision.encoder.layers)
+    for unit in units:
+        fully_shard(unit, mesh=fmesh, shard_placement_fn=place,
+                    ignored_params={p for p in unit.parameters() if p in ignored})
+    fully_shard(model, mesh=fmesh, shard_placement_fn=place, ignored_params=ignored)
+    model.replicated_params = replicated
+    model.fsdp_mesh = mesh
+    return model
+
+
+def sync_replicated_grads(model: nn.Module) -> None:
+    """Average the gradients of the parameters FSDP leaves whole over every
+    rank, as FSDP2 averages those of its shards."""
+    grads = [p.grad for p in getattr(model, "replicated_params", ()) if p.grad is not None]
+    if not grads or not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    start = 0
+    for g in grads:
+        g.copy_(flat[start:start + g.numel()].view_as(g))
+        start += g.numel()
+
+
+def is_sharded(model: nn.Module) -> bool:
+    return hasattr(model, "fsdp_mesh")
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor shard (a collective: every rank
+    calls it), a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The whole state dict on the CPU, as a one-rank model's: every rank
+    must call it (the shards are gathered one tensor at a time); ranks
+    other than the first get an empty dict."""
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    out = {}
+    for name, t in module.state_dict().items():
+        t = full_tensor(t)
+        if main:
+            out[name] = t.detach().cpu()
+    return out
+
+
+@torch.no_grad()
+def local_part(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`full` cut as `like` is: its shard of a DTensor, else whole (on
+    like's device, in like's dtype)."""
+    full = full.to(like.device, like.dtype)
+    if not isinstance(like, DTensor):
+        return full
+    return distribute_tensor(full, like.device_mesh, like.placements).to_local()
+
+
+@torch.no_grad()
+def load_full_state_dict(module: nn.Module, state: Dict[str, Any]) -> None:
+    """Load a whole state dict (every rank reads it) into a model, sharded
+    or not: each rank keeps its part. Keys must match exactly."""
+    own = module.state_dict()
+    missing, extra = set(own) - set(state), set(state) - set(own)
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {sorted(missing)[:5]}, "
+                       f"unexpected {sorted(extra)[:5]}")
+    for name, t in own.items():
+        if tuple(state[name].shape) != tuple(t.shape):
+            raise ValueError(f"{name}: saved {tuple(state[name].shape)}, model "
+                             f"{tuple(t.shape)}")
+        part = local_part(state[name], t)
+        (t.to_local() if isinstance(t, DTensor) else t).copy_(part)
+
+
+def bytes_per_rank(model: nn.Module) -> Dict[str, int]:
+    """This rank's bytes of parameters (its shards, and the whole
+    replicated ones) and of buffers (whole)."""
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    params = sum(local(p).numel() * local(p).element_size() for p in model.parameters())
+    bufs = sum(b.numel() * b.element_size() for b in model.buffers())
+    return {"params": params, "buffers": bufs}

@@ -12,6 +12,18 @@ The step's randomness (the CVAE draws of the trajectory loss) comes from a
 `fold_in(rng, state.step)`; the two give different numbers, so a test
 passes JAX's draws in as `eps`.
 
+With a `mesh` (`parallel.mesh.create_mesh`, the model sharded by
+`parallel.partition.shard_model`) the step is data parallel, and with a
+'seq' axis also sequence parallel (`seq_mesh`, the JAX package's name):
+every rank receives the same global batch, keeps its rows as the JAX
+package's `P('data')` does, draws the global batch's CVAE noise and keeps
+its rows' part, and returns its share of the loss (`forward`'s
+`data_parallel`); the
+shares' gradients are summed over the ranks (FSDP2 averages, so the share
+is scaled by the rank count before the backward), the optimizer steps
+each rank's shards, and the metrics are the global batch's, summed over
+the ranks.
+
 `grad_norm` is the global norm of the trainable parameters' gradients, the
 norm the clip reads. Under LoRA it differs from the value the JAX package
 logs: JAX differentiates every leaf and its logged `grad_norm` leaves out
@@ -28,7 +40,7 @@ from typing import Dict, Optional
 import torch
 
 from handsonvlm_torch.config import HandsOnVLMConfig
-from handsonvlm_torch.models.handsonvlm import forward
+from handsonvlm_torch.models.handsonvlm import NUM_HAND_TOKENS
 from handsonvlm_torch.train.train_state import TrainState
 
 METRICS = ("loss", "text_loss", "traj_loss", "traj_kl_loss")
@@ -47,22 +59,58 @@ def _on(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def loss_fn(model, cfg: HandsOnVLMConfig, batch: Dict, *, eps: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None, attn_impl: str = "auto",
-            remat=True):
+            remat=True, data_parallel: bool = False, seq=None):
     """(loss, metrics) of the teacher-forced forward on `batch` (input_ids,
     attn_mask, image, labels, future_hands, future_valid; optionally
-    frame_map, when `image` holds only the unique frames)."""
-    out = forward(model, cfg, input_ids=batch["input_ids"], attn_mask=batch["attn_mask"],
-                  images=batch["image"], labels=batch["labels"],
-                  future_hands=batch["future_hands"], future_valid=batch["future_valid"],
-                  eps=eps, generator=generator, attn_impl=attn_impl, remat=remat,
-                  frame_map=batch.get("frame_map"))
+    frame_map, when `image` holds only the unique frames); with
+    `data_parallel` (and `seq`), this rank's share of them."""
+    out = model(cfg, input_ids=batch["input_ids"], attn_mask=batch["attn_mask"],
+                images=batch["image"], labels=batch["labels"],
+                future_hands=batch["future_hands"], future_valid=batch["future_valid"],
+                eps=eps, generator=generator, attn_impl=attn_impl, remat=remat,
+                frame_map=batch.get("frame_map"), data_parallel=data_parallel, seq=seq)
     return out["loss"], {k: out[k] for k in METRICS}
 
 
-def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", remat=True):
+def draw_eps(model, cfg: HandsOnVLMConfig, batch_size: int, generator) -> torch.Tensor:
+    """The CVAE noise of a batch of `batch_size` rows, the draw
+    `models.traj_cvae.cvae_forward` makes for it: (B*2*4, latent) rows in
+    batch order, in the CVAE head's dtype."""
+    w = model.traj.linear_means.weight
+    return torch.randn((batch_size * 2 * NUM_HAND_TOKENS, cfg.traj.latent_dim),
+                       generator=generator, device=generator.device, dtype=w.dtype)
+
+
+def _local_rows(batch: Dict, eps: torch.Tensor, mesh):
+    """This data rank's rows of the global batch and of its CVAE noise, as
+    `P('data')` cuts a batch (contiguous blocks, rank-major)."""
+    from handsonvlm_torch.parallel.mesh import axis_rank, mesh_shape
+
+    n = mesh_shape(mesh).get("data", 1)
+    b = batch["input_ids"].shape[0]
+    if b % n:
+        raise ValueError(f"global batch {b} is not divisible by the {n} ranks of the "
+                         "'data' axis")
+    r, bl = axis_rank(mesh, "data"), b // n
+    rows = {k: v if k == "frame_map" and v.dim() == 1 else v[r * bl:(r + 1) * bl]
+            for k, v in batch.items()}
+    per = eps.shape[0] // b
+    return rows, eps[r * bl * per:(r + 1) * bl * per]
+
+
+def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", remat=True,
+                    seq_mesh=None, mesh=None):
     """Returns step(state, batch, rng, *, eps=None) -> metrics: one
     optimizer step on `state` (in place; `state.step` advances). `rng` is
-    an int seed; `eps` (B*2*4, latent) replaces the CVAE draws."""
+    an int seed; `eps` (B*2*4, latent) replaces the CVAE draws of the
+    (global) batch. `mesh` makes the step data parallel over its 'data'
+    axis; `seq_mesh` (a mesh with a 'seq' axis, which then is the mesh)
+    runs the decoder's attention as ring attention over 'seq'."""
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel.partition import is_sharded, sync_replicated_grads
+
+    mesh = seq_mesh if seq_mesh is not None else mesh
 
     def step(state: TrainState, batch: Dict, rng: int, *,
              eps: Optional[torch.Tensor] = None) -> Dict[str, float]:
@@ -71,9 +119,25 @@ def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", r
         batch = _on(batch, device)
         generator = None if eps is not None else step_generator(rng, state.step, device)
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, cfg, batch, eps=eps, generator=generator,
-                                attn_impl=attn_impl, remat=remat)
-        loss.backward()
+        if mesh is None:
+            loss, metrics = loss_fn(model, cfg, batch, eps=eps, generator=generator,
+                                    attn_impl=attn_impl, remat=remat)
+            loss.backward()
+        else:
+            world = dist.get_world_size()
+            if world > 1 and not is_sharded(model):
+                raise ValueError("a data / sequence parallel step needs the model sharded "
+                                 "by parallel.partition.shard_model")
+            if eps is None:
+                eps = draw_eps(model, cfg, batch["input_ids"].shape[0], generator)
+            rows, eps = _local_rows(batch, torch.as_tensor(eps, device=device), mesh)
+            loss, metrics = loss_fn(model, cfg, rows, eps=eps, attn_impl=attn_impl,
+                                    remat=remat, data_parallel=True, seq=seq_mesh)
+            (loss * world).backward()
+            sync_replicated_grads(model)
+            total = torch.stack([metrics[k].detach().float() for k in METRICS])
+            dist.all_reduce(total)
+            metrics = dict(zip(METRICS, total))
         grad_norm = optimizer.step()
         state.step += 1
         out = {k: float(v.detach()) for k, v in metrics.items()}

@@ -21,9 +21,21 @@ LITA tasks and `pretrain` from `--data-path`. `--eval-every N` scores
 eval/evaluator.py) every N steps. Each dataset of the mixture draws from
 generators of its own, seeded from `--seed`, its place in the mixture and
 the step the run starts from (data/draws.py): one seed gives one stream of
-items, and a resumed run draws new ones. Until ROADMAP A11 lands, `--model-axis`
-or `--seq-parallel` above 1 refuse with SystemExit instead of running
-without them. `--device` (default cuda) picks the device.
+items, and a resumed run draws new ones. `--device` (default cuda) picks the
+device.
+
+Launched by torchrun (`torchrun --nproc-per-node N -m
+handsonvlm_torch.train.train ...`) the run is data parallel over the N
+ranks, as the JAX CLI's mesh is (data = every device): the model is
+sharded by FSDP2 (`parallel/partition.shard_model`), every rank draws the
+same global batch of `--batch-size` and keeps its rows (N must divide it),
+rank 0 logs the metrics and writes the checkpoints and artifacts, the
+whole state dicts a one-rank run writes, so either run resumes the other's.
+`--seq-parallel P` cuts the sequence over P ranks with ring attention
+(`parallel/ring_attention.py`), the remaining N / P ranks forming the data
+axis. `--model-axis` above 1 (tensor parallelism inside training, ROADMAP
+A11b) refuses with SystemExit, and so does `--eval-every` over several
+ranks (the evaluator decodes on one).
 """
 
 from __future__ import annotations
@@ -56,9 +68,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup-ratio", type=float, default=0.03)
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--model-axis", type=int, default=1,
-                   help="tensor-parallel degree (waits for ROADMAP A11)")
+                   help="tensor-parallel degree of training (waits for ROADMAP A11b)")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="sequence-parallel degree (waits for ROADMAP A11)")
+                   help="sequence-parallel axis size (ring attention over a "
+                        "('data','seq') mesh of the torchrun ranks)")
     p.add_argument("--lora-r", type=int, default=0,
                    help="enable LoRA with this rank (reference: 128)")
     p.add_argument("--lora-alpha", type=float, default=256.0)
@@ -121,10 +134,19 @@ def _require_ek_layout(args, what: str) -> None:
                          "missing: set HANDSONVLM_DATA_ROOT to the data root")
 
 
-def _check_flags(args) -> None:
-    if args.model_axis > 1 or args.seq_parallel > 1:
-        raise SystemExit("--model-axis / --seq-parallel above 1 wait for ROADMAP A11 "
-                         "(parallelism): the port trains on one device")
+def _check_flags(args, world: int = 1) -> None:
+    if args.model_axis > 1:
+        raise SystemExit("--model-axis above 1 (tensor parallelism inside training) waits "
+                         "for ROADMAP A11b: train data / sequence parallel instead")
+    if world % args.seq_parallel:
+        raise SystemExit(f"--seq-parallel {args.seq_parallel} does not divide the {world} "
+                         "ranks of the launch")
+    data = world // args.seq_parallel
+    if args.batch_size % data:
+        raise SystemExit(f"--batch-size {args.batch_size} is not divisible by the {data} "
+                         "ranks of the 'data' axis")
+    if args.eval_every and world > 1:
+        raise SystemExit("--eval-every decodes on one rank: run it without torchrun")
     if args.qlora and not args.lora_r:
         raise SystemExit("--qlora requires --lora-r (the base is frozen)")
     if args.tune_mm_mlp_adapter and args.lora_r:
@@ -194,9 +216,15 @@ def task_datasets(args, tokenizer):
 def main(argv=None):
     """Run the CLI; returns the final TrainState (tests read it)."""
     args = parse_args(argv)
-    _check_flags(args)
 
     import torch
+
+    from handsonvlm_torch.parallel import distributed
+
+    distributed.initialize(device=args.device)
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    _check_flags(args, world)
+    main_rank = distributed.is_main_process()
 
     from handsonvlm_torch.core.checkpoint import (
         latest_step,
@@ -209,6 +237,8 @@ def main(argv=None):
     from handsonvlm_torch.data.synthetic import SyntheticConversationDataset
     from handsonvlm_torch.infer.builder import load_pretrained_model
     from handsonvlm_torch.models import lora as lora_mod
+    from handsonvlm_torch.parallel.mesh import create_mesh
+    from handsonvlm_torch.parallel.partition import full_state_dict, shard_model
     from handsonvlm_torch.train.loader import PrefetchLoader
     from handsonvlm_torch.train.step import make_train_step
     from handsonvlm_torch.train.train_state import (
@@ -220,6 +250,8 @@ def main(argv=None):
 
     os.makedirs(args.output_dir, exist_ok=True)
     device = torch.device(args.device)
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())
     model, cfg, tokenizer = load_pretrained_model(args.model_path, args.preset, device,
                                                   quantize=args.qlora)
     if args.num_frames:
@@ -240,21 +272,32 @@ def main(argv=None):
     if args.tune_mm_mlp_adapter:
         freeze = tuple(name for name, child in model.named_children()
                        if child is not None and name != "projector")
+    mesh = None
+    if world > 1:
+        mesh = create_mesh(seq=args.seq_parallel, device=device.type)
+        shard_model(model, mesh)
+        if main_rank:
+            print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over {world} "
+                  "ranks", flush=True)
 
     def save_adapters(model):
         """Adapter-only artifacts beside the checkpoints: the builder's
-        adapter path loads them."""
+        adapter path loads them (whole tensors, written by rank 0)."""
         if args.tune_mm_mlp_adapter:
-            save_artifact(args.output_dir, "mm_projector", model.projector.state_dict(),
-                          meta={"base": args.model_path, "preset": args.preset})
+            projector = full_state_dict(model.projector)
+            if main_rank:
+                save_artifact(args.output_dir, "mm_projector", projector,
+                              meta={"base": args.model_path, "preset": args.preset})
         if args.lora_r:
-            save_artifact(args.output_dir, "lora", model.lora.state_dict(),
-                          meta={"base": args.model_path, "preset": args.preset,
-                                "r": args.lora_r, "alpha": args.lora_alpha,
-                                "qlora": args.qlora})
-            save_artifact(args.output_dir, "non_lora_trainables",
-                          {"projector": model.projector.state_dict(),
-                           "traj": model.traj.state_dict()})
+            lora, projector, traj = (full_state_dict(m) for m in (
+                model.lora, model.projector, model.traj))
+            if main_rank:
+                save_artifact(args.output_dir, "lora", lora,
+                              meta={"base": args.model_path, "preset": args.preset,
+                                    "r": args.lora_r, "alpha": args.lora_alpha,
+                                    "qlora": args.qlora})
+                save_artifact(args.output_dir, "non_lora_trainables",
+                              {"projector": projector, "traj": traj})
 
     steps_per_epoch = max(args.samples_per_epoch // args.batch_size, 1)
     total_steps = args.max_steps or args.epochs * steps_per_epoch
@@ -265,7 +308,7 @@ def main(argv=None):
 
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     t0 = time.perf_counter()
-    if restore_train_state(ckpt_dir, state) is not None:
+    if restore_train_state(ckpt_dir, state) is not None and main_rank:
         print(f"resumed from step {state.step} (restored in "
               f"{time.perf_counter() - t0:.3f} s)", flush=True)
 
@@ -281,11 +324,14 @@ def main(argv=None):
     collate = Collator(pad_token_id=tokenizer.pad_token_id, model_max_length=cfg.max_length,
                        num_frames=cfg.num_frames, seq_multiple=args.seq_parallel,
                        splice_extra=cfg.num_visual_tokens - 1)
+    # every rank draws the global batch; the step keeps this rank's rows
     loader = PrefetchLoader(hybrid, collate, args.batch_size,
-                            num_steps=max(total_steps - state.step, 0), device=device)
-    step_fn = make_train_step(cfg, opt, remat=args.remat_policy)
+                            num_steps=max(total_steps - state.step, 0), device=device,
+                            process_index=0, process_count=1)
+    step_fn = make_train_step(cfg, opt, remat=args.remat_policy, mesh=mesh,
+                              seq_mesh=mesh if args.seq_parallel > 1 else None)
     save_every = args.save_every or steps_per_epoch
-    writer = MetricsWriter(args.output_dir)
+    writer = MetricsWriter(args.output_dir) if main_rank else None
 
     # optional generate+score eval during training
     # (HandsOnVLMTrainer.evaluation_loop equivalent, handsonvlm_trainer.py:110-322)
@@ -310,8 +356,9 @@ def main(argv=None):
         t = time.perf_counter()
         nbytes = save_train_state(ckpt_dir, state, step)
         save_adapters(state.model)
-        print(f"saved checkpoint at step {step} ({nbytes} bytes in "
-              f"{time.perf_counter() - t:.3f} s)", flush=True)
+        if main_rank:
+            print(f"saved checkpoint at step {step} ({nbytes} bytes in "
+                  f"{time.perf_counter() - t:.3f} s)", flush=True)
 
     t0 = time.time()
     for batch in loader:
@@ -325,16 +372,18 @@ def main(argv=None):
             m = dict(metrics, lr=sched(step),
                      sec_per_step=(time.time() - t0) / max(args.log_every, 1))
             t0 = time.time()
-            print(json.dumps(dict(m, step=step)), flush=True)
-            writer.log(m, step)
+            if main_rank:
+                print(json.dumps(dict(m, step=step)), flush=True)
+                writer.log(m, step)
         if step % save_every == 0 or step >= total_steps:
             save(step)
         if step >= total_steps:
             break
     if latest_step(ckpt_dir) != state.step:
         save(state.step)
-    writer.close()
-    print("training complete", flush=True)
+    if main_rank:
+        writer.close()
+        print("training complete", flush=True)
     return state
 
 

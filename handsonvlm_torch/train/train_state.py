@@ -24,6 +24,13 @@ the weight decay is added to the Adam direction before the learning rate
 scales it; and the schedule reads optax's count, which starts at 0, so the
 first step of a warmup has lr 0. `torch.optim.AdamW` has no `mu_dtype` and
 decays the weights apart from the update, hence this short optimizer.
+
+Under FSDP2 (`parallel/partition.shard_model`) a parameter, its gradient
+and its moments are DTensor shards: the update runs on each rank's local
+shard (it is elementwise), the clip's norm sums the shards' squares over
+the ranks, and `state_dict` / `load_state_dict` hold the whole moments, as
+a one-rank run saves them (every rank calls them; the first rank keeps
+them).
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 
 def cosine_schedule(base_lr: float, total_steps: int,
@@ -55,6 +64,27 @@ def cosine_schedule(base_lr: float, total_steps: int,
     return schedule
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage), a tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_sum(grads) -> torch.Tensor:
+    """The sum of the gradients' squares in f32; the shards of DTensor
+    gradients summed over the ranks that hold them."""
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    total = sum(g.float().square().sum() for g in plain)
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    if sharded:
+        mesh, placements = sharded[0].device_mesh, sharded[0].placements
+        local = sum(g.to_local().float().square().sum() for g in sharded)
+        for dim, pl in enumerate(placements):
+            if isinstance(pl, Shard):
+                dist.all_reduce(local, group=mesh.get_group(dim))
+        total = total + local
+    return total
+
+
 def _c(value, like: torch.Tensor) -> torch.Tensor:
     """A constant in `like`'s dtype, as JAX casts a Python scalar to the
     array it meets (a bf16 moment times b1 rounds b1 to bf16 first)."""
@@ -70,10 +100,24 @@ class CountedOptimizer(torch.optim.Optimizer):
 
     def state_dict(self) -> dict:
         """The count and each parameter's moments (by its index over the
-        param groups), in their own dtypes."""
-        return {"count": self.count,
-                "state": {i: dict(self.state[p]) for i, p in enumerate(self._params())
-                          if self.state[p]}}
+        param groups), in their own dtypes, whole. A DTensor moment is
+        gathered one at a time and kept, on the CPU, by the first rank
+        alone (every rank calls this; the others get no such moment), so
+        that no card holds more than one whole moment at once."""
+        main = not dist.is_initialized() or dist.get_rank() == 0
+        state = {}
+        for i, p in enumerate(self._params()):
+            if not self.state[p]:
+                continue
+            state[i] = {}
+            for k, v in self.state[p].items():
+                if isinstance(v, DTensor):
+                    v = v.full_tensor()
+                    if not main:
+                        continue
+                    v = v.cpu()
+                state[i][k] = v
+        return {"count": self.count, "state": state}
 
     def load_state_dict(self, state_dict: dict) -> None:
         """The inverse of `state_dict` into an optimizer over the same
@@ -86,7 +130,11 @@ class CountedOptimizer(torch.optim.Optimizer):
             if any(v.shape != p.shape for v in st.values()):
                 raise ValueError(f"optimizer state {i}: shapes {[tuple(v.shape) for v in st.values()]} "
                                  f"do not fit the parameter {tuple(p.shape)}")
-            self.state[p] = {k: v.to(p.device, copy=True) for k, v in st.items()}
+            if isinstance(p, DTensor):  # this rank's shard of each whole moment
+                self.state[p] = {k: distribute_tensor(v.to(p.device), p.device_mesh,
+                                                      p.placements) for k, v in st.items()}
+            else:
+                self.state[p] = {k: v.to(p.device, copy=True) for k, v in st.items()}
         self.count = int(state_dict["count"])
 
 
@@ -113,29 +161,30 @@ class AdamW(CountedOptimizer):
         pairs = [(p, g) for g in self.param_groups for p in g["params"] if p.grad is not None]
         if not pairs:
             raise RuntimeError("no parameter has a gradient")
-        norm = torch.sqrt(sum(p.grad.float().square().sum() for p, _ in pairs))
+        norm = torch.sqrt(_square_sum([p.grad for p, _ in pairs]))
         clip = self.max_grad_norm is not None and bool(norm >= self.max_grad_norm)
         count = self.count + 1
         step_size = -np.float32(self.lr())
         for p, group in pairs:
             b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
-            g = p.grad
+            g = _local(p.grad)
             if clip:
                 g = (g / norm.to(g.dtype)) * _c(self.max_grad_norm, g)
             st = self.state[p]
             if not st:
                 st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                 st["nu"] = torch.zeros_like(p)
-            mu = _c(1 - b1, g) * g + _c(b1, st["mu"]) * st["mu"]
-            nu = _c(1 - b2, g) * (g * g) + _c(b2, st["nu"]) * st["nu"]
+            w, mu0, nu0 = _local(p), _local(st["mu"]), _local(st["nu"])
+            mu = _c(1 - b1, g) * g + _c(b1, mu0) * mu0
+            nu = _c(1 - b2, g) * (g * g) + _c(b2, nu0) * nu0
             bc1 = np.float32(1) - np.float32(b1) ** np.float32(count)
             bc2 = np.float32(1) - np.float32(b2) ** np.float32(count)
             u = (mu / _c(bc1, mu)) / (torch.sqrt(nu / _c(bc2, nu)) + _c(eps, nu))
             if wd:
-                u = u + _c(wd, p) * p
-            p.copy_(p + u * _c(step_size, u))
-            st["mu"] = mu.to(st["mu"].dtype)
-            st["nu"] = nu
+                u = u + _c(wd, w) * w
+            w.copy_(w + u * _c(step_size, u))
+            mu0.copy_(mu)
+            nu0.copy_(nu)
         self.count = count
         return norm
 

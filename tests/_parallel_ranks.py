@@ -1,0 +1,188 @@
+"""What each gloo rank of the port's parallel tests runs.
+
+`handsonvlm_torch.parallel.distributed.spawn` starts the ranks in fresh
+processes that import this module (no JAX here, so a rank starts fast);
+the test files build the inputs from numpy seeds, hand them in, and hold
+what rank 0 returns against the JAX package on its 8-device CPU mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _groups(rank: int, world: int):
+    """{tp size: this rank's TPGroup}: every rank at tp = world, and at
+    tp = 2 the pairs (0, 1), (2, 3), ..."""
+    from handsonvlm_torch.parallel.tp import TPGroup
+
+    out = {world: TPGroup.world()}
+    if world > 2:
+        pairs = [dist.new_group([r, r + 1]) for r in range(0, world, 2)]
+        out[2] = TPGroup(rank % 2, 2, pairs[rank // 2])
+    return out
+
+
+def _heads(x, tp, dim):
+    n = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * n, n).contiguous()
+
+
+def tp_rank(rank: int, world: int, cases: dict, gen: dict) -> dict:
+    """Every tensor-parallel op at tp = 2 and tp = world on this rank's
+    shards: the int4 matmuls (tiled and flat weights, decode and prefill
+    rows) and the head-sharded decode attention (a bf16 cache and the int8
+    one, T = 1 and a window); then the tiny model `gen["state"]` cut for
+    this rank, a greedy generate_host over its own cache and over the int8
+    one. Returns rank 0's {key: output}."""
+    from handsonvlm_torch.convert.from_hf import load_state_dict_into, quantize_mode
+    from handsonvlm_torch.infer.builder import build_model
+    from handsonvlm_torch.infer.sampler import generate_host
+    from handsonvlm_torch.parallel import tp as tp_mod
+
+    torch.set_num_threads(1)
+    out = {}
+    for tp_n, tp in sorted(_groups(rank, world).items()):
+        for name, (w, s, xs, layer) in cases["int4"].items():
+            part = tp_mod.shard_int4_stacked(_t(w), _t(s), tp.rank, tp.size)
+            args, group = (part, tp) if part is not None else ((_t(w), _t(s)), None)
+            out[("int4 split", name, tp_n)] = part is not None
+            for m, x in xs.items():
+                y = tp_mod.int4_matmul_stacked_tp(_t(x), *args, layer, tp=group)
+                out[("int4", name, m, tp_n)] = y.numpy()
+        for name, c in cases["attn"].items():
+            dtype = torch.bfloat16 if c["bf16"] else torch.float32
+            q = _t(c["q"]).to(dtype)
+            if "ks" in c:
+                ck, cv, ks, vs = (_t(c[k]) for k in ("ck", "cv", "ks", "vs"))
+                y = tp_mod.decode_attention_stacked_q_tp(
+                    q, _heads(ck, tp, 3), _heads(cv, tp, 3), _heads(ks, tp, 2),
+                    _heads(vs, tp, 2), c["layer"], c["length"], tp=tp)
+            else:
+                ck, cv = _t(c["ck"]).to(dtype), _t(c["cv"]).to(dtype)
+                y = tp_mod.decode_attention_stacked_tp(
+                    q, _heads(ck, tp, 3), _heads(cv, tp, 3), c["layer"], c["length"], tp=tp)
+            out[("attn", name, tp_n)] = y.float().numpy()
+
+        cfg, state = gen["cfg"], gen["state"]
+        model = build_model(cfg, "cpu", quantize=quantize_mode(state))
+        load_state_dict_into(model, {k: _t(v) for k, v in state.items()})
+        tp_mod.shard_llama_tp(model.llama, cfg.llama, tp.rank, tp.size)
+        for kv in (None, "int8"):
+            c0 = tp_mod.COLLECTIVES
+            res = generate_host(model, cfg, gen["ids"], gen["images"],
+                                torch.Generator().manual_seed(0), max_new_tokens=8,
+                                temperature=0.0, kv_quant=kv, tp=tp)
+            out[("generate", kv, tp_n)] = (res.sequences.copy(), tp_mod.COLLECTIVES - c0)
+        out[("layout", tp_n)] = dataclasses.asdict(model.llama.tp_layout)
+    return out if rank == 0 else {}
+
+
+def train_rank(rank: int, world: int, job: dict) -> dict:
+    """The port's parallel training on this rank. `job["kind"]`:
+    "ring+seq" (4 ranks: ring attention and its gradients at P = 4 and on
+    a 2 x 2 ('data', 'seq') mesh, then the sequence-parallel step on that
+    mesh) or "step+cli" (2 ranks: the FSDP2 step, its refusal of a batch
+    the ranks do not divide, the train CLI's main() as torchrun starts it,
+    the mesh's errors). Returns rank 0's results."""
+    from handsonvlm_torch.parallel.distributed import gather_metrics, is_main_process
+    from handsonvlm_torch.parallel.mesh import create_mesh
+
+    torch.set_num_threads(1)
+    out = {}
+    if job["kind"] == "ring+seq":
+        out["ring"], out["indivisible"] = {}, {}
+        for p in (4, 2):
+            ring, msg = _ring(create_mesh(seq=p, device="cpu"), job["ring"], p)
+            out["ring"].update(ring)
+            out["indivisible"][p] = msg
+        out["seq"] = _step(rank, world, job["seq"])
+    else:
+        out["step"] = _step(rank, world, job["step"])
+        odd = dict(job["step"], batch={k: np.concatenate([v, v[:1]])
+                                       for k, v in job["step"]["batch"].items()})
+        try:
+            _step(rank, world, odd)
+        except ValueError as e:
+            out["odd batch"] = str(e)
+        from handsonvlm_torch.train import train
+
+        out["cli step"] = train.main(job["argv"]).step
+        errors = []
+        for kw in (dict(seq=2, model=2), dict(data=3), dict(model=4)):
+            try:
+                create_mesh(device="cpu", **kw)
+            except ValueError as e:
+                errors.append(str(e))
+        out["mesh errors"] = errors
+        out["main"] = gather_metrics(np.asarray([is_main_process()])).tolist()
+    return out if rank == 0 else {}
+
+
+def _ring(mesh, cases, p):
+    """Each case's ring attention over `mesh`'s 'seq' axis of `p` ranks
+    (every data rank the whole batch): output and input gradients under
+    the case's cotangent, gathered back to whole sequences."""
+    from handsonvlm_torch.parallel.ring_attention import ring_attention, shard_sequence
+
+    group = mesh.get_group("seq")
+    out = {}
+    for name, c in cases.items():
+        if (name, p) not in {("causal", 2), ("causal", 4), ("full", 4), ("gqa masked", 2),
+                             ("gqa masked", 4)}:
+            continue
+        q, k, v = (shard_sequence(_t(c[n]), mesh).clone().requires_grad_(True)
+                   for n in ("q", "k", "v"))
+        mask = None if c["mask"] is None else shard_sequence(_t(c["mask"]), mesh)
+        y = ring_attention(q, k, v, mesh=mesh, causal=c["causal"], key_mask=mask)
+        (y * shard_sequence(_t(c["dy"]), mesh)).sum().backward()
+        whole = []
+        for part in (y.detach(), q.grad, k.grad, v.grad):
+            parts = [torch.empty_like(part) for _ in range(p)]
+            dist.all_gather(parts, part.contiguous(), group=group)
+            whole.append(torch.cat(parts, dim=1).numpy())
+        out[(name, p)] = whole
+    try:
+        shard_sequence(torch.zeros((1, 4 * p + 1, 2, 8)), mesh)
+    except ValueError as e:
+        return out, str(e)
+    return out, None
+
+
+def _step(rank, world, job):
+    """`len(job["eps"])` sharded train steps of the model `job["state"]`
+    (FSDP2 over the mesh's data axis; ring attention with `job["seq"]` >
+    1): the metrics, the whole trained parameters, and every rank's index
+    gathered."""
+    from handsonvlm_torch.convert.from_hf import load_state_dict_into
+    from handsonvlm_torch.infer.builder import build_model
+    from handsonvlm_torch.parallel.distributed import gather_metrics
+    from handsonvlm_torch.parallel.mesh import create_mesh
+    from handsonvlm_torch.parallel.partition import full_state_dict, shard_model
+    from handsonvlm_torch.train.step import make_train_step
+    from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
+
+    cfg = job["cfg"]
+    model = build_model(cfg, "cpu")
+    load_state_dict_into(model, {k: _t(v) for k, v in job["state"].items()})
+    seq = job.get("seq", 1)
+    mesh = create_mesh(seq=seq, device="cpu")
+    shard_model(model, mesh)
+    opt = make_optimizer(model, learning_rate=job["lr"], freeze_top_keys=job["freeze"])
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, opt, attn_impl="xla", mesh=mesh,
+                           seq_mesh=mesh if seq > 1 else None)
+    metrics = [step(state, job["batch"], 1, eps=_t(e)) for e in job["eps"]]
+    params = full_state_dict(model)
+    names = {n for n, _ in model.named_parameters()}
+    return {"metrics": metrics,
+            "state": {k: v.numpy() for k, v in params.items() if k in names},
+            "ranks": gather_metrics(np.asarray([rank]))}

@@ -99,6 +99,7 @@ from handsonvlm_torch.ops.qlora_fused import (
     qlora_geometry,
 )
 from handsonvlm_torch.ops.vit_attention import vit_attention, vit_attention_ref
+from handsonvlm_torch.parallel.tp import shard_int4_stacked
 
 # (L, B, S, H, K, D, T, layer, length, mask)
 DECODE_CASES = {
@@ -319,6 +320,78 @@ def test_int4_prefill_kernel(cuda, shape, m, dtype):
     assert int4_matmul_prefill_tiled.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == (1, m, INT4_SHAPES[shape][1])
     assert_int4_close(got, int4_matmul_prefill_tiled_ref(x, w4t, gst, 1), dtype)
+
+
+# 7B's fused projections cut for tensor parallelism (parallel/tp.py): each
+# rank's column shard at tp = 2 and 4; the tiled wgu (43 tiles) stays whole
+TP_SHARDS = [(shape, tp) for shape in ("7b_wqkv", "7b_wo", "7b_wgu", "7b_w_down")
+             for tp in (2, 4)]
+TP_INT4 = {("tiled", 1): (int4_gemv_tiled, int4_gemv_tiled_ref),
+           ("flat", 1): (int4_gemv_flat, int4_gemv_flat_ref),
+           ("tiled", 391): (int4_matmul_prefill_tiled, int4_matmul_prefill_tiled_ref),
+           ("flat", 391): (int4_matmul_prefill, int4_matmul_prefill_ref)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 391])
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("shape, tp", TP_SHARDS)
+def test_int4_kernels_on_tp_column_shards(cuda, shape, tp, layout, m):
+    """B4b / B4c (decode row) and B5b / B5a (a 391-row prefill) on each
+    rank's column shard of a 7B projection: each shard against its plain
+    version, the shards' outputs concatenated against the unsharded
+    kernel's, by the int4 rule; the tiled wgu is not cut."""
+    din, dout = INT4_SHAPES[shape]
+    w4t, gst = int4_weights(din, dout, 1, cuda, seed=tp)
+    w, s = (w4t, gst) if layout == "tiled" else untile_int4_stacked(w4t, gst)
+    parts = [shard_int4_stacked(w, s, r, tp) for r in range(tp)]
+    if (layout, shape) == ("tiled", "7b_wgu"):
+        assert parts[0] is None
+        return
+    fn, ref = TP_INT4[(layout, m)]
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((1, m, din), generator=gen, device=cuda).to(torch.bfloat16)
+    outs = []
+    for part in parts:
+        assert part[0].shape[-1 if layout == "flat" else 1] * tp == w.shape[-1 if layout ==
+                                                                            "flat" else 1]
+        got = fn(x, *part, 0)
+        assert_int4_close(got, ref(x, *part, 0), torch.bfloat16)
+        outs.append(got)
+    assert_int4_close(torch.cat(outs, dim=-1), fn(x, w, s, 0), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t", [1, 5])
+def test_decode_attention_kernels_on_tp_head_shards(cuda, t, quant):
+    """B1 (bf16 cache) and B6 (int8 cache) on each of 4 ranks' 8 of 32
+    heads at 7B's head size: each shard against its plain version, the
+    shards' outputs concatenated over the heads against the unsharded
+    kernel's."""
+    L, B, S, H, K, D, tp = 2, 1, 520, 32, 32, 128, 4
+    q, ck, cv, _ = decode_inputs(L, B, S, H, K, D, t, None, seed=t)
+    q = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    ck, cv = torch.from_numpy(ck).to(cuda), torch.from_numpy(cv).to(cuda)
+    if quant:
+        cache = quantize_cache(ck, cv)
+        fn, ref = decode_attention_stacked_q, decode_attention_stacked_q_ref
+        axes = (3, 3, 2, 2)
+    else:
+        cache = (ck.to(torch.bfloat16), cv.to(torch.bfloat16))
+        fn, ref = decode_attention_stacked, decode_attention_stacked_ref
+        axes = (3, 3)
+    n = H // tp
+    outs = []
+    for r in range(tp):
+        part = [c.narrow(a, r * n, n).contiguous() for c, a in zip(cache, axes)]
+        ql = q[:, :, r * n:(r + 1) * n].contiguous()
+        got = fn(ql, *part, 1, 450)
+        torch.testing.assert_close(got.float(), ref(ql, *part, 1, 450).float(),
+                                   **CUDA_TOL[torch.bfloat16])
+        outs.append(got)
+    torch.testing.assert_close(torch.cat(outs, dim=2).float(), fn(q, *cache, 1, 450).float(),
+                               **CUDA_TOL[torch.bfloat16])
 
 
 # (shape, seq_axis, block_k): 7B-like k/v planes, scale planes, and a plane

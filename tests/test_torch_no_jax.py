@@ -83,6 +83,12 @@ MODULES = [
     "handsonvlm_torch.eval.gpt_review",
     "handsonvlm_torch.convert.delta",
     "handsonvlm_torch.convert.to_hf",
+    "handsonvlm_torch.parallel.distributed",
+    "handsonvlm_torch.parallel.mesh",
+    "handsonvlm_torch.parallel.partition",
+    "handsonvlm_torch.parallel.ring_attention",
+    "handsonvlm_torch.parallel.tp",
+    "handsonvlm_torch.parallel.dryrun",
     "chip_smoke",
 ]
 # modules the port must never load: JAX and the JAX package
@@ -447,6 +453,29 @@ def test_chip_smoke_hoi_phases_run_without_jax():
     for line in ("18b grads relative L2 from the fp32 plain route",
                  "18c tokens relative L2 from the fp32 plain route",
                  "18a checkpoints at steps [1, 2, 3, 4]"):
+        assert line in proc.stdout, line
+
+
+def test_chip_smoke_parallel_phase_runs_without_jax():
+    """chip_smoke's phase 19b at tiny on the CPU over 2 gloo ranks (the
+    tensor-parallel decode in bf16 and int4 + kv8 against the unsharded
+    run and its fp32 reference, the FSDP2 full-SFT steps, the ring step
+    against the one-card route; 4 new tokens where the card decodes 32),
+    then the dry run over 2 ranks. Neither jax nor the JAX package loaded
+    in the parent; each rank imports chip_smoke and the port alone."""
+    code = ("import chip_smoke as cs\n"
+            "from handsonvlm_torch.parallel import dryrun\n"
+            "cs.phase_parallel(device='cpu', preset='tiny', ranks=2, rows=96, new_tokens=4)\n"
+            "line = dryrun.dryrun(2, 'cpu')\n"
+            "print('phase 19 ran')\n" + FORBIDDEN)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "phase 19 ran" in proc.stdout
+    for line in ("19b bf16 tp=2: heads split True", "19b int4 + kv8: final hidden relative L2",
+                 "19b FSDP step 1: loss", "19b FSDP step 0 against one card's",
+                 "19b FSDP checkpoint gather", "19b adapter gradients",
+                 "dryrun_multichip ok: mesh=(2,1)", "tp_decode_tokens=4"):
         assert line in proc.stdout, line
 
 

@@ -117,8 +117,8 @@ def test_cli_trains_saves_resumes(tmp_path, capsys, mode):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--model-axis", "2"], "A11"),
-    (["--seq-parallel", "2"], "A11"),
+    (["--model-axis", "2"], "A11b"),
+    (["--seq-parallel", "2"], "does not divide the 1 ranks"),
     (["--eval-every", "5"], "EK validation set"),
     (["--qlora", "int8"], "requires --lora-r"),
 ], ids=["model_axis", "seq_parallel", "eval_every", "qlora_without_lora"])
