@@ -215,20 +215,23 @@ from handsonvlm_torch.models.lita_hoi import LitaHoi, lita_hoi_forward, lita_hoi
 from handsonvlm_torch.models.llama import (
     Int4Weight,
     Int8Weight,
+    Llama,
     _quantize_kv_rows,
     apply_llama,
+    apply_rope,
     dequantize_llama,
     int4_projection_shapes,
     lm_logits,
     projection_shapes,
     quantize_llama_int4,
     rms_norm,
+    rope_cos_sin,
 )
-from handsonvlm_torch.models.lora import LoRA, init_lora
+from handsonvlm_torch.models.lora import LoRA, init_lora, lora_delta
 from handsonvlm_torch.models.visual_tokens import visual_pipeline
 from handsonvlm_torch.ops import _build
 from handsonvlm_torch.ops.cache_ops import gather_cache_blocks, gather_cache_blocks_ref
-from handsonvlm_torch.ops.attention import FLASH_MIN_T, attention_xla
+from handsonvlm_torch.ops.attention import FLASH_MIN_T, attention, attention_xla
 from handsonvlm_torch.ops.decode_attention import (
     block_list,
     decode_attention,
@@ -296,9 +299,15 @@ from handsonvlm_torch.serve.model_worker import ModelWorker, serve_worker
 from handsonvlm_torch.serve.scheduler import ContinuousScheduler
 from handsonvlm_torch.serve.web_server import serve_web
 from handsonvlm_torch.parallel.distributed import spawn
-from handsonvlm_torch.parallel.mesh import create_mesh
+from handsonvlm_torch.parallel.mesh import create_mesh, model_group
 from handsonvlm_torch.parallel.partition import bytes_per_rank, shard_model
-from handsonvlm_torch.parallel.tp import TPGroup, shard_int4_stacked, shard_llama_tp
+from handsonvlm_torch.parallel.tp import (
+    TPGroup,
+    linear_f32,
+    shard_for_training,
+    shard_int4_stacked,
+    shard_llama_tp,
+)
 from handsonvlm_torch.train import train as train_cli
 from handsonvlm_torch.train.step import draw_eps, loss_fn, make_train_step, step_generator
 from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
@@ -469,6 +478,26 @@ def _check_int4(name, got, want, dtype, rows, tol=INT4_TOL):
         f"{' + one bf16 step' if dtype == torch.bfloat16 else ''}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
+
+
+def _check_partials(name, parts, want, rows, tol=INT4_TOL):
+    """Partial products of a rank each, each rounded to bf16 by its kernel,
+    summed in f32 against the unsharded call (rounded once): phase 2's int4
+    rule, its bf16 step taken for every rounded term, 2^-7 x (sum of
+    |partial| + |want|) per element (a partial may exceed the sum)."""
+    got = sum(p.float() for p in parts)
+    want = want.float()
+    ymax = float(want.abs().max())
+    err = (got - want).abs()
+    limit = tol[torch.bfloat16] * ymax + 2.0 ** -7 * (sum(p.float().abs() for p in parts)
+                                                     + want.abs())
+    ok = bool(torch.isfinite(got).all()) and bool((err <= limit).all())
+    rows.append(float(err.max()))
+    log(f"  {name}: max_abs_err={rows[-1]:.3e} = {rows[-1] / ymax:.2e} x max|y| (tol "
+        f"{tol[torch.bfloat16]:.0e} x max|y| + one bf16 step of each of {len(parts)} partials "
+        f"and of the whole) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the summed partials disagree with the unsharded call")
 
 
 def _sdpa(q, k, v, mask=None):
@@ -3896,6 +3925,258 @@ def check_tp_shards() -> None:
                    "rank vs unsharded", got, want_q, torch.bfloat16, errs)
 
 
+def _heads_fb(q, k, v, dy):
+    """B3 forward and B3b backward of causal flash attention: (out, dq, dk, dv)."""
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out, _ = flash_attention(q, k, v, causal=True)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), dy))
+
+
+def _fused_fb(x, w8, sc, a, b, dy):
+    """B10a forward and B10b dx of a fused QLoRA projection (layer 0)."""
+    xg = x.clone().requires_grad_()
+    y = int8_lora_matmul_stacked(xg, w8, sc, a, b, LORA_ALPHA / LORA_R, 0)
+    return y.detach(), torch.autograd.grad(y, xg, dy)[0]
+
+
+def _col(t, r, tp, dim=-1):
+    """Rank r's contiguous 1/tp of `t` along `dim`, as a contiguous tensor
+    (differentiable: a leaf's gradient lands in the leaf)."""
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+def check_tp_train_shards() -> None:
+    """19a, training: the kernels of tensor parallelism inside training on
+    each rank's slices at 7B's shapes and 2048 rows, rank by rank on this
+    card, tp = 2 and 4, against the unsharded call:
+    - B3 forward and B3b backward on 16 and 8 of 32 heads, each rank's
+      outputs and gradients concatenated over the heads, by phase 2's
+      attention rule (`_check`; the gradients by `_check_grad`);
+    - B5b (forward) and B7b (dx) on each rank's column tiles of the four
+      fused int4 projections (the tiled wgu, 43 tiles, stays whole: the
+      JAX rule's fallback), the outputs concatenated by phase 2's int4
+      rule, the dx partials summed by the script (`_check_partials`: the
+      rule with a bf16 step for each partial, which its kernel rounds);
+    - B9 (f32 out) and B10a / B10b (the LoRA term at r = 128) on each rank's
+      slices of the seven int8 projections: q / k / v / gate / up by output
+      columns (outputs concatenated, B10b's dx partials summed), o / down
+      by input rows (the partial outputs summed, B10b's dx concatenated),
+      by the same rules;
+    - one decoder layer at 7B's widths, dense bf16 with LoRA r = 128 over
+      its seven projections, forward and backward from each rank's slices
+      (`_tp_layer_by_hand`: Megatron's cuts, the row partials summed in
+      f32), against the unsharded layer (`apply_llama`): the output, the
+      input gradient and every parameter's gradient (the slices
+      concatenated) by phase 4's rule against the fp32 plain layer
+      (`_check_tp_layer`)."""
+    cfg = get_config("7b").llama
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    errs = []
+    bf16, T = torch.bfloat16, TRAIN_ROWS
+    h, hd = cfg.num_heads, cfg.head_dim_
+    q, k, v, dy = (_rand(gen, (1, T, h, hd), bf16) for _ in range(4))
+    want = _heads_fb(q, k, v, dy)
+    for tp in TP_SIZES:
+        parts = [_heads_fb(*(_col(t, r, tp, 2) for t in (q, k, v, dy))) for r in range(tp)]
+        got = [torch.cat([p[i] for p in parts], dim=2) for i in range(4)]
+        what = f"T={T} tp={tp}: {h // tp} of {h} heads a rank vs unsharded"
+        _check(f"19a B3 {what}", got[0], want[0], bf16, errs)
+        for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            _check_grad(f"19a B3b {name} {what}", g, w, None, bf16, errs)
+
+    for name, (din, dout) in int4_projection_shapes(cfg).items():
+        w4t, gst = _int4_stack(din, dout, 1, gen)
+        x, g = _rand(gen, (1, T, din), bf16), _rand(gen, (1, T, dout), bf16)
+        want_y = int4_matmul_prefill_tiled(x, w4t, gst, 0)
+        want_dx = int4_matmul_T_tiled(g, w4t, gst, 0)
+        for tp in TP_SIZES:
+            parts = [shard_int4_stacked(w4t, gst, r, tp) for r in range(tp)]
+            if parts[0] is None:
+                log(f"  19a B5b / B7b {name} tp={tp}: {w4t.shape[1]} tiles stay whole on every "
+                    "rank (the JAX rule's fallback)")
+                continue
+            y = torch.cat([int4_matmul_prefill_tiled(x, *p, 0) for p in parts], dim=-1)
+            dx = [int4_matmul_T_tiled(_col(g, r, tp), *p, 0) for r, p in enumerate(parts)]
+            what = f"{name} m={T} tp={tp}: {w4t.shape[1] // tp} column tiles a rank"
+            _check_int4(f"19a B5b {what}, concatenated", y, want_y, bf16, errs)
+            _check_partials(f"19a B7b dx {what}, partials summed", dx, want_dx, errs)
+        del w4t, gst
+
+    r_ = LORA_R
+    for name, (din, dout) in projection_shapes(cfg).items():
+        w8, sc = quantize_stacked_int8(0.02 * torch.randn((1, din, dout), generator=gen,
+                                                          device="cuda"))
+        a = 0.02 * torch.randn((din, r_), generator=gen, device="cuda")
+        b = 0.02 * torch.randn((r_, dout), generator=gen, device="cuda")
+        x, g = _rand(gen, (T, din), bf16), _rand(gen, (T, dout), bf16)
+        want_9 = int8_matmul(x, w8[0], sc[0])
+        want_y, want_dx = _fused_fb(x, w8, sc, a, b, g)
+        row = name in ("wo", "w_down")
+        for tp in TP_SIZES:
+            if row:
+                y9 = sum(int8_matmul(_col(x, r, tp), _col(w8[0], r, tp, 0), sc[0])
+                         for r in range(tp))
+                outs = [_fused_fb(_col(x, r, tp), _col(w8, r, tp, 1), sc, _col(a, r, tp, 0),
+                                  b, g) for r in range(tp)]
+                y = [o[0] for o in outs]
+                dx = torch.cat([o[1] for o in outs], dim=-1)
+                cut = f"{din // tp} input rows a rank"
+            else:
+                y9 = torch.cat([int8_matmul(x, _col(w8[0], r, tp), _col(sc[0], r, tp))
+                                for r in range(tp)], dim=-1)
+                outs = [_fused_fb(x, _col(w8, r, tp), _col(sc, r, tp), a, _col(b, r, tp),
+                                  _col(g, r, tp)) for r in range(tp)]
+                y = torch.cat([o[0] for o in outs], dim=-1)
+                dx = [o[1] for o in outs]
+                cut = f"{dout // tp} output columns a rank"
+            what = f"{name} {din}->{dout} m={T} tp={tp}: {cut}"
+            _check_int4(f"19a B9 {what}", y9, want_9, torch.float32, errs)
+            for kernel, got, want in ((f"B10a r={r_}", y, want_y), (f"B10b dx r={r_}", dx, want_dx)):
+                if isinstance(got, list):
+                    _check_partials(f"19a {kernel} {what}, partials summed", got, want, errs)
+                else:
+                    _check_int4(f"19a {kernel} {what}, concatenated", got, want, bf16, errs)
+        del w8, sc
+
+    _check_tp_layer(cfg, gen, errs)
+
+
+def _tp_layer_by_hand(w, lora, cfg, hidden, cos, sin, tp):
+    """One dense decoder layer with LoRA from `tp` ranks' slices of the
+    whole weights `w` ({name: HF (dout, din) weight}, the norms) and
+    adapters `lora` ({target: (a, b)}), on one card: each rank's q / k / v
+    / gate / up from its output rows (its heads, B3 / B3b on them), its o /
+    down partials from its input columns, the LoRA terms cut alike, the
+    partials summed in f32 and rounded once, as `_layer` does over a model
+    group. The slices are views of `w`, so the gradients land there."""
+    eps, hd, f = cfg.rms_norm_eps, cfg.head_dim_, cfg.intermediate_size
+    b, t, _ = hidden.shape
+    scale = LORA_ALPHA / LORA_R
+
+    def lora_layer(r, names):  # rank r's adapter views: b cut for a column target, a for a row
+        out = {}
+        for n in names:
+            a, bb = lora[n]
+            out[n] = {"a": _col(a, r, tp, 0) if n in ("wo", "w_down") else a,
+                      "b": bb if n in ("wo", "w_down") else _col(bb, r, tp, 1)}
+        return out
+
+    def column(x, r, name):
+        return (torch.nn.functional.linear(x, _col(w[name], r, tp, 0))
+                + lora_delta(lora_layer(r, [name]), name, x, scale))
+
+    def row(x, r, name):
+        return (linear_f32(x, _col(w[name], r, tp, 1))
+                + lora_delta(lora_layer(r, [name]), name, x, scale, out_dtype=torch.float32))
+
+    # a rank's copy of x: its gradient summed over the ranks in f32 and
+    # rounded once, as `copy_to_model`'s all-reduce does
+    x32 = rms_norm(hidden, w["input_layernorm"], eps).float()
+    part = 0.0
+    for r in range(tp):
+        x = x32.to(hidden.dtype)
+        q = apply_rope(column(x, r, "wq").reshape(b, t, -1, hd), cos, sin)
+        kx = apply_rope(column(x, r, "wk").reshape(b, t, -1, hd), cos, sin)
+        vx = column(x, r, "wv").reshape(b, t, -1, hd)
+        out = attention(q, kx, vx, causal=True, impl="auto").reshape(b, t, -1)
+        part = part + row(out, r, "wo")
+    hidden = hidden + part.to(hidden.dtype)
+    x32 = rms_norm(hidden, w["post_attention_layernorm"], eps).float()
+    part = 0.0
+    for r in range(tp):
+        x = x32.to(hidden.dtype)
+        gu = torch.nn.functional.silu(column(x, r, "w_gate")) * column(x, r, "w_up")
+        part = part + row(gu, r, "w_down")
+    hidden = hidden + part.to(hidden.dtype)
+    return rms_norm(hidden, w["norm"], eps)
+
+
+def _check_tp_layer(cfg, gen, errs, rows: int = TRAIN_ROWS, device: str = "cuda") -> None:
+    """19a's decoder layer (see `check_tp_train_shards`): the output, the
+    input gradient and each parameter's gradient by phase 4's rule, at
+    most BF16_VS_PLAIN x as far from the fp32 plain layer (relative L2) as
+    the unsharded bf16 layer's; each tensor's worst element against
+    `_grad_limit`'s per-element limit (the unsharded layer's) is logged,
+    not held: two bf16 paths through a whole layer (softmax, SiLU, the
+    norms between the roundings) differ by more than one kernel's rounding
+    (on the CPU at 512 wide, 512 rows: wq's worst element 1.32 x the
+    limit, every tensor's L2 ratio 1.02-1.05). `device="cpu"` runs the
+    plain routes (a rehearsal at a small config)."""
+    from handsonvlm_torch.models.llama import _PROJ
+
+    bf16, T = torch.bfloat16, rows
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    llama = Llama(cfg1, device=device, dtype=bf16)
+    llama.init_weights(gen)
+    lora = init_lora(gen, cfg1, LORA_R, LORA_ALPHA, device=device)
+    with torch.no_grad():  # b ~ 0.02 N(0, 1): every adapter has a gradient
+        for ad in lora.adapters.values():
+            ad.b.normal_(0.0, 0.02, generator=gen)
+    hidden = torch.randn((1, T, cfg.hidden_size), generator=gen, device=device).to(bf16)
+    hidden.requires_grad_()
+    dy = torch.randn((1, T, cfg.hidden_size), generator=gen, device=device).to(bf16)
+    positions = torch.arange(T, device=device)[None]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+
+    lp = llama.layers[0]
+    leaves = {n: getattr(getattr(lp, sub), lin).weight for n, (sub, lin) in _PROJ.items()}
+    leaves.update(input_layernorm=lp.input_layernorm.weight,
+                  post_attention_layernorm=lp.post_attention_layernorm.weight,
+                  norm=llama.norm.weight)
+    adapters = {n: (ad.a[0], ad.b[0]) for n, ad in lora.adapters.items()}
+    names = ["out", "dx"] + list(leaves) + [f"{n}.{f}" for n in lora.adapters for f in "ab"]
+    params = list(leaves.values()) + [p for ad in lora.adapters.values() for p in (ad.a, ad.b)]
+
+    def unsharded(impl):
+        out, _ = apply_llama(llama, cfg1, inputs_embeds=hidden, lora=lora, attn_impl=impl)
+        grads = torch.autograd.grad(out, [hidden] + params, dy.to(out.dtype))
+        return dict(zip(names, [out.detach()] + list(grads)))
+
+    want = unsharded("auto")
+    llama.float()  # the fp32 plain layer: phase 4's reference
+    kept, hidden = hidden, hidden.detach().float().requires_grad_()
+    want32 = unsharded("xla")
+    llama.to(bf16)
+    hidden = kept
+    for tp in TP_SIZES:
+        w = {n: t.detach().clone().requires_grad_() for n, t in leaves.items()}
+        ad = {n: (a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_())
+              for n, (a, b) in adapters.items()}
+        x = hidden.detach().clone().requires_grad_()
+        reset_launches()
+        got_out = _tp_layer_by_hand(w, ad, cfg1, x, cos, sin, tp)
+        ad_leaves = [t for pair in ad.values() for t in pair]
+        g = torch.autograd.grad(got_out, [x] + list(w.values()) + ad_leaves, dy)
+        counts = read_launches()
+        if device == "cuda" and (counts["flash_attention"] != tp
+                                 or counts["flash_attention_bwd"] != tp):
+            raise AssertionError(f"19a layer tp={tp}: B3 {counts['flash_attention']}, B3b "
+                                 f"{counts['flash_attention_bwd']} launches, expected {tp} each")
+        got = dict(zip(names, [got_out.detach()] + list(g)))
+        for name, gv in got.items():
+            wv = want[name].reshape(gv.shape)
+            w32 = want32[name].reshape(gv.shape)
+            # (1, rows, heads of 128, 128) for _grad_limit: a row of a matrix, or a token
+            t_rows = gv.shape[-2] if gv.dim() > 1 else 1
+            width = 128 if gv.shape[-1] % 128 == 0 else gv.shape[-1]
+            gv4, wv4 = (t.float().reshape(1, t_rows, -1, width) for t in (gv, wv))
+            worst = float(((gv4 - wv4).abs() / _grad_limit(wv4, GRAD_RTOL[bf16])).max())
+            d_tp, d_u = _rel(gv, w32), _rel(wv, w32)
+            ok = bool(torch.isfinite(gv).all()) and d_tp <= BF16_VS_PLAIN * d_u
+            errs.append(float((gv.float() - wv.float()).abs().max()))
+            log(f"  19a layer tp={tp} {name} {tuple(gv.shape)} (slices of {tp} ranks summed by "
+                f"hand): relative L2 from the fp32 plain layer {d_tp:.3e}, the unsharded bf16 "
+                f"layer's {d_u:.3e} (ratio {d_tp / d_u:.3f}, limit {BF16_VS_PLAIN}); against "
+                f"the unsharded layer max_abs_err={errs[-1]:.3e}, worst element {worst:.3f} x "
+                f"_grad_limit's {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"19a layer tp={tp} {name}: farther from the fp32 layer "
+                                     "than the unsharded bf16 layer allows")
+    del llama, lora
+    _free(torch.device(device))
+
+
 def _limit(dtype, d_plain: float) -> float:
     """Phase 4's limit on a path's distance from the fp32 reference: in
     bf16 BF16_VS_PLAIN x the bf16 plain path's, in fp32 FP32_REL_L2."""
@@ -3922,24 +4203,33 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def _device_ms(fn, steps: int, device):
-    """(compute, NCCL) device ms per step of fn() (which runs `steps`
-    steps) from a torch.profiler trace: the self time of the CUDA kernels
-    other than NCCL's, and of NCCL's apart (they run on a stream of their
-    own and include the wait for the other ranks); NaN off the card."""
+def _device_ms(fn, steps: int, device, top: int = 0):
+    """(compute, NCCL, heaviest) device ms per step of fn() (which runs
+    `steps` steps) from a torch.profiler trace: the self time of the CUDA
+    kernels other than NCCL's, and of NCCL's apart (they run on a stream
+    of their own and include the wait for the other ranks), and the `top`
+    most expensive kernels as (name, ms a step, calls); NaN off the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if device.type != "cuda":
-        return float("nan"), float("nan")
+        return float("nan"), float("nan"), []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device-side spans of host ranges (`nccl:all_reduce`, `Optimizer.step#...`)
+    # cover kernels that are counted on their own: only kernels are summed
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+               and not getattr(e, "is_user_annotation", False)]
     nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower())
     total = sum(e.self_device_time_total for e in kernels)
-    return (total - nccl) / 1e3 / steps, nccl / 1e3 / steps
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    heavy = [(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count)
+             for e in kernels[:top]]
+    return (total - nccl) / 1e3 / steps, nccl / 1e3 / steps, heavy
 
 
 def _cache_bytes(cfg, kv_heads: int, max_len: int, kv_quant) -> int:
@@ -4049,7 +4339,7 @@ def _tp_decode(rank: int, world: int, quantize, kv_quant, device, preset,
         steps_fn()
         _sync(device)
         step_ms = (time.perf_counter() - t1) * 1e3 / PAR_PROFILE_STEPS
-        dev_ms, nccl_ms = _device_ms(steps_fn, PAR_PROFILE_STEPS, device)
+        dev_ms, nccl_ms, _ = _device_ms(steps_fn, PAR_PROFILE_STEPS, device)
         kv_heads = layout.kv_heads(cfg.llama.kv_heads)
         cache_b = _cache_bytes(cfg, kv_heads, ids.shape[1] + cfg.num_visual_tokens
                                + new_tokens, kv_quant)
@@ -4099,15 +4389,16 @@ FSDP_NORM_RTOL = 5e-2  # its grad_norm (bf16 gradients reduce-scattered in bf16)
 FSDP_LOSS1_RTOL = 5e-2
 
 
-def _one_card_steps(model, cfg, batch, eps0, eps1) -> tuple:
+def _one_card_steps(model, cfg, batch, eps0, eps1, freeze=("vision",)) -> tuple:
     """One card's unsharded reference of the sharded steps 0 and 1:
     step 0's loss and grad_norm (forward + backward of `batch`, CVAE draws
     `eps0`), the same AdamW step, then step 1's loss (a forward, draws
     `eps1`). The optimizer's moments exist only after the backward, so a
-    7B model whose training step does not fit one card fits here."""
+    7B model whose training step does not fit one card fits here.
+    `freeze`: the frozen top-level modules (full SFT: the CLIP tower)."""
     device = model.llama.embed_tokens.weight.device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-    opt = make_optimizer(model, TRAIN_LR)  # the trainable set: all but the CLIP tower
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=freeze)
     opt.zero_grad(set_to_none=True)
     loss, _ = loss_fn(model, cfg, batch, eps=eps0, attn_impl="auto", remat="full")
     loss.backward()
@@ -4301,6 +4592,158 @@ def _seq_parallel(rank: int, world: int, device, preset, rows_a_rank: int) -> di
     return counts
 
 
+# 19b's tensor parallelism inside training: (mode, (data, model)) on N ranks
+TP_TRAIN_QUANT = {"sft": None, "lora": None, "int4": "int4", "int8": "int8",
+                  "int8_fused": "int8_fused"}
+
+
+def tp_train_runs(world: int) -> list:
+    """Full SFT at (1, N) and, from 4 ranks, (2, N/2); LoRA r = 128 over
+    bf16 and QLoRA int4 / int8 / int8_fused at (1, N)."""
+    runs = [("sft", (1, world))]
+    if world >= 4 and world % 2 == 0:
+        runs.append(("sft", (2, world // 2)))
+    return runs + [(m, (1, world)) for m in ("lora", "int4", "int8", "int8_fused")]
+
+
+def _tp_train_launches(cfg, rows, mode) -> dict:
+    """A rank's launches of one step: its heads' B3 / B3b (one call a layer
+    whatever its share), and each projection's kernel once a call on its
+    slice, or whole where the rule leaves it whole (phase 14's counts)."""
+    extra = {"int4": dict(int4_matmul_prefill_tiled=8, int4_matmul_T_tiled=4),
+             "int8": dict(int8_matmul=14),
+             "int8_fused": dict(int8_stacked_fwd=14, int8_stacked_bwd=7)}.get(mode, {})
+    return _train_launches(cfg, rows, **extra)
+
+
+def _tp_train(rank: int, world: int, device, preset, rows: int, mode: str, shape) -> dict:
+    """19b TP: one run of tensor parallelism inside training, the model
+    `random:<preset>` at its widths (all its layers; quantized on the card
+    for QLoRA), LoRA r = 128 (b ~ 0.02 N(0, 1)) but under full SFT, on a
+    ('data', 'model') mesh of `shape`: each rank cuts its Megatron slices
+    (`shard_for_training`), FSDP2 shards them over 'data', 2 steps on a
+    global batch of `shape[0]` samples of `rows` rows. Rank 0 first runs
+    the unsharded step on its card alone (`_one_card_steps`, the same
+    batch and CVAE draws): step 0's loss and grad_norm lie within
+    FSDP_LOSS_RTOL / FSDP_NORM_RTOL of its. Per step: wall ms, tokens/s,
+    peak GiB a rank, collectives, launches (exact); a rank's bytes; on the
+    card a third step traced (compute and NCCL device ms)."""
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel import tp as tp_mod
+
+    say = _say(rank)
+    label = f"19b TP {mode} {shape[0]}x{shape[1]}"
+    model, cfg, _ = load_pretrained_model(f"random:{preset}", preset, device,
+                                          quantize=TP_TRAIN_QUANT[mode])
+    freeze = ("vision",) if mode == "sft" else ("vision", "llama")
+    r = LORA_R if preset == "7b" else 2
+    if mode != "sft":
+        gen = torch.Generator(device=device).manual_seed(1)
+        model.lora = init_lora(gen, cfg.llama, r, 2.0 * r, device=device)
+        with torch.no_grad():
+            for ad in model.lora.adapters.values():
+                ad.b.normal_(0.0, 0.02, generator=gen)
+    batch = _rows_batch(cfg, shape[0], rows)
+    eps = [draw_eps(model, cfg, shape[0], step_generator(0, i, device)) for i in range(2)]
+    if rank == 0:  # the reference updates its trainable weights: they are put back
+        kept = {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.split(".")[0] not in freeze + ("llama",)}
+        ref = _one_card_steps(model, cfg, batch, *eps, freeze=freeze)
+        if mode == "sft":  # the whole decoder trained: the model is built again
+            del model
+            _free(device)
+            model, _, _ = load_pretrained_model(f"random:{preset}", preset, device)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in kept:
+                    p.copy_(kept[n])
+        del kept
+        model.zero_grad(set_to_none=True)
+        _free(device)
+    if dist.is_initialized():
+        dist.barrier()
+    mesh = create_mesh(data=shape[0], model=shape[1], device=device.type)
+    layout = shard_for_training(model, cfg, model_group(mesh))
+    shard_model(model, mesh)
+    _free(device)
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=freeze)
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, opt, attn_impl="auto", remat="full", mesh=mesh)
+    held = bytes_per_rank(model)
+    say(f"  {label}: heads split {layout.heads}, MLP split {layout.mlp}, int4 splits "
+        f"{layout.int4 or '-'}, int8 splits {layout.int8 or '-'}, fallbacks "
+        f"{layout.fallbacks or 'none'}; a rank holds parameters "
+        f"{held['params'] / 2**30:.3f} GiB, buffers {held['buffers'] / 2**30:.3f} GiB")
+    want = _tp_train_launches(cfg, rows, mode)
+    launches = {}
+    for i in range(2):
+        reset_launches()
+        _reset_peak(device)
+        c0 = tp_mod.COLLECTIVES
+        t0 = time.perf_counter()
+        m = step(state, batch, 0, eps=eps[i])
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gib(device)
+        counts = read_launches()
+        launched = {k: v for k, v in counts.items() if v}
+        say(f"  {label} step {i}: loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}; wall "
+            f"{wall:.1f} ms, {shape[0] * rows / wall * 1e3:.1f} tokens/s, peak {peak:.3f} GiB a "
+            f"rank, {tp_mod.COLLECTIVES - c0} collectives a rank (the model group's; FSDP's "
+            f"and the step's sums apart); launches {launched}")
+        if device.type == "cuda" and launched != want:
+            raise AssertionError(f"{label}: rank {rank} launches {launched}, expected {want}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: metrics not finite: {m}")
+        if rank == 0 and i == 0:
+            checks = [("loss", m["loss"], ref[0], FSDP_LOSS_RTOL),
+                      ("grad_norm", m["grad_norm"], ref[1], FSDP_NORM_RTOL)]
+            say(f"  {label} step 0 against one card's unsharded step on the same "
+                f"{shape[0]} x {rows} rows: " + ", ".join(
+                    f"{k} {v:.6f} / {r_:.6f} (rel {abs(v - r_) / abs(r_):.3e}, limit {tol:.0e})"
+                    for k, v, r_, tol in checks))
+            if any(abs(v - r_) > tol * abs(r_) for _, v, r_, tol in checks):
+                raise AssertionError(f"{label}: step 0 departs from the one-card reference")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    if device.type == "cuda":  # a third step traced: where a step's time goes
+        dev_ms, nccl_ms, heavy = _device_ms(lambda: step(state, batch, 0, eps=eps[1]), 1,
+                                            device, top=8)
+        say(f"  {label} a step traced: {dev_ms:.1f} ms device in compute kernels "
+            f"({dev_ms / wall:.1%} of step 1's wall) and {nccl_ms:.1f} ms in NCCL's (their "
+            "waits included); the top kernels (ms, calls): " + "; ".join(
+                f"{k} {ms:.1f} ({n})" for k, ms, n in heavy))
+    if dist.is_initialized():
+        dist.barrier()
+    del model, opt, state
+    _free(device)
+    return launches
+
+
+def tp_cli_argv(preset: str, out: str, steps: int, batch: int, device: str = "cuda") -> list:
+    """The train CLI's arguments of 19b's run: QLoRA int8_fused r = 128 (2
+    at a small preset) over `--synthetic 4`."""
+    r = LORA_R if preset == "7b" else 2
+    return ["--model-path", f"random:{preset}", "--preset", preset, "--device", device,
+            "--qlora", "int8_fused", "--lora-r", str(r), "--lora-alpha", str(2.0 * r),
+            "--synthetic", "4", "--samples-per-epoch", "4", "--batch-size", str(batch),
+            "--max-steps", str(steps), "--log-every", "1", "--output-dir", out]
+
+
+def _tp_cli(rank: int, world: int, preset: str, out: str, device: str) -> None:
+    """19b CLI: the train CLI's main() on the ranks as torchrun starts it,
+    `--model-axis 2` (a world / 2 x 2 mesh), 2 steps and a checkpoint."""
+    t0 = time.perf_counter()
+    state = train_cli.main(tp_cli_argv(preset, out, 2, world // 2, device)
+                           + ["--model-axis", "2"])
+    _sync(torch.device(device, torch.cuda.current_device()) if device == "cuda"
+          else torch.device(device))
+    _say(rank)(f"  19b CLI --model-axis 2 --qlora int8_fused over {world} ranks: step "
+               f"{state.step} in {time.perf_counter() - t0:.2f} s (model build and "
+               "checkpoint included)")
+
+
 def _parallel_rank(rank: int, world: int, device: str = "cuda", preset: str = "7b",
                    rows: int = TRAIN_ROWS, new_tokens: int = PAR_NEW_TOKENS) -> dict:
     """One rank of phase 19b (NCCL, one card a rank; gloo on the CPU at a
@@ -4326,6 +4769,15 @@ def _parallel_rank(rank: int, world: int, device: str = "cuda", preset: str = "7
     t0 = time.perf_counter()
     add(_seq_parallel(rank, world, device, preset, rows))
     say(f"  19b ring wall {time.perf_counter() - t0:.2f} s")
+    if world == 1:
+        say("  19b TP training needs two cards or more (a model group of one rank is the "
+            "unsharded step): 19a stands for it on this card, its kernels on every rank's "
+            "slices and a layer from the slices, summed by hand")
+        return launches
+    for mode, shape in tp_train_runs(world):
+        t0 = time.perf_counter()
+        add(_tp_train(rank, world, device, preset, rows, mode, shape))
+        say(f"  19b TP {mode} {shape[0]}x{shape[1]} wall {time.perf_counter() - t0:.2f} s")
     return launches
 
 
@@ -4341,16 +4793,53 @@ def phase_parallel(device: str = "cuda", preset: str = "7b", ranks: int = 0,
         log("phase 19a: the tensor-parallel shards at 7B's shapes, rank by rank on one card")
         t0 = time.perf_counter()
         check_tp_shards()
+        log("phase 19a, training: B3 / B3b on each rank's heads, B5b / B7b / B9 / B10a / B10b "
+            "on its slices, a layer from the slices, at 2048 rows")
+        check_tp_train_shards()
         log(f"  phase 19a wall {time.perf_counter() - t0:.2f} s")
     n = ranks or torch.cuda.device_count()
     log(f"phase 19b: the world run over {n} rank(s): {preset} tensor-parallel decode (bf16, "
-        "int4 + kv8), FSDP2 full SFT, the ring (--seq-parallel) LoRA step")
+        "int4 + kv8), FSDP2 full SFT, the ring (--seq-parallel) LoRA step"
+        + (", tensor parallelism inside training (full SFT, LoRA, QLoRA int4 / int8 / "
+           "int8_fused) and the train CLI with --model-axis 2" if n > 1 else ""))
     _free(torch.device(device))
     t0 = time.perf_counter()
     launches = spawn(_parallel_rank, n, device, preset, rows, new_tokens, device=device,
-                     timeout=900)[0]
+                     timeout=1500)[0]
     log(f"  phase 19b wall {time.perf_counter() - t0:.2f} s")
+    if n > 1 and n % 2 == 0:
+        phase_tp_cli(n, device, preset)
     return launches
+
+
+def phase_tp_cli(n: int, device: str = "cuda", preset: str = "7b") -> None:
+    """19b CLI: the train CLI under `n` ranks with `--model-axis 2` (QLoRA
+    int8_fused, 2 steps, a checkpoint), then resumed in this process on one
+    card (`--max-steps 3` prints `resumed from step 2`): the checkpoint of
+    the cut model is the one-rank layout. The directory (a 7B checkpoint)
+    is removed after."""
+    import contextlib
+    import io
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="hv_tp_cli_")
+    try:
+        t0 = time.perf_counter()
+        spawn(_tp_cli, n, preset, out, device, device=device, timeout=900)
+        log(f"  19b CLI over {n} ranks wall {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            state = train_cli.main(tp_cli_argv(preset, out, 3, n // 2, device))
+        resumed = "resumed from step 2" in text.getvalue()
+        log(f"  19b CLI resumed on one rank: {'resumed from step 2' if resumed else 'NOT resumed'}"
+            f", step {state.step} in {time.perf_counter() - t0:.2f} s")
+        if not resumed or state.step != 3:
+            raise AssertionError("19b CLI: the one-rank run did not resume the ranks' checkpoint")
+        del state
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        _free(torch.device(device))
 
 
 def model_bytes(model) -> int:

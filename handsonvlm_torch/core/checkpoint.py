@@ -29,11 +29,13 @@ tensors, so a 7B restore does not hold a second copy on the card. The port
 reads its own format, not Orbax: JAX-trained weights cross over as the
 HF-layout state dict (`convert.from_hf`).
 
-A model sharded over ranks (`parallel/partition.shard_model`) saves and
-restores the same files: every rank gathers the whole state dicts, the
-first rank writes them, and at a restore each rank reads them and keeps
-its shards, so a checkpoint of N ranks resumes in one and the other way
-round.
+A model sharded over ranks (`parallel/partition.shard_model`, its decoder
+and adapters cut over a model axis first or not: `parallel/tp.py`) saves
+and restores the same files: every rank gathers the whole state dicts
+(the FSDP shards over 'data', the model slices and their Adam moments
+over 'model'), the first rank writes them, and at a restore each rank
+reads them and keeps its slices and shards, so a checkpoint of N ranks,
+whatever their mesh, resumes in one and the other way round.
 """
 
 from __future__ import annotations

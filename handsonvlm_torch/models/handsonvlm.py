@@ -285,6 +285,8 @@ def forward(
     frame_map: Optional[torch.Tensor] = None,
     data_parallel: bool = False,
     seq=None,
+    tp=None,
+    data_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Teacher-forced forward: logits, hidden, and with labels the losses.
 
@@ -298,7 +300,10 @@ def forward(
     group (train/step.py), each holding some of its rows, and the losses
     are this rank's share, the shares of all ranks summing to the whole
     batch's: the CE's target count and the KL quirk's valid count are
-    summed over the ranks. `seq` (a mesh with a 'seq' axis) also spreads
+    summed over the ranks of `data_group` (None: the default group; on a
+    ('data', 'model') mesh the data axis's, whose ranks hold other rows,
+    while the ranks of a model group hold the same). `tp` (a
+    `parallel.tp.TPGroup`) runs the decoder's tensor-parallel shard. `seq` (a mesh with a 'seq' axis) also spreads
     the positions: the decoder runs on this rank's T/P of them with ring
     attention (logits and hidden are then those positions'), the hand
     hidden states are summed over the ring from the rank holding each, and
@@ -331,7 +336,8 @@ def forward(
         n_seq, start = mesh_shape(seq)["seq"], positions[0, 0]
     hidden, _ = apply_llama(model.llama, cfg.llama, inputs_embeds=embeds, attn_mask=mask,
                             positions=positions, attn_impl=attn_impl,
-                            lora=model.lora if lora is None else lora, remat=remat, seq=seq)
+                            lora=model.lora if lora is None else lora, remat=remat, seq=seq,
+                            tp=tp)
     logits = lm_logits(model.llama, cfg.llama, hidden)
 
     out = {"logits": logits, "hidden": hidden}
@@ -340,13 +346,13 @@ def forward(
 
         count = kl_valid = None
         if data_parallel:
-            count = all_reduce_sum((targets != IGNORE_INDEX).sum().float())
+            count = all_reduce_sum((targets != IGNORE_INDEX).sum().float(), data_group)
         text_loss = cross_entropy(logits, targets, count)
         emb, fv = extract_hand_embeddings(hidden, sp.labels, future_valid, start=start)
         if seq is not None:
             emb = all_reduce_sum_grad(emb, seq.get_group("seq"))
         if data_parallel:
-            kl_valid = all_reduce_sum(fv.float().sum()) / n_seq
+            kl_valid = all_reduce_sum(fv.float().sum(), data_group) / n_seq
         losses = traj_decoder_loss(
             model.traj, cfg.traj, emb, future_hands, fv,
             cfg.lambda_traj, cfg.lambda_traj_kl, eps=eps, generator=generator,

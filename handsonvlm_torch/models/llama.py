@@ -69,6 +69,8 @@ from handsonvlm_torch.ops.int8_matmul import (
     dequantize_tiled,
     int4_group,
     int4_matmul_stacked,
+    int8_matmul,
+    int8_matmul_ref,
     maybe_int8_matmul,
     quantize_int4,
     quantize_int8,
@@ -79,10 +81,12 @@ from handsonvlm_torch.ops.int8_matmul import (
 from handsonvlm_torch.ops.qlora_fused import int8_lora_matmul_stacked, int8_matmul_stacked
 from handsonvlm_torch.parallel.tp import (
     check_layout,
+    copy_to_model,
     head_parallel,
     int4_matmul_stacked_tp,
+    linear_f32,
     local_heads,
-    row_parallel_linear,
+    reduce_partial,
 )
 
 
@@ -530,8 +534,12 @@ def _layer(
     `TPLayout`) runs this rank's shard, as the JAX package's `tp_mesh`:
     int4 projections column-parallel with their outputs gathered, the
     attention over this rank's heads and cache (gathered after it on the
-    int4 route, which feeds the column-parallel wo), dense o / down
-    row-parallel. `seq` (a mesh with a 'seq' axis) makes the attention of a
+    int4 route, which feeds the column-parallel wo), dense and int8 q / k /
+    v / gate / up column-parallel behind `copy_to_model`, o / down
+    row-parallel (the f32 partials and their LoRA terms summed over the
+    group). Every collective is differentiable, so a training cut
+    (`parallel.tp.shard_for_training`) runs the same code under autograd
+    and remat. `seq` (a mesh with a 'seq' axis) makes the attention of a
     cache-less forward ring attention over its ranks, each holding T/P rows
     (`parallel/ring_attention.py`), as the JAX package's `seq_mesh`."""
     b, t, _ = hidden.shape
@@ -540,7 +548,7 @@ def _layer(
     plain = attn_impl == "xla"
     fused = llama.quantize == "int8_fused"
     heads = layout is not None and layout.heads
-    mlp_rows = layout is not None and layout.mlp
+    mlp_cut = layout is not None and layout.mlp
 
     def fproj(x, name):  # the fused QLoRA route, the JAX package's proj8
         w = proj[name]
@@ -556,42 +564,54 @@ def _layer(
         return int4_matmul_stacked_tp(x, *int4[name].packed(), layer_idx, plain=plain,
                                       tp=tp if layout.int4[name] else None)
 
-    def pproj(x, name):
-        return maybe_int8_matmul(x, proj[name].leaf(layer_idx), plain=plain)
-
-    def dense(x, name):  # a dense or per-projection weight, without its delta
+    def base(x, name):  # a dense, per-projection or fused weight (this rank's slice)
+        if fused:
+            return fproj(x, name)
         if proj is not None:
-            return pproj(x, name)
+            return maybe_int8_matmul(x, proj[name].leaf(layer_idx), plain=plain)
         sub, lin = _PROJ[name]
         return getattr(getattr(lp, sub), lin)(x)
 
-    def dense_rows(x, name, split):  # o / down: row-parallel when this rank holds a split
-        if not split:
-            return dense(x, name)
-        sub, lin = _PROJ[name]
-        return row_parallel_linear(x, getattr(getattr(lp, sub), lin).weight, tp)
+    def column(x, names, cut):  # q / k / v or gate / up, each with its delta
+        xc = copy_to_model(x, tp) if cut else x  # its dx is summed over the group
+        if fused:
+            return tuple(fproj(xc, n) for n in names)
+        delta = lora_delta_multi(lora_layer, names, xc, lora_scale)
+        if not isinstance(delta, tuple):  # 0.0, or one concatenated delta
+            widths = [lora_layer[n]["b"].shape[-1] for n in names] if lora_layer else []
+            delta = ((0.0,) * len(names) if isinstance(delta, float)
+                     else tuple(delta.split(widths, dim=-1)))
+        return tuple(_add(base(xc, n), d) for n, d in zip(names, delta))
 
-    def split(delta, widths):  # lora_delta_multi's three forms -> a tuple
-        if isinstance(delta, tuple):
-            return delta
-        if isinstance(delta, float):
-            return (0.0,) * len(widths)
-        return tuple(delta.split(widths, dim=-1))
+    def row(x, name, cut):  # o / down: row-parallel when this rank holds a slice
+        if not cut:
+            return base(x, name) if fused else _add(
+                base(x, name), lora_delta(lora_layer, name, x, lora_scale))
+        extra = None
+        if fused:  # the term is in the kernel's partial
+            part = fproj(x, name)
+        elif proj is not None:
+            w = proj[name].leaf(layer_idx)
+            part = (int8_matmul_ref if plain else int8_matmul)(x, w["w8"], w["scale"],
+                                                               torch.float32)
+        else:
+            sub, lin = _PROJ[name]
+            part = linear_f32(x, getattr(getattr(lp, sub), lin).weight)
+        if not fused and lora_layer is not None and name in lora_layer:
+            extra = lora_delta(lora_layer, name, x, lora_scale, out_dtype=torch.float32)
+        return reduce_partial(part, tp, x.dtype, extra)
 
     x = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-    qkv_widths = [h * hd, k * hd, k * hd]
-    dqkv = None if fused else lora_delta_multi(lora_layer, ("wq", "wk", "wv"), x, lora_scale)
-    if fused:
-        q, kx, vx = (fproj(x, n) for n in ("wq", "wk", "wv"))
-    elif int4 is not None:
+    if int4 is not None:
+        qkv_widths = [h * hd, k * hd, k * hd]
+        dqkv = lora_delta_multi(lora_layer, ("wq", "wk", "wv"), x, lora_scale)
         qkv = iproj(x, "wqkv")
         if not isinstance(dqkv, tuple):  # one concatenated delta, or none
             qkv, dqkv = _add(qkv, dqkv), (0.0, 0.0, 0.0)
         q, kx, vx = (_add(y, dy) for y, dy in zip(qkv.split(qkv_widths, dim=-1), dqkv))
     else:
-        dqkv = split(dqkv, qkv_widths)
-        q, kx, vx = (_add(dense(x, n), dy) for n, dy in zip(("wq", "wk", "wv"), dqkv))
-    # a dense shard's projections give this rank's heads alone, hence -1
+        q, kx, vx = column(x, ("wq", "wk", "wv"), heads)
+    # a dense or int8 shard's projections give this rank's heads alone, hence -1
     q = apply_rope(q.reshape(b, t, -1, hd), cos, sin)
     kx = apply_rope(kx.reshape(b, t, -1, hd), cos, sin)
     vx = vx.reshape(b, t, -1, hd)
@@ -634,11 +654,6 @@ def _layer(
 
     out = head_parallel(attend, q, tp if head_split else None).reshape(b, t, -1)
     f = cfg.intermediate_size
-    if fused:
-        hidden = hidden + fproj(out, "wo")
-        x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
-        gu = F.silu(fproj(x, "w_gate")) * fproj(x, "w_up")
-        return hidden + fproj(gu, "w_down")
     if int4 is not None:
         hidden = _add(hidden + iproj(out, "wo"), lora_delta(lora_layer, "wo", out, lora_scale))
         x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
@@ -650,14 +665,10 @@ def _layer(
         gu = F.silu(gate) * up
         return _add(hidden + iproj(gu, "w_down"),
                     lora_delta(lora_layer, "w_down", gu, lora_scale))
-    hidden = hidden + _add(dense_rows(out, "wo", heads),
-                           lora_delta(lora_layer, "wo", out, lora_scale))
-
+    hidden = hidden + row(out, "wo", heads)
     x = rms_norm(hidden, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
-    dgu = split(lora_delta_multi(lora_layer, ("w_gate", "w_up"), x, lora_scale), [f, f])
-    gu = F.silu(_add(dense(x, "w_gate"), dgu[0])) * _add(dense(x, "w_up"), dgu[1])
-    return hidden + _add(dense_rows(gu, "w_down", mlp_rows),
-                         lora_delta(lora_layer, "w_down", gu, lora_scale))
+    gate, up = column(x, ("w_gate", "w_up"), mlp_cut)
+    return hidden + row(F.silu(gate) * up, "w_down", mlp_cut)
 
 
 # ---------------------------------------------------------------------------
@@ -734,7 +745,8 @@ def apply_llama(
 
     `tp` (a `parallel.tp.TPGroup`) runs this rank's shard of a decoder cut
     by `parallel.tp.shard_llama_tp` for it, over a cache of its kv heads
-    (the JAX package's `tp_mesh`). `seq` (a mesh with a 'seq' axis) runs a
+    (the JAX package's `tp_mesh`), or trains it (a cut by
+    `parallel.tp.shard_for_training`, the adapters cut with it). `seq` (a mesh with a 'seq' axis) runs a
     cache-less forward sequence-parallel: each rank passes its T/P rows and
     their global `positions`, and the attention is ring attention (the JAX
     package's `seq_mesh`).
@@ -742,9 +754,12 @@ def apply_llama(
     Returns the final-normed hidden states (B,T,D) and the cache (or None).
     """
     layout = check_layout(llama, tp)
-    if layout is not None and lora is not None and llama.int4 is None:
-        raise ValueError("LoRA adapters on a dense tensor-parallel shard: merge them into "
-                         "the weights first (models.lora.merge_lora), then cut the shards")
+    if (layout is not None and lora is not None and llama.int4 is None
+            and (layout.heads or layout.mlp)
+            and getattr(lora, "tp_for", None) != (layout.rank, layout.size)):
+        raise ValueError("whole LoRA adapters on a dense or int8 tensor-parallel shard: merge "
+                         "them into the weights first (models.lora.merge_lora), then cut the "
+                         "shards, or cut them with the decoder (parallel.tp.shard_lora_tp)")
     if layout is not None and kv_cache is not None and (
             kv_cache.k.shape[3] != layout.kv_heads(cfg.kv_heads)):
         raise ValueError(f"the cache holds {kv_cache.k.shape[3]} kv heads, this rank's shard "

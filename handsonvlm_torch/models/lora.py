@@ -76,7 +76,10 @@ class LoraAdapter(nn.Module):
 
 class LoRA(nn.Module):
     """The adapters of every target (`adapters[name].a` / `.b`) and the
-    constant `scale` = alpha / r."""
+    constant `scale` = alpha / r. A tensor-parallel rank's adapters are
+    slices of these (`parallel.tp.shard_lora_tp`: a column target's b
+    (L, r, dout/tp), a row target's a (L, din/tp, r)); `layer(i)` gives
+    their views alike."""
 
     def __init__(self, cfg: LlamaConfig, r: int = 128, alpha: float = 256.0,
                  targets: Sequence[str] = DEFAULT_TARGETS, dtype=torch.float32, device=None):
@@ -111,18 +114,23 @@ def _cast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.to(torch.bfloat16) if LORA_COMPUTE_BF16 and x.dtype == torch.bfloat16 else w
 
 
-def lora_delta(lora_layer: Optional[Dict], name: str, x: torch.Tensor, scale):
+def lora_delta(lora_layer: Optional[Dict], name: str, x: torch.Tensor, scale,
+               out_dtype=None):
     """Low-rank activation path (x @ A) @ B * (alpha/r); 0.0 if untargeted.
 
     The delta is computed in the adapter dtype (f32 in training: a bf16 x
-    is promoted, as JAX promotes it) and cast back to x's dtype. With
+    is promoted, as JAX promotes it) and cast back to x's dtype
+    (`out_dtype`: to that, e.g. f32 for a tensor-parallel partial). With
     LORA_COMPUTE_BF16 (env HANDSONVLM_LORA_BF16=1) and a bf16 x, the two
-    products run in bf16 with the f32 master adapters cast per use."""
+    products run in bf16 with the f32 master adapters cast per use. A
+    tensor-parallel rank passes its slices (`parallel.tp.shard_lora_tp`):
+    a column target's b holds its output columns, a row target's a its
+    input rows (x is then its slice, and the delta a partial sum)."""
     if lora_layer is None or name not in lora_layer:
         return 0.0
     a, b = _cast(lora_layer[name]["a"], x), _cast(lora_layer[name]["b"], x)
     u = lora_u(x.to(a.dtype), a)
-    return ((u @ b) * scale).to(x.dtype)
+    return ((u @ b) * scale).to(out_dtype or x.dtype)
 
 
 def lora_delta_multi(lora_layer: Optional[Dict], names: Sequence[str], x: torch.Tensor,

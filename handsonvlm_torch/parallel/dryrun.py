@@ -11,8 +11,11 @@ point): N ranks on this machine (NCCL on the cards, gloo on the CPU) run
 
 and rank 0 prints one line in the JAX line's form. The preset is the JAX
 entry's "graft" config (4 layers of 256, CLIP 56 px), kept here as a copy.
+`--kind tp-train` runs instead one full-SFT step tensor parallel inside
+training: a ('data', 'model') mesh of N/2 x 2, the decoder cut for each
+rank (`parallel/tp.shard_for_training`), FSDP2 over 'data'.
 
-  python -m handsonvlm_torch.parallel.dryrun --devices 4 [--device cpu]
+  python -m handsonvlm_torch.parallel.dryrun --devices 4 [--device cpu] [--kind tp-train]
 """
 
 from __future__ import annotations
@@ -70,6 +73,33 @@ def _model(cfg, seed: int, device):
     model = HandsOnVLM(cfg, device=device)
     model.init_weights(torch.Generator(device=device).manual_seed(seed))
     return model
+
+
+def tp_train_main(rank: int, world: int, kind: str) -> dict:
+    """One rank's tensor-parallel training step on a (world / 2, 2) mesh
+    (one rank: 1 x 1); returns its numbers."""
+    from handsonvlm_torch.parallel.mesh import create_mesh, model_group
+    from handsonvlm_torch.parallel.partition import shard_model
+    from handsonvlm_torch.parallel.tp import shard_for_training
+    from handsonvlm_torch.train.step import make_train_step
+    from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
+
+    device = torch.device("cuda", torch.cuda.current_device()) if kind == "cuda" else \
+        torch.device("cpu")
+    cfg = graft_config()
+    model_axis = 2 if world % 2 == 0 else 1
+    mesh = create_mesh(model=model_axis, device=kind)
+    model = _model(cfg, 0, device)
+    if model_axis > 1:
+        shard_for_training(model, cfg, model_group(mesh))
+    shard_model(model, mesh)
+    opt = make_optimizer(model, learning_rate=1e-4)
+    step = make_train_step(cfg, opt, attn_impl="xla", mesh=mesh)
+    metrics = step(create_train_state(model, opt),
+                   example_batch(cfg, b=max(2 * (world // model_axis), 2)), 3)
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"]), metrics
+    return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+            "mesh": (world // model_axis, model_axis)}
 
 
 def rank_main(rank: int, world: int, kind: str) -> dict:
@@ -135,10 +165,17 @@ def rank_main(rank: int, world: int, kind: str) -> dict:
             "ring_err": ring_err}
 
 
-def dryrun(n_devices: int, device: str = "cuda") -> str:
-    """Run the dry run over `n_devices` ranks; returns (and prints) its line."""
+def dryrun(n_devices: int, device: str = "cuda", kind: str = "all") -> str:
+    """Run the dry run (`kind` "all" or "tp-train") over `n_devices` ranks;
+    returns (and prints) its line."""
     from handsonvlm_torch.parallel.distributed import spawn
 
+    if kind == "tp-train":
+        r = spawn(tp_train_main, n_devices, device, device=device)[0]
+        line = (f"dryrun_multichip tp-train ok: mesh={r['mesh']} loss={r['loss']:.4f} "
+                f"grad_norm={r['grad_norm']:.4f}")
+        print(line, flush=True)
+        return line
     r = spawn(rank_main, n_devices, device, device=device)[0]
     line = (f"dryrun_multichip ok: mesh=({n_devices},1) loss={r['loss']:.4f} "
             f"grad_norm={r['grad_norm']:.4f} tp_decode_tokens={r['tokens']} "
@@ -152,13 +189,16 @@ def main(argv=None) -> None:
     p.add_argument("--devices", type=int, default=0,
                    help="ranks (0: every card, on the CPU 2)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--kind", default="all", choices=("all", "tp-train"),
+                   help="all: the FSDP step, the TP decode and the ring; tp-train: one "
+                        "step tensor parallel inside training on a (N/2, 2) mesh")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no card here (pass --device cpu)")
     n = args.devices or (torch.cuda.device_count() if args.device == "cuda" else 2)
     if args.device == "cuda" and n > torch.cuda.device_count():
         raise SystemExit(f"--devices {n}: this machine has {torch.cuda.device_count()} cards")
-    dryrun(n, args.device)
+    dryrun(n, args.device, args.kind)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,11 @@ Port of `handsonvlm_tpu/parallel/mesh.py` on `torch.distributed`'s
 - ``data``: the batch / FSDP axis. Parameters and optimizer state shard
   along it (`parallel/partition.shard_model`, FSDP2), each rank takes its
   rows of the global batch.
-- ``model``: the tensor-parallel axis of the decode path (attention heads,
-  weight columns; `parallel/tp.py`). Training keeps it at 1 (ROADMAP A11b).
+- ``model``: the tensor-parallel axis (attention heads, weight columns and
+  rows; `parallel/tp.py`), of decode and of training: a training rank
+  holds its Megatron cut of the decoder (`tp.shard_for_training`), FSDP2
+  shards those slices over ``data``, and `model_group` gives the axis's
+  ranks as a `tp.TPGroup`.
 
 With ``seq > 1`` the mesh is ``('data', 'seq')`` instead: the sequence-
 parallel ring of `parallel/ring_attention.py`. ``seq`` and ``model`` above 1
@@ -18,13 +21,16 @@ group of its own (`distributed.ensure_process_group`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, TYPE_CHECKING
 
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from handsonvlm_torch.parallel.distributed import device_type, ensure_process_group
+
+if TYPE_CHECKING:
+    from handsonvlm_torch.parallel.tp import TPGroup
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -75,3 +81,25 @@ def axis_rank(mesh: Optional[DeviceMesh], axis: str) -> int:
     if mesh is None or axis not in mesh.mesh_dim_names:
         return 0
     return mesh.get_local_rank(axis)
+
+
+def model_group(mesh: Optional[DeviceMesh]) -> Optional["TPGroup"]:
+    """The mesh's 'model' axis as a `tp.TPGroup` (this rank's coordinate,
+    the axis's size, its process group); None where the axis is absent or
+    1 wide."""
+    from handsonvlm_torch.parallel.tp import TPGroup
+
+    n = mesh_shape(mesh).get(MODEL_AXIS, 1)
+    if n == 1:
+        return None
+    return TPGroup(mesh.get_local_rank(MODEL_AXIS), n, mesh.get_group(MODEL_AXIS))
+
+
+def data_group(mesh: Optional[DeviceMesh]):
+    """The process group whose ranks hold other rows of a batch: the 'data'
+    axis's when the mesh has a model axis above 1 (its ranks hold the
+    same rows), else None, the default group (the data axis, or data x
+    seq, every rank)."""
+    if model_group(mesh) is None:
+        return None
+    return mesh.get_group(DATA_AXIS)

@@ -25,9 +25,20 @@ base, and FSDP2 takes one dtype a unit, while the adapters are read inside
 every decoder layer's unit (r = 128 at 7B: 1.2 GiB of f32 a rank, with
 their Adam moments three times that).
 
+On a ('data', 'model') mesh the model is first cut over `model`
+(`tp.shard_for_training`, Megatron's cuts) and FSDP2 then shards each
+rank's slices over `data` alone: the rules' 'data' dimension of a slice,
+the 'model' entries left to the cut. The parameters a model group holds
+whole get the same gradient on each of its ranks, so
+`sync_replicated_grads` averages them over the data axis only; the LoRA
+factors each rank holds a partial gradient of (`tp.shard_lora_tp`) are
+first summed over the model axis.
+
 `full_state_dict` / `load_full_state_dict` move between the sharded model
-and the whole state dict a one-rank run saves, so a checkpoint written by
-N ranks resumes in one and the other way round.
+and the whole state dict a one-rank run saves (FSDP shards gathered over
+`data`, model slices over `model`, one tensor at a time), so a checkpoint
+written by N ranks resumes in one and the other way round, whatever the
+mesh.
 """
 
 from __future__ import annotations
@@ -40,7 +51,14 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
-from handsonvlm_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, mesh_shape
+from handsonvlm_torch.parallel.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    data_group,
+    mesh_shape,
+    model_group,
+)
+from handsonvlm_torch.parallel.tp import gather_dim, model_cuts, slice_dim
 
 Spec = Tuple[Optional[str], ...]
 
@@ -142,7 +160,9 @@ def shard_model(model: nn.Module, mesh, rules=None):
     """Apply FSDP2 over `mesh`'s data axis following the rule table: one
     unit per decoder layer and per CLIP layer, then the root. Parameters
     the table keeps whole are left out of FSDP (`model.replicated_params`,
-    whose gradients `sync_replicated_grads` averages). Returns the model."""
+    whose gradients `sync_replicated_grads` averages). On a mesh with a
+    model axis the model must already be cut for this rank
+    (`tp.shard_for_training`): FSDP2 shards its slices. Returns the model."""
     from torch.distributed.fsdp import fully_shard
 
     fmesh = _fsdp_mesh(mesh)
@@ -164,23 +184,45 @@ def shard_model(model: nn.Module, mesh, rules=None):
                     ignored_params={p for p in unit.parameters() if p in ignored})
     fully_shard(model, mesh=fmesh, shard_placement_fn=place, ignored_params=ignored)
     model.replicated_params = replicated
+    lora = getattr(model, "lora", None)
+    partial = set(getattr(lora, "tp_partial", ()))
+    model.partial_params = ([] if lora is None else
+                            [p for n, p in lora.named_parameters() if n in partial])
     model.fsdp_mesh = mesh
     return model
 
 
-def sync_replicated_grads(model: nn.Module) -> None:
-    """Average the gradients of the parameters FSDP leaves whole over every
-    rank, as FSDP2 averages those of its shards."""
-    grads = [p.grad for p in getattr(model, "replicated_params", ()) if p.grad is not None]
-    if not grads or not dist.is_initialized() or dist.get_world_size() == 1:
-        return
+def _all_reduce_into(grads, group, divide: int = 1) -> None:
+    """Sum the gradients `grads` over `group` in f32 (one collective),
+    divided by `divide`, in place."""
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=group)
+    if divide > 1:
+        flat /= divide
     start = 0
     for g in grads:
         g.copy_(flat[start:start + g.numel()].view_as(g))
         start += g.numel()
+
+
+def sync_replicated_grads(model: nn.Module) -> None:
+    """Average the gradients of the parameters FSDP leaves whole over the
+    ranks that hold other rows (every rank, or on a ('data', 'model') mesh
+    the data axis), as FSDP2 averages those of its shards; on a model axis
+    the partial gradients of the LoRA factors (`model.partial_params`) are
+    summed over it first."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    mesh = getattr(model, "fsdp_mesh", None)
+    tp = model_group(mesh)
+    partial = [p.grad for p in getattr(model, "partial_params", ()) if p.grad is not None]
+    if tp is not None and partial:
+        _all_reduce_into(partial, tp.group)
+    grads = [p.grad for p in getattr(model, "replicated_params", ()) if p.grad is not None]
+    group = data_group(mesh)
+    n = dist.get_world_size(group)
+    if grads and n > 1:
+        _all_reduce_into(grads, group, n)
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -195,12 +237,17 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
 
 def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
     """The whole state dict on the CPU, as a one-rank model's: every rank
-    must call it (the shards are gathered one tensor at a time); ranks
-    other than the first get an empty dict."""
+    must call it (the FSDP shards and the model slices, `tp.model_cuts`,
+    are gathered one tensor at a time); ranks other than the first get an
+    empty dict."""
     main = not dist.is_initialized() or dist.get_rank() == 0
+    cuts = model_cuts(module)
     out = {}
     for name, t in module.state_dict().items():
         t = full_tensor(t)
+        if name in cuts:
+            dim, tp = cuts[name]
+            t = gather_dim(t.detach(), tp, dim)
         if main:
             out[name] = t.detach().cpu()
     return out
@@ -219,23 +266,30 @@ def local_part(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def load_full_state_dict(module: nn.Module, state: Dict[str, Any]) -> None:
     """Load a whole state dict (every rank reads it) into a model, sharded
-    or not: each rank keeps its part. Keys must match exactly."""
+    or not: each rank keeps its part (its model slice, `tp.model_cuts`,
+    then its FSDP shard of that). Keys must match exactly."""
     own = module.state_dict()
     missing, extra = set(own) - set(state), set(state) - set(own)
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)[:5]}, "
                        f"unexpected {sorted(extra)[:5]}")
+    cuts = model_cuts(module)
     for name, t in own.items():
-        if tuple(state[name].shape) != tuple(t.shape):
-            raise ValueError(f"{name}: saved {tuple(state[name].shape)}, model "
-                             f"{tuple(t.shape)}")
-        part = local_part(state[name], t)
+        full, shape = state[name], list(t.shape)
+        if name in cuts:
+            shape[cuts[name][0]] *= cuts[name][1].size
+        if tuple(full.shape) != tuple(shape):
+            raise ValueError(f"{name}: saved {tuple(full.shape)}, model {tuple(shape)}")
+        if name in cuts:
+            full = slice_dim(full, cuts[name][1], cuts[name][0])
+        part = local_part(full, t)
         (t.to_local() if isinstance(t, DTensor) else t).copy_(part)
 
 
 def bytes_per_rank(model: nn.Module) -> Dict[str, int]:
-    """This rank's bytes of parameters (its shards, and the whole
-    replicated ones) and of buffers (whole)."""
+    """This rank's bytes of parameters (its shards of its model slices,
+    and the whole replicated ones) and of buffers (its slices of the
+    QLoRA bases, whole where they are not cut)."""
     def local(t):
         return t.to_local() if isinstance(t, DTensor) else t
 

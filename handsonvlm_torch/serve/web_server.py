@@ -312,7 +312,7 @@ def serve_web(controller_addr: str, host: str = "0.0.0.0", port: int = 7860,
             self.send_header("Content-Type", "application/octet-stream")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
-            tail = b""
+            tail, done = b"", False
             try:
                 while True:
                     # read1: at most one upstream chunk — read(n) would loop
@@ -329,13 +329,15 @@ def serve_web(controller_addr: str, host: str = "0.0.0.0", port: int = 7860,
                         tail = b"\0".join(parts[-2:])
                     self.wfile.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
                     self.wfile.flush()
-                self.wfile.write(b"0\r\n\r\n")
+                done = True
             except (BrokenPipeError, ConnectionResetError):
                 pass
             finally:
                 upstream.close()
             # log the finished conversation (reference logs per finished
-            # http_bot round); final worker chunk carries the full text
+            # http_bot round) before the stream's last chunk, so a client
+            # that has read the whole answer finds it logged; the final
+            # worker chunk carries the full text
             final = {}
             for part in tail.split(b"\0"):
                 if part.strip():
@@ -351,6 +353,11 @@ def serve_web(controller_addr: str, host: str = "0.0.0.0", port: int = 7860,
                 "text": final.get("text"),
                 "trajectory_valid": final.get("trajectory_valid"),
             })
+            if done:
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
 
     return ThreadingHTTPServer((host, port), Handler)
 

@@ -22,7 +22,12 @@ its rows' part, and returns its share of the loss (`forward`'s
 shares' gradients are summed over the ranks (FSDP2 averages, so the share
 is scaled by the rank count before the backward), the optimizer steps
 each rank's shards, and the metrics are the global batch's, summed over
-the ranks.
+the ranks. A mesh with a 'model' axis above 1 (the model cut by
+`parallel.tp.shard_for_training` before `shard_model`) also makes the step
+tensor parallel: the ranks of a model group take the same rows and run
+their slices of the decoder (`forward`'s `tp`), so the share is scaled by
+the data axis's size alone, the counts and the metrics are summed over the
+data axis, and `grad_norm` sums the slices' squares over the model group.
 
 `grad_norm` is the global norm of the trainable parameters' gradients, the
 norm the clip reads. Under LoRA it differs from the value the JAX package
@@ -59,16 +64,18 @@ def _on(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def loss_fn(model, cfg: HandsOnVLMConfig, batch: Dict, *, eps: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None, attn_impl: str = "auto",
-            remat=True, data_parallel: bool = False, seq=None):
+            remat=True, data_parallel: bool = False, seq=None, tp=None, data_group=None):
     """(loss, metrics) of the teacher-forced forward on `batch` (input_ids,
     attn_mask, image, labels, future_hands, future_valid; optionally
     frame_map, when `image` holds only the unique frames); with
-    `data_parallel` (and `seq`), this rank's share of them."""
+    `data_parallel` (and `seq`, `tp`), this rank's share of them, the
+    counts summed over `data_group`."""
     out = model(cfg, input_ids=batch["input_ids"], attn_mask=batch["attn_mask"],
                 images=batch["image"], labels=batch["labels"],
                 future_hands=batch["future_hands"], future_valid=batch["future_valid"],
                 eps=eps, generator=generator, attn_impl=attn_impl, remat=remat,
-                frame_map=batch.get("frame_map"), data_parallel=data_parallel, seq=seq)
+                frame_map=batch.get("frame_map"), data_parallel=data_parallel, seq=seq,
+                tp=tp, data_group=data_group)
     return out["loss"], {k: out[k] for k in METRICS}
 
 
@@ -104,13 +111,17 @@ def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", r
     optimizer step on `state` (in place; `state.step` advances). `rng` is
     an int seed; `eps` (B*2*4, latent) replaces the CVAE draws of the
     (global) batch. `mesh` makes the step data parallel over its 'data'
-    axis; `seq_mesh` (a mesh with a 'seq' axis, which then is the mesh)
-    runs the decoder's attention as ring attention over 'seq'."""
+    axis, and tensor parallel over its 'model' axis; `seq_mesh` (a mesh
+    with a 'seq' axis, which then is the mesh) runs the decoder's
+    attention as ring attention over 'seq'."""
     import torch.distributed as dist
 
+    from handsonvlm_torch.parallel.mesh import data_group, model_group
     from handsonvlm_torch.parallel.partition import is_sharded, sync_replicated_grads
+    from handsonvlm_torch.parallel.tp import tp_size
 
     mesh = seq_mesh if seq_mesh is not None else mesh
+    tp, group = model_group(mesh), data_group(mesh)
 
     def step(state: TrainState, batch: Dict, rng: int, *,
              eps: Optional[torch.Tensor] = None) -> Dict[str, float]:
@@ -132,11 +143,12 @@ def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", r
                 eps = draw_eps(model, cfg, batch["input_ids"].shape[0], generator)
             rows, eps = _local_rows(batch, torch.as_tensor(eps, device=device), mesh)
             loss, metrics = loss_fn(model, cfg, rows, eps=eps, attn_impl=attn_impl,
-                                    remat=remat, data_parallel=True, seq=seq_mesh)
-            (loss * world).backward()
+                                    remat=remat, data_parallel=True, seq=seq_mesh, tp=tp,
+                                    data_group=group)
+            (loss * (world // tp_size(tp))).backward()
             sync_replicated_grads(model)
             total = torch.stack([metrics[k].detach().float() for k in METRICS])
-            dist.all_reduce(total)
+            dist.all_reduce(total, group=group)
             metrics = dict(zip(METRICS, total))
         grad_norm = optimizer.step()
         state.step += 1

@@ -33,9 +33,18 @@ rank 0 logs the metrics and writes the checkpoints and artifacts, the
 whole state dicts a one-rank run writes, so either run resumes the other's.
 `--seq-parallel P` cuts the sequence over P ranks with ring attention
 (`parallel/ring_attention.py`), the remaining N / P ranks forming the data
-axis. `--model-axis` above 1 (tensor parallelism inside training, ROADMAP
-A11b) refuses with SystemExit, and so does `--eval-every` over several
-ranks (the evaluator decodes on one).
+axis. `--model-axis M` makes the mesh ('data', 'model') of N / M x M, as
+the JAX CLI's: each rank holds its Megatron cut of the decoder (dense or
+the QLoRA base) and of the adapters (`parallel/tp.shard_for_training`),
+FSDP2 shards those slices over the data axis, the M ranks of a model group
+take the same rows, and the checkpoints and adapter artifacts stay the
+whole one-rank state dicts. `--model-axis` with `--seq-parallel` above 1
+is refused, as the JAX mesh refuses it, and so is `--eval-every` over
+several ranks (the evaluator decodes on one).
+
+  torchrun --nproc-per-node 4 -m handsonvlm_torch.train.train --model-path random:7b \
+      --preset 7b --model-axis 2 --qlora int8_fused --lora-r 128 --synthetic 4 \
+      --samples-per-epoch 4 --batch-size 2 --max-steps 2 --output-dir ./runs/tp
 """
 
 from __future__ import annotations
@@ -68,7 +77,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup-ratio", type=float, default=0.03)
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--model-axis", type=int, default=1,
-                   help="tensor-parallel degree of training (waits for ROADMAP A11b)")
+                   help="tensor-parallel axis size (Megatron cuts of the decoder over a "
+                        "('data','model') mesh of the torchrun ranks)")
     p.add_argument("--seq-parallel", type=int, default=1,
                    help="sequence-parallel axis size (ring attention over a "
                         "('data','seq') mesh of the torchrun ranks)")
@@ -135,13 +145,12 @@ def _require_ek_layout(args, what: str) -> None:
 
 
 def _check_flags(args, world: int = 1) -> None:
-    if args.model_axis > 1:
-        raise SystemExit("--model-axis above 1 (tensor parallelism inside training) waits "
-                         "for ROADMAP A11b: train data / sequence parallel instead")
-    if world % args.seq_parallel:
-        raise SystemExit(f"--seq-parallel {args.seq_parallel} does not divide the {world} "
-                         "ranks of the launch")
-    data = world // args.seq_parallel
+    if args.model_axis > 1 and args.seq_parallel > 1:
+        raise SystemExit("seq and model axes are mutually exclusive")
+    for flag, n in (("--model-axis", args.model_axis), ("--seq-parallel", args.seq_parallel)):
+        if n < 1 or world % n:
+            raise SystemExit(f"{flag} {n} does not divide the {world} ranks of the launch")
+    data = world // (args.seq_parallel * args.model_axis)
     if args.batch_size % data:
         raise SystemExit(f"--batch-size {args.batch_size} is not divisible by the {data} "
                          "ranks of the 'data' axis")
@@ -237,8 +246,9 @@ def main(argv=None):
     from handsonvlm_torch.data.synthetic import SyntheticConversationDataset
     from handsonvlm_torch.infer.builder import load_pretrained_model
     from handsonvlm_torch.models import lora as lora_mod
-    from handsonvlm_torch.parallel.mesh import create_mesh
+    from handsonvlm_torch.parallel.mesh import create_mesh, model_group
     from handsonvlm_torch.parallel.partition import full_state_dict, shard_model
+    from handsonvlm_torch.parallel.tp import shard_for_training
     from handsonvlm_torch.train.loader import PrefetchLoader
     from handsonvlm_torch.train.step import make_train_step
     from handsonvlm_torch.train.train_state import (
@@ -274,7 +284,9 @@ def main(argv=None):
                        if child is not None and name != "projector")
     mesh = None
     if world > 1:
-        mesh = create_mesh(seq=args.seq_parallel, device=device.type)
+        mesh = create_mesh(model=args.model_axis, seq=args.seq_parallel, device=device.type)
+        if args.model_axis > 1:
+            shard_for_training(model, cfg, model_group(mesh))
         shard_model(model, mesh)
         if main_rank:
             print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over {world} "

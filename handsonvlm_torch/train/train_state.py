@@ -30,7 +30,12 @@ and its moments are DTensor shards: the update runs on each rank's local
 shard (it is elementwise), the clip's norm sums the shards' squares over
 the ranks, and `state_dict` / `load_state_dict` hold the whole moments, as
 a one-rank run saves them (every rank calls them; the first rank keeps
-them).
+them). Under tensor parallelism (`parallel/tp.shard_for_training`) a
+parameter cut over the model axis is this rank's slice, and so are its
+moments: the clip's norm sums the slices' squares over the model group
+(the parameters the group holds whole are counted once), and the moments
+are gathered to, and cut from, the whole ones as the parameter is
+(`make_optimizer` records the cuts, `AdamW.tp_cuts`).
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+from handsonvlm_torch.parallel.tp import gather_dim, slice_dim
 
 
 def cosine_schedule(base_lr: float, total_steps: int,
@@ -69,9 +76,22 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _square_sum(grads) -> torch.Tensor:
+def _square_sum(grads, groups=None) -> torch.Tensor:
     """The sum of the gradients' squares in f32; the shards of DTensor
-    gradients summed over the ranks that hold them."""
+    gradients summed over the ranks that hold them, and a gradient whose
+    entry of `groups` is a TPGroup (a model slice) summed over that group
+    as well."""
+    groups = groups or [None] * len(grads)
+    total = _fsdp_square_sum([g for g, tp in zip(grads, groups) if tp is None])
+    for tp in dict.fromkeys(tp for tp in groups if tp is not None):  # in order on every rank
+        part = _fsdp_square_sum([g for g, t in zip(grads, groups) if t == tp])
+        part = torch.as_tensor(part, dtype=torch.float32, device=grads[0].device)
+        dist.all_reduce(part, group=tp.group)
+        total = total + part
+    return total
+
+
+def _fsdp_square_sum(grads):
     plain = [g for g in grads if not isinstance(g, DTensor)]
     total = sum(g.float().square().sum() for g in plain)
     sharded = [g for g in grads if isinstance(g, DTensor)]
@@ -95,15 +115,18 @@ class CountedOptimizer(torch.optim.Optimizer):
     """An optimizer whose state is optax's: a step count (`self.count`, which
     the schedule reads) and each parameter's moments."""
 
+    tp_cuts: dict = {}  # parameter index -> (dimension, TPGroup) of a model slice
+
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
 
     def state_dict(self) -> dict:
         """The count and each parameter's moments (by its index over the
-        param groups), in their own dtypes, whole. A DTensor moment is
-        gathered one at a time and kept, on the CPU, by the first rank
-        alone (every rank calls this; the others get no such moment), so
-        that no card holds more than one whole moment at once."""
+        param groups), in their own dtypes, whole. A DTensor moment or the
+        moment of a model slice (`tp_cuts`) is gathered one at a time and
+        kept, on the CPU, by the first rank alone (every rank calls this;
+        the others get no such moment), so that no card holds more than
+        one whole moment at once."""
         main = not dist.is_initialized() or dist.get_rank() == 0
         state = {}
         for i, p in enumerate(self._params()):
@@ -111,8 +134,10 @@ class CountedOptimizer(torch.optim.Optimizer):
                 continue
             state[i] = {}
             for k, v in self.state[p].items():
-                if isinstance(v, DTensor):
-                    v = v.full_tensor()
+                if isinstance(v, DTensor) or i in self.tp_cuts:
+                    v = v.full_tensor() if isinstance(v, DTensor) else v
+                    if i in self.tp_cuts:
+                        v = gather_dim(v, self.tp_cuts[i][1], self.tp_cuts[i][0])
                     if not main:
                         continue
                     v = v.cpu()
@@ -127,6 +152,9 @@ class CountedOptimizer(torch.optim.Optimizer):
         params = self._params()
         for i, st in state_dict["state"].items():
             p = params[int(i)]
+            if int(i) in self.tp_cuts:  # this rank's slice of each whole moment
+                dim, tp = self.tp_cuts[int(i)]
+                st = {k: slice_dim(v, tp, dim) for k, v in st.items()}
             if any(v.shape != p.shape for v in st.values()):
                 raise ValueError(f"optimizer state {i}: shapes {[tuple(v.shape) for v in st.values()]} "
                                  f"do not fit the parameter {tuple(p.shape)}")
@@ -161,7 +189,9 @@ class AdamW(CountedOptimizer):
         pairs = [(p, g) for g in self.param_groups for p in g["params"] if p.grad is not None]
         if not pairs:
             raise RuntimeError("no parameter has a gradient")
-        norm = torch.sqrt(_square_sum([p.grad for p, _ in pairs]))
+        index = {id(p): i for i, p in enumerate(self._params())}
+        groups = [self.tp_cuts.get(index[id(p)], (None, None))[1] for p, _ in pairs]
+        norm = torch.sqrt(_square_sum([p.grad for p, _ in pairs], groups))
         clip = self.max_grad_norm is not None and bool(norm >= self.max_grad_norm)
         count = self.count + 1
         step_size = -np.float32(self.lr())
@@ -203,17 +233,26 @@ def make_optimizer(
     """Freeze the top-level modules named in `freeze_top_keys`
     (`requires_grad_(False)`), make the rest trainable, and return an
     `AdamW` with one param group per trainable module. `mu_dtype`
-    (torch.bfloat16) stores the first moment in bf16."""
-    groups = []
+    (torch.bfloat16) stores the first moment in bf16. The model slices of
+    a tensor-parallel model (`parallel.tp.model_cuts`) are recorded in
+    `AdamW.tp_cuts` by their index."""
+    from handsonvlm_torch.parallel.tp import model_cuts
+
+    cuts = model_cuts(model)
+    groups, tp_cuts = [], {}
     for name, child in model.named_children():
         if child is None:
             continue
         frozen = name in freeze_top_keys
         child.requires_grad_(not frozen)
-        params = [p for p in child.parameters() if p.requires_grad]
-        if params:
-            groups.append({"name": name, "params": params})
-    return AdamW(groups, learning_rate, weight_decay, b1, b2, eps, max_grad_norm, mu_dtype)
+        named = [(f"{name}.{n}", p) for n, p in child.named_parameters() if p.requires_grad]
+        start = sum(len(g["params"]) for g in groups)
+        tp_cuts.update({start + j: cuts[n] for j, (n, _) in enumerate(named) if n in cuts})
+        if named:
+            groups.append({"name": name, "params": [p for _, p in named]})
+    opt = AdamW(groups, learning_rate, weight_decay, b1, b2, eps, max_grad_norm, mu_dtype)
+    opt.tp_cuts = tp_cuts
+    return opt
 
 
 @dataclasses.dataclass

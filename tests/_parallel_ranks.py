@@ -186,3 +186,105 @@ def _step(rank, world, job):
     return {"metrics": metrics,
             "state": {k: v.numpy() for k, v in params.items() if k in names},
             "ranks": gather_metrics(np.asarray([rank]))}
+
+
+def tp_train_rank(rank: int, world: int, job: dict) -> dict:
+    """Tensor parallelism inside training on this rank: for each run of
+    `job["runs"]` ((data, model), mode, ...), the model `job["states"][mode]`
+    cut for this rank (`parallel.tp.shard_for_training`), FSDP2 over the
+    data axis, `len(job["eps"])` steps; then the checkpoint round trips and
+    the train CLI under `--model-axis` (`job["ckpt"]`, `job["argv"]`).
+    Returns every rank's results: per run the metrics, the whole trained
+    parameters (rank 0), this rank's gradients of the parameters its model
+    group holds whole and of its slices at the first step (gathered over
+    the data axis), the collectives a step."""
+    from handsonvlm_torch.parallel.mesh import create_mesh
+
+    torch.set_num_threads(1)
+    out = {"runs": {}}
+    for shape, mode in job["runs"]:
+        mesh = create_mesh(data=shape[0], model=shape[1], device="cpu")
+        out["runs"][(shape, mode)] = _tp_steps(job, mesh, mode)
+    if job.get("ckpt"):
+        out["ckpt"] = _tp_checkpoints(job)
+    if job.get("argv"):
+        from handsonvlm_torch.train import train
+
+        out["cli step"] = train.main(job["argv"]).step
+    return out
+
+
+def _tp_model(job, mode, mesh):
+    """The run's model cut for this rank and sharded, its optimizer and
+    train state."""
+    from handsonvlm_torch.infer.builder import build_model
+    from handsonvlm_torch.models.lora import LoRA
+    from handsonvlm_torch.parallel.mesh import model_group
+    from handsonvlm_torch.parallel.partition import shard_model
+    from handsonvlm_torch.parallel.tp import shard_for_training
+    from handsonvlm_torch.train.train_state import create_train_state, make_optimizer
+
+    cfg = job["cfg"]
+    model = build_model(cfg, "cpu", quantize=job["quant"][mode])
+    if mode != "sft":
+        model.lora = LoRA(cfg.llama, r=job["r"], alpha=2.0 * job["r"])
+    model.load_state_dict({k: _t(v) for k, v in job["states"][mode].items()})
+    tp = model_group(mesh)
+    if tp is not None:
+        shard_for_training(model, cfg, tp)
+    shard_model(model, mesh)
+    freeze = ("vision",) if mode == "sft" else ("vision", "llama")
+    opt = make_optimizer(model, learning_rate=job["lr"], freeze_top_keys=freeze)
+    return model, opt, create_train_state(model, opt)
+
+
+def _tp_steps(job, mesh, mode):
+    from handsonvlm_torch.parallel import tp as tp_mod
+    from handsonvlm_torch.parallel.mesh import model_group
+    from handsonvlm_torch.parallel.partition import full_state_dict, full_tensor
+    from handsonvlm_torch.train.step import make_train_step
+
+    model, opt, state = _tp_model(job, mode, mesh)
+    step = make_train_step(job["cfg"], opt, attn_impl="xla", mesh=mesh)
+    c0 = tp_mod.COLLECTIVES
+    metrics, grads = [], None
+    for e in job["eps"]:
+        metrics.append(step(state, job["batch"], 1, eps=_t(e)))
+        grads = grads or {name: full_tensor(p.grad).detach().numpy().copy()
+                          for name, p in model.named_parameters() if p.grad is not None}
+    collectives = (tp_mod.COLLECTIVES - c0) // len(job["eps"])
+    cuts = tp_mod.model_cuts(model)
+    params = full_state_dict(model)
+    names = {n for n, p in model.named_parameters() if p.requires_grad}
+    tp = model_group(mesh)
+    return {"metrics": metrics, "collectives": collectives,
+            "state": {k: v.numpy() for k, v in params.items() if k in names},
+            "grads": grads, "cuts": {k: d for k, (d, _) in cuts.items()},
+            "model rank": 0 if tp is None else tp.rank,
+            "data rank": mesh.get_local_rank("data"),
+            "layout": dataclasses.asdict(model.llama.tp_layout) if tp is not None else None}
+
+
+def _tp_checkpoints(job):
+    """The checkpoint round trips at (data=2, model=2): the run's trained
+    state saved (the one-rank layout), and a one-rank run's checkpoint
+    restored and gathered back."""
+    from handsonvlm_torch.core.checkpoint import restore_train_state, save_train_state
+    from handsonvlm_torch.parallel.mesh import create_mesh
+    from handsonvlm_torch.parallel.partition import full_state_dict
+    from handsonvlm_torch.train.step import make_train_step
+
+    out = {}
+    for mode, saved_dir, written_dir in job["ckpt"]:
+        mesh = create_mesh(data=2, model=2, device="cpu")
+        model, opt, state = _tp_model(job, mode, mesh)
+        step = make_train_step(job["cfg"], opt, attn_impl="xla", mesh=mesh)
+        for e in job["eps"]:
+            step(state, job["batch"], 1, eps=_t(e))
+        save_train_state(written_dir, state, state.step)
+        mine = full_state_dict(model), opt.state_dict()
+        model, opt, state = _tp_model(job, mode, mesh)
+        restore_train_state(saved_dir, state)
+        back = full_state_dict(model), opt.state_dict()
+        out[mode] = {"mine": mine, "back": back, "step": state.step}
+    return out

@@ -1821,3 +1821,104 @@ def test_decode_split_count_covers_the_card(kh, b):
     assert 1 <= n <= 8
     assert kh * b * n >= 2 * 132 or n == 8
     assert n == 1 or kh * b * (n - 1) < 2 * 132
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism inside training: the kernels on a rank's slices
+# ---------------------------------------------------------------------------
+
+
+def _slice(t, r, tp, dim):
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_flash_attention_on_a_head_slice(cuda, tp, dtype):
+    """B3 and B3b on each rank's H/tp heads (causal, 2048 rows, 8 heads of
+    128, GQA 2 kv heads a rank at tp = 2): the ranks' outputs and
+    gradients concatenated over the heads against the unsharded call, by
+    the attention and gradient rules."""
+    B, T, H, K, D = 1, 2048, 8, 4 if tp == 2 else 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(19 + tp)
+    q = torch.randn((B, T, H, D), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((B, T, K, D), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dy = torch.randn((B, T, H, D), generator=gen, device=cuda).to(dtype)
+
+    def run(q, k, v, dy):
+        q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+        out, _ = flash_attention(q, k, v, causal=True)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), dy))
+
+    want = run(q, k, v, dy)
+    before = (flash_attention.LAUNCHES, flash_attention_bwd.LAUNCHES)
+    parts = [run(*(_slice(x, r, tp, 2) for x in (q, k, v, dy))) for r in range(tp)]
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention_bwd.LAUNCHES) == (
+        before[0] + tp, before[1] + tp)
+    got = [torch.cat([p[i] for p in parts], dim=2) for i in range(4)]
+    torch.testing.assert_close(got[0].float(), want[0].float(), **CUDA_TOL[dtype])
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert_grad_close(g, w, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_down"])
+def test_int8_matmul_row_slices_summed(cuda, shape, tp):
+    """B9 (f32 out, 2048 rows) on each rank's input rows of a row-parallel
+    projection: the ranks' partial products summed against the unsharded
+    call, by the int8 rule."""
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 1, cuda, seed=tp)
+    x = torch.randn((2048, din), generator=torch.Generator(device=cuda).manual_seed(tp),
+                    device=cuda).to(torch.bfloat16)
+    before = int8_matmul.LAUNCHES
+    got = sum(int8_matmul(_slice(x, r, tp, 1), _slice(w8[0], r, tp, 0), sc[0])
+              for r in range(tp))
+    torch.cuda.synchronize()
+    assert int8_matmul.LAUNCHES == before + tp
+    assert_int4_close(got, int8_matmul(x, w8[0], sc[0]), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("shape", ["7b_wq", "7b_w_down"])
+def test_qlora_fused_row_slices_summed(cuda, shape, tp):
+    """B10a and B10b through the fused QLoRA front (r = 128) on each rank's
+    input rows of a row-parallel projection, its adapter's a cut alike:
+    the ranks' bf16 partial outputs summed (`assert_partials_close`), and
+    their dx (each the rank's rows of the whole dx) concatenated by the
+    int4 rule in bf16, against the unsharded call."""
+    din, dout = INT8_SHAPES[shape]
+    w8, sc = int8_weights(din, dout, 1, cuda, seed=tp + 5)
+    gen = torch.Generator(device=cuda).manual_seed(tp + 5)
+    x = torch.randn((2048, din), generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn((2048, dout), generator=gen, device=cuda).to(torch.bfloat16)
+    a = 0.02 * torch.randn((din, 128), generator=gen, device=cuda)
+    b = 0.02 * torch.randn((128, dout), generator=gen, device=cuda)
+
+    def run(x, w8, a):
+        xg = x.clone().requires_grad_()
+        y = int8_lora_matmul_stacked(xg, w8, sc, a, b, 2.0, 0)
+        return y.detach(), torch.autograd.grad(y, xg, dy)[0]
+
+    want = run(x, w8, a)
+    parts = [run(_slice(x, r, tp, 1), _slice(w8, r, tp, 1), _slice(a, r, tp, 0))
+             for r in range(tp)]
+    assert_partials_close([p[0] for p in parts], want[0])
+    assert_int4_close(torch.cat([p[1] for p in parts], dim=-1), want[1], torch.bfloat16)
+
+
+def assert_partials_close(parts, want):
+    """bf16 partial products (each rounded by its kernel) summed in f32
+    against the unsharded call: the int4 rule with one bf16 step for each
+    partial and for the whole (2^-7 x (sum |partial| + |want|)), as a
+    partial may exceed the sum."""
+    got = sum(p.float() for p in parts)
+    want = want.float()
+    bound = 2e-3 * want.abs().max() + 2.0 ** -7 * (sum(p.float().abs() for p in parts)
+                                                   + want.abs())
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())

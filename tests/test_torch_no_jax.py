@@ -460,13 +460,17 @@ def test_chip_smoke_parallel_phase_runs_without_jax():
     """chip_smoke's phase 19b at tiny on the CPU over 2 gloo ranks (the
     tensor-parallel decode in bf16 and int4 + kv8 against the unsharded
     run and its fp32 reference, the FSDP2 full-SFT steps, the ring step
-    against the one-card route; 4 new tokens where the card decodes 32),
-    then the dry run over 2 ranks. Neither jax nor the JAX package loaded
-    in the parent; each rank imports chip_smoke and the port alone."""
+    against the one-card route; 4 new tokens where the card decodes 32;
+    tensor parallelism inside training at (1, 2) in every mode against the
+    one-card step, and the train CLI with --model-axis 2 resumed in one
+    rank), then the dry run over 2 ranks, both kinds. Neither jax nor the
+    JAX package loaded in the parent; each rank imports chip_smoke and the
+    port alone."""
     code = ("import chip_smoke as cs\n"
             "from handsonvlm_torch.parallel import dryrun\n"
             "cs.phase_parallel(device='cpu', preset='tiny', ranks=2, rows=96, new_tokens=4)\n"
             "line = dryrun.dryrun(2, 'cpu')\n"
+            "line = dryrun.dryrun(2, 'cpu', 'tp-train')\n"
             "print('phase 19 ran')\n" + FORBIDDEN)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
@@ -475,7 +479,10 @@ def test_chip_smoke_parallel_phase_runs_without_jax():
     for line in ("19b bf16 tp=2: heads split True", "19b int4 + kv8: final hidden relative L2",
                  "19b FSDP step 1: loss", "19b FSDP step 0 against one card's",
                  "19b FSDP checkpoint gather", "19b adapter gradients",
-                 "dryrun_multichip ok: mesh=(2,1)", "tp_decode_tokens=4"):
+                 "dryrun_multichip ok: mesh=(2,1)", "tp_decode_tokens=4",
+                 "19b TP sft 1x2 step 0 against one card's", "19b TP int8_fused 1x2 step 1",
+                 "19b CLI resumed on one rank: resumed from step 2",
+                 "dryrun_multichip tp-train ok: mesh=(1, 2)"):
         assert line in proc.stdout, line
 
 

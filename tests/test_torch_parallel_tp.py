@@ -359,14 +359,28 @@ def test_tp_rules_follow_jax():
 
 
 def test_tp_refusals():
-    """What has no tensor-parallel route refuses: int8 weights (the JAX
-    package runs B9 replicated), a shard called without its group (or the
-    whole decoder with one), LoRA adapters on a dense shard."""
+    """What has no tensor-parallel route refuses: the per-projection flat
+    int4 leaves (the JAX package runs them replicated), a shard called
+    without its group (or the whole decoder with one), whole LoRA adapters
+    on a dense shard. The int8 leaves, refused before training took a
+    model axis, are cut by Megatron's rule: each rank's w8 and scales are
+    the matching slices of the whole decoder's."""
     model, cfg, _ = load_pretrained_model("random:tiny", "tiny", "cpu")
     int8 = copy.deepcopy(model)
     quantize_llama(int8.llama, cfg.llama)
+    whole = copy.deepcopy(int8.llama.proj)
+    shard_llama_tp(int8.llama, cfg.llama, 1, 2)
+    layout = int8.llama.tp_layout
+    assert layout.heads and layout.mlp and all(layout.int8.values()) and not layout.fallbacks
+    for name, w in whole.items():
+        col = name not in ("wo", "w_down")
+        dim = 2 if col else 1
+        n = w.w8.shape[dim] // 2
+        assert torch.equal(int8.llama.proj[name].w8, w.w8.narrow(dim, n, n)), name
+        assert torch.equal(int8.llama.proj[name].scale,
+                           w.scale[:, n:] if col else w.scale), name
     with pytest.raises(ValueError, match="no tensor-parallel route"):
-        shard_llama_tp(int8.llama, cfg.llama, 0, 2)
+        shard_llama_tp(Llama(cfg.llama, quantize="int4_proj"), cfg.llama, 0, 2)
     with pytest.raises(ValueError, match="not cut for rank"):
         check_layout(model.llama, TPGroup(0, 2))
     shard_llama_tp(model.llama, cfg.llama, 1, 2)

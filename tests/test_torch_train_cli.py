@@ -117,7 +117,7 @@ def test_cli_trains_saves_resumes(tmp_path, capsys, mode):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--model-axis", "2"], "A11b"),
+    (["--model-axis", "2", "--seq-parallel", "2"], "seq and model axes are mutually exclusive"),
     (["--seq-parallel", "2"], "does not divide the 1 ranks"),
     (["--eval-every", "5"], "EK validation set"),
     (["--qlora", "int8"], "requires --lora-r"),
