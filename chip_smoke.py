@@ -155,7 +155,19 @@ Phases (each prints its lines; the last line is the JSON status):
    (`--seq-parallel N`): LoRA r = 128 over the bf16 base on one sample of
    2048 x N rows, its adapters' gradients held by phase 4's rule against
    the same rows' flash route (B3 / B3b) on rank 0's card alone, the fp32
-   flash route the reference.
+   flash route the reference; (c) the train CLI's `--eval-every`: on one
+   card the steered 7B model's evaluation of 4 EK clips (`steer_to_hand`,
+   per-clip draws, n > 0, launches exact); on two cards or more, QLoRA
+   int8_fused r = 128 at (2, N/2) and full SFT at (1, N) (with
+   `phase_eval_parallel(every_base=True)` also LoRA r = 128, QLoRA int4
+   and int8 at (1, N)), each steered, cut and sharded for training: one
+   step, the sharded evaluation of 4 clips x 32 tokens
+   (`eval.evaluator.evaluate_sharded`; wall, tok/s a data group, eval copy
+   and peak GiB a rank, collectives a forward, launches exact on every
+   rank) against rank 0's one-card evaluation of the gathered state (each
+   clip's ids equal, its waypoints within EVAL_ABS; a planted wrong slice
+   must fail that rule), then the next step; then the train CLI under
+   torchrun with `--model-axis 2 --eval-every 1` (one `eval/*` line).
 
 Phase 13c runs B11 over the int4 model's 32 layers for one token (the JAX
 package's `tools/perf_fused_mlp.py` chain; no decoder takes B11), its
@@ -177,6 +189,7 @@ nvcc, and when any check fails: no phase catches its own failure.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import gc
@@ -199,7 +212,7 @@ import torch
 import torch.nn.functional as F
 
 from handsonvlm_torch.infer import sampler
-from handsonvlm_torch.infer.builder import build_model, load_pretrained_model
+from handsonvlm_torch.infer.builder import build_model, load_pretrained_model, quantize_model
 from handsonvlm_torch.config import get_config
 from handsonvlm_torch.constants import ACTION_QUESTION_TEMPLATES, IMAGE_TOKEN_INDEX
 from handsonvlm_torch.core.checkpoint import restore_train_state, save_artifact
@@ -207,7 +220,11 @@ from handsonvlm_torch.data import epic_constants, native_loader, video_io
 from handsonvlm_torch.data.action_sampler import sample_history_frames
 from handsonvlm_torch.data.native_lmdb import write_lmdb_pickled
 from handsonvlm_torch.eval import evaluate as evaluate_cli
-from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
+from handsonvlm_torch.eval.evaluator import (
+    InferenceEngine,
+    evaluate_epic_kitchen_traj,
+    evaluate_sharded,
+)
 from handsonvlm_torch.infer.chat import chat_turn, new_conversation, prompt_ids
 from handsonvlm_torch.infer.profile import random_video, train_batch
 from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint, embed_next_token
@@ -3847,7 +3864,8 @@ def phase_hoi_cli(device: str = "cuda", epochs: int = 2, extra=()) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 19: parallelism (tensor-parallel decode, FSDP2 training, the ring)
+# Phase 19: parallelism (tensor-parallel decode, FSDP2 training, the ring,
+# the evaluation over the ranks)
 # ---------------------------------------------------------------------------
 
 TP_SIZES = (2, 4)  # the groups phase 19a cuts the 7B shapes for, on one card
@@ -4784,11 +4802,11 @@ def _parallel_rank(rank: int, world: int, device: str = "cuda", preset: str = "7
 def phase_parallel(device: str = "cuda", preset: str = "7b", ranks: int = 0,
                    rows: int = TRAIN_ROWS, new_tokens: int = PAR_NEW_TOKENS) -> dict:
     """Phase 19: 19a on this card, then 19b over every card (`ranks`: that
-    many), one NCCL rank each (a rank that fails fails the phase). On the
-    CPU (`device="cpu"`, gloo ranks, a small `preset`, `rows` and
-    `new_tokens`) 19b alone
-    runs, its kernels' plain versions in place of the kernels. Returns rank
-    0's launches of 19b's runs."""
+    many), one NCCL rank each (a rank that fails fails the phase), then 19c
+    (over the ranks when they are two or more and even, else on one). On
+    the CPU (`device="cpu"`, gloo ranks, a small `preset`, `rows` and
+    `new_tokens`) 19b and 19c run, their kernels' plain versions in place
+    of the kernels. Returns rank 0's launches of 19b's and 19c's runs."""
     if device == "cuda":
         log("phase 19a: the tensor-parallel shards at 7B's shapes, rank by rank on one card")
         t0 = time.perf_counter()
@@ -4809,6 +4827,20 @@ def phase_parallel(device: str = "cuda", preset: str = "7b", ranks: int = 0,
     log(f"  phase 19b wall {time.perf_counter() - t0:.2f} s")
     if n > 1 and n % 2 == 0:
         phase_tp_cli(n, device, preset)
+    t0 = time.perf_counter()
+    if n > 1 and n % 2 == 0:
+        log(f"phase 19c: the train CLI's --eval-every over {n} ranks: {preset} steered, "
+            f"QLoRA int8_fused and full SFT cut over ('data', 'model') meshes, one step, the "
+            f"sharded evaluation of {EVAL_CLIPS} EK clips against one card's, the next step; "
+            "then the CLI under torchrun with --model-axis 2 --eval-every 1")
+        counts = phase_eval_parallel(n, device, preset, rows, new_tokens)
+    else:
+        log(f"phase 19c on one card: the one-rank evaluation of the steered {preset} model, "
+            f"{EVAL_CLIPS} EK clips, per-clip draws")
+        counts = phase_eval_one_card(device, preset, new_tokens)
+    log(f"  phase 19c wall {time.perf_counter() - t0:.2f} s")
+    for k, v in counts.items():
+        launches[k] += v
     return launches
 
 
@@ -4840,6 +4872,431 @@ def phase_tp_cli(n: int, device: str = "cuda", preset: str = "7b") -> None:
     finally:
         shutil.rmtree(out, ignore_errors=True)
         _free(torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# phase 19c: the train CLI's --eval-every over several ranks
+# ---------------------------------------------------------------------------
+
+EVAL_CLIPS, EVAL_SEED = 4, 19  # the clips 19c decodes and its draws' seed
+# the head's steering (steer_to_hand): every token's embedding holds
+# STEER_C on residual coordinate 0, which no layer writes, and the head
+# reads it alone with weight +STEER_U for <hand_traj>, -STEER_U for the rest
+STEER_C, STEER_U = 16.0, 64.0
+EVAL_REL = 2e-2  # 19c's ADE / FDE / WDE against the one-card evaluation, relative
+# 19c's waypoints (every clip's pred_samples) against the one-card
+# evaluation, max abs, by device: above the readings of sound runs (bf16
+# on the card, fp32 in the CPU rehearsal), below those of the planted
+# fault (`_slice_fault`; the readings in PERF.md §6)
+EVAL_ABS = {"cuda": 0.1, "cpu": 1e-4}
+
+
+def eval_runs(world: int, every_base: bool = False) -> list:
+    """19c's runs: full SFT at (1, N) and QLoRA int8_fused r = 128 at (2,
+    N/2); with `every_base` also LoRA r = 128 over bf16 and QLoRA int4 /
+    int8 at (1, N), for each base's memory."""
+    return ([("sft", (1, world)), ("int8_fused", (2, world // 2) if world >= 4 else (world, 1))]
+            + [(mode, (1, world)) for mode in ("lora", "int4", "int8") if every_base])
+
+
+@torch.no_grad()
+def steer_to_hand(model, cfg) -> None:
+    """Make a dense random model answer <hand_traj> at every step, whatever
+    its weights elsewhere (quantize it after): the output row 0 of every o
+    / down projection is zeroed, so no layer writes residual coordinate 0,
+    which every token's embedding sets to STEER_C; the head reads that
+    coordinate alone, +STEER_U for <hand_traj> and -STEER_U for every other
+    token, so at every position <hand_traj> leads by 2 STEER_U x the final
+    hidden's coordinate 0 (STEER_C over the residual's rms, plus the hand
+    token's coordinate encoding, within +-1). Adapters attached later keep
+    the rule with `steer_adapters`."""
+    for lp in model.llama.layers:
+        lp.self_attn.o_proj.weight[0].zero_()
+        lp.mlp.down_proj.weight[0].zero_()
+    model.llama.embed_tokens.weight[:, 0] = STEER_C
+    head = model.llama.lm_head.weight
+    head.zero_()
+    head[:, 0] = -STEER_U
+    head[cfg.hand_token_id, 0] = STEER_U
+
+
+@torch.no_grad()
+def steer_adapters(lora) -> None:
+    """The o / down adapters' output column 0 zeroed (`steer_to_hand`'s rule)."""
+    for name in ("wo", "w_down"):
+        lora.adapters[name].b[..., 0] = 0.0
+
+
+def _eval_preset(preset: str) -> str:
+    """The EK layout's frames are 224 px: the tiny rehearsal takes tiny224."""
+    return "tiny224" if preset == "tiny" else preset
+
+
+def _ek_dataset(root: str, tokenizer):
+    """The EK100 validation clips of the layout under `root` (the train
+    CLI's `--eval-every` dataset)."""
+    from handsonvlm_torch.data.epic_dataset import EpicConversationDataset
+    from handsonvlm_torch.data.epic_structures import get_epic_hoi_dataset_by_name
+
+    os.environ["HANDSONVLM_DATA_ROOT"] = root
+    os.environ["HANDSONVLM_ASSETS_DIR"] = os.path.join(root, "assets")
+    hoi = get_epic_hoi_dataset_by_name("ek100", "validation", load_images=True,
+                                       rephrase_rate=0.0, use_percentage=1.0)
+    return EpicConversationDataset(tokenizer, hoi, deterministic=True)
+
+
+def _eval_launches(cfg, mode, prefills: int, decode_steps: int) -> dict:
+    """A rank's launches of an evaluation that made `prefills` prefills and
+    `decode_steps` decode steps: B2 once a CLIP layer a prefill, B1 once a
+    layer a decode step over the rank's heads; by the base, on the rank's
+    slices (or whole where the cut leaves it whole), B10a (int8_fused) or
+    B9 (int8) once a projection a layer a forward, B4b once a fused int4
+    projection a layer a decode step and B5b a prefill (the prompts stay
+    under FLASH_MIN_T: no B3)."""
+    n_layers = cfg.llama.num_layers
+    want = {"vit_attention": (cfg.vision.num_layers + cfg.vision.select_layer + 1) * prefills,
+            "decode_attention_stacked": n_layers * decode_steps}
+    if mode == "int8_fused":
+        want["int8_stacked_fwd"] = 7 * n_layers * (prefills + decode_steps)
+    if mode == "int8":
+        want["int8_matmul"] = 7 * n_layers * (prefills + decode_steps)
+    if mode == "int4":
+        want["int4_gemv_tiled"] = 4 * n_layers * decode_steps
+        want["int4_matmul_prefill_tiled"] = 4 * n_layers * prefills
+    return {k: v for k, v in want.items() if v}
+
+
+def _timed_eval(label, model, cfg, tokenizer, dataset, mesh, new_tokens, device, mode,
+                rank=0, groups=1, say=log) -> dict:
+    """One evaluation of EVAL_CLIPS clips at `new_tokens` (every rank of
+    `mesh` calls it; the records gathered on every rank): wall, decode
+    tok/s of this rank's group, peak GiB, collectives a forward, launches
+    exact against the forwards this rank's group made."""
+    from handsonvlm_torch.parallel import tp as tp_mod
+    from handsonvlm_torch.parallel.tp import tp_size
+    from torch.distributed.tensor import DTensor
+
+    tp = model_group(mesh)
+    group = rank // tp_size(tp)
+    # what eval_model allocates: the FSDP-sharded parameters whole over 'data'
+    copy = sum(p.numel() * p.element_size() for p in model.parameters()
+               if isinstance(p, DTensor))
+    reset_launches()
+    _reset_peak(device)
+    c0 = tp_mod.COLLECTIVES
+    t0 = time.perf_counter()
+    res = evaluate_sharded(model, cfg, tokenizer, dataset, mesh, seed=EVAL_SEED,
+                           limit=EVAL_CLIPS, max_new_tokens=new_tokens)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    peak = _peak_gib(device)
+    counts = {k: v for k, v in read_launches().items() if v}
+    mine = [v for i, v in res["val_info"].items() if i % groups == group]
+    prefills = len(mine)
+    tokens = sum(int(v["num_tokens"]) for v in mine)
+    steps = tokens - prefills
+    per_fwd = (tp_mod.COLLECTIVES - c0) / max(prefills + steps, 1)
+    hand = sum(int((np.asarray(v["gen_ids"]) == cfg.hand_token_id).sum())
+               for v in res["val_info"].values())
+    every = sum(len(v["gen_ids"]) for v in res["val_info"].values())
+    say(f"  {label}: {len(res['val_info'])} clips x {new_tokens} new tokens over {groups} eval "
+        f"group(s), n={res['n']} with a trajectory, ADE {res['ade']:.6f} FDE {res['fde']:.6f} "
+        f"WDE {res['wde']:.6f}, <hand_traj> {hand} of {every} tokens; wall {wall:.3f} s, "
+        f"decode {tokens / wall:.2f} tok/s a group ({prefills} clips, {tokens} tokens on rank {rank}'s group), peak {peak:.3f} GiB a "
+        f"rank, eval copy {copy / 2**30:.3f} GiB a rank, {per_fwd:.1f} collectives a forward "
+        f"(prefills included); launches {counts}")
+    want = _eval_launches(cfg, mode, prefills, steps)
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"{label}: rank {rank} launches {counts}, expected {want}")
+    return res
+
+
+def _steered_model(mode: str, preset: str, device):
+    """19c's model: `random:<preset>` steered to <hand_traj>, then
+    quantized for QLoRA (`TP_TRAIN_QUANT`, as the builder quantizes it) and,
+    but under full SFT, LoRA r = 128 with b ~ 0.02 N(0, 1)."""
+    model, cfg, tokenizer = load_pretrained_model(f"random:{preset}", preset, device)
+    steer_to_hand(model, cfg)
+    quantize_model(model, cfg, TP_TRAIN_QUANT[mode])
+    if mode != "sft":
+        r = LORA_R if preset == "7b" else 2
+        gen = torch.Generator(device=device).manual_seed(1)
+        model.lora = init_lora(gen, cfg.llama, r, 2.0 * r, device=device)
+        with torch.no_grad():
+            for ad in model.lora.adapters.values():
+                ad.b.normal_(0.0, 0.02, generator=gen)
+        steer_adapters(model.lora)
+    return model, cfg, tokenizer
+
+
+def _eval_gap(got, want) -> tuple:
+    """(clips whose generated ids differ, the waypoints' max abs gap over
+    every clip's samples, ADE / FDE / WDE relative gaps) of two
+    evaluations of the same clips."""
+    if list(got["val_info"]) != list(want["val_info"]):
+        raise AssertionError(f"clips {list(got['val_info'])} against {list(want['val_info'])}")
+    ids = [i for i, w in want["val_info"].items()
+           if not np.array_equal(got["val_info"][i]["gen_ids"], w["gen_ids"])]
+    gap = max(float(np.abs(got["val_info"][i]["pred_samples"] - w["pred_samples"]).max())
+              for i, w in want["val_info"].items())
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("ade", "fde", "wde")}
+    return ids, gap, rel
+
+
+def _eval_held(label, got, want, limit, say) -> str | None:
+    """19c's rule: the same n (> 0), every clip's generated ids equal, its
+    waypoints within `limit` (EVAL_ABS), ADE / FDE / WDE within EVAL_REL.
+    Returns what failed (the caller raises it once its control has
+    printed), or None."""
+    ids, gap, rel = _eval_gap(got, want)
+    say(f"  {label} against one card's evaluation of the whole state: n {got['n']} / "
+        f"{want['n']}, clips with other ids {ids}, waypoints max abs {gap:.3e} (limit "
+        f"{limit:.0e}), " + ", ".join(f"{k} rel {v:.3e}" for k, v in rel.items())
+        + f" (limit {EVAL_REL:.0e})")
+    if not (got["n"] == want["n"] > 0 and not ids and gap <= limit
+            and all(v <= EVAL_REL for v in rel.values())):
+        return f"{label}: the sharded evaluation departs from one card's"
+    return None
+
+
+@contextlib.contextmanager
+def _slice_fault(model, rank: int):
+    """19c's control: within it, rank 1 of a model group that is the world
+    holds rank 0's slices of a dense cut decoder (a cut made for the wrong
+    rank; the FSDP shards over a 'data' axis of one are the whole slices);
+    its own slices are put back after. Every rank enters it."""
+    import torch.distributed as dist
+
+    with torch.no_grad():
+        slices = [model.llama.get_parameter(k).to_local() for k in model.llama.tp_cuts]
+        kept = [t.clone() for t in slices]
+        for t in slices:
+            first = t.clone()
+            dist.broadcast(first, src=0)
+            if rank == 1:
+                t.copy_(first)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, k in zip(slices, kept):
+                t.copy_(k)
+
+
+def _tp_eval(rank: int, world: int, device, preset, rows: int, mode: str, shape, root: str,
+             new_tokens: int) -> dict:
+    """19c: one run of the train CLI's evaluation over several ranks. The
+    steered model (`_steered_model`); rank 0 first runs the unsharded steps
+    0 and 1 on its card alone (`_one_card_steps`). Then every rank cuts its
+    slices on a ('data', 'model') mesh of `shape`, FSDP2 shards them, and
+    the run takes step 0 (held to the one-card step as 19b holds it); the
+    whole state after it goes to rank 0's card, whose evaluation of it is
+    the reference; then the sharded evaluation (`evaluate_sharded`: the
+    clips split over the data groups, each on its model group's slices,
+    launches exact on every rank: `_eval_held` against the reference);
+    under full SFT at (1, N) the control, the evaluation again with a
+    wrong slice planted (`_slice_fault`), which the rule must refuse,
+    the slices put back; and step 1 (its loss within FSDP_LOSS1_RTOL of
+    the one-card step 1: neither evaluation left the training state
+    altered). Returns the rank's launches of the sharded evaluation."""
+    import torch.distributed as dist
+
+    from handsonvlm_torch.parallel.partition import full_state_dict
+
+    say = _say(rank)
+    label = f"19c {mode} {shape[0]}x{shape[1]}"
+    model, cfg, tokenizer = _steered_model(mode, preset, device)
+    dataset = _ek_dataset(root, tokenizer)
+    freeze = ("vision",) if mode == "sft" else ("vision", "llama")
+    # the tiny224 rehearsal's frames take 356 rows: its samples are longer
+    batch = _rows_batch(cfg, shape[0], max(rows, cfg.num_visual_tokens + 64))
+    eps = [draw_eps(model, cfg, shape[0], step_generator(0, i, device)) for i in range(2)]
+    if rank == 0:  # the reference updates its trainable weights: they are put back
+        kept = {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.split(".")[0] not in freeze + ("llama",)}
+        ref = _one_card_steps(model, cfg, batch, *eps, freeze=freeze)
+        if mode == "sft":  # the whole decoder trained: the model is built again
+            del model
+            _free(device)
+            model, _, _ = _steered_model(mode, preset, device)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in kept:
+                    p.copy_(kept[n])
+        del kept
+        model.zero_grad(set_to_none=True)
+        _free(device)
+    if dist.is_initialized():
+        dist.barrier()
+    mesh = create_mesh(data=shape[0], model=shape[1], device=device.type)
+    if model_group(mesh) is not None:
+        shard_for_training(model, cfg, model_group(mesh))
+    shard_model(model, mesh)
+    _free(device)
+    opt = make_optimizer(model, TRAIN_LR, freeze_top_keys=freeze)
+    state = create_train_state(model, opt)
+    step = make_train_step(cfg, opt, attn_impl="auto", remat="full", mesh=mesh)
+    launches = {}
+    for i in range(2):
+        m = step(state, batch, 0, eps=eps[i])
+        _sync(device)
+        if rank == 0:
+            checks = [("loss", m["loss"], ref[2 * i], FSDP_LOSS1_RTOL if i else FSDP_LOSS_RTOL)]
+            if i == 0:
+                checks.append(("grad_norm", m["grad_norm"], ref[1], FSDP_NORM_RTOL))
+            say(f"  {label} step {i}{' (after the evaluation)' if i else ''} against one "
+                f"card's: " + ", ".join(
+                    f"{k} {v:.6f} / {r_:.6f} (rel {abs(v - r_) / abs(r_):.3e}, limit {t:.0e})"
+                    for k, v, r_, t in checks))
+            if any(abs(v - r_) > t * abs(r_) for _, v, r_, t in checks):
+                raise AssertionError(f"{label}: step {i} departs from the one-card reference")
+        if i:
+            break
+        whole = full_state_dict(model)
+        if rank == 0:  # the reference: one card's evaluation of the whole state
+            one = build_model(cfg, device, quantize=TP_TRAIN_QUANT[mode])
+            if mode != "sft":
+                one.lora = LoRA(cfg.llama, r=model.lora.adapters["wq"].a.shape[-1],
+                                device=device)
+            one.load_state_dict(whole)
+            del whole
+            ref_eval = _timed_eval(f"{label} one-card reference", one, cfg, tokenizer,
+                                   dataset, None, new_tokens, device, mode, say=say)
+            del one
+        else:
+            del whole
+        _free(device)
+        if dist.is_initialized():
+            dist.barrier()
+        res = _timed_eval(label, model, cfg, tokenizer, dataset, mesh, new_tokens, device,
+                          mode, rank, world // shape[1], say)
+        launches = read_launches()
+        held = _eval_held(label, res, ref_eval, EVAL_ABS[device.type], say) if rank == 0 \
+            else None
+        if mode == "sft" and shape[0] == 1:  # the control: a wrong slice fails the rule
+            with _slice_fault(model, rank):
+                bad = evaluate_sharded(model, cfg, tokenizer, dataset, mesh, seed=EVAL_SEED,
+                                       limit=EVAL_CLIPS, max_new_tokens=new_tokens)
+            if rank == 0:
+                ids, gap, rel = _eval_gap(bad, ref_eval)
+                say(f"  {label} planted fault (rank 1 on rank 0's slices) against one card's: "
+                    f"n {bad['n']}, clips with other ids {ids}, waypoints max abs {gap:.3e}, "
+                    + ", ".join(f"{k} rel {v:.3e}" for k, v in rel.items()))
+                if not ids and gap <= EVAL_ABS[device.type]:
+                    raise AssertionError(f"{label}: 19c's rule passes a wrong slice")
+        if held:
+            raise AssertionError(held)
+    if dist.is_initialized():
+        dist.barrier()
+    del model, opt, state
+    _free(device)
+    return launches
+
+
+def _eval_rank(rank: int, world: int, device: str, preset: str, rows: int, root: str,
+               new_tokens: int, every_base: bool = False) -> dict:
+    """One rank of phase 19c; returns its launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device(device)
+    if device.type == "cpu":  # the rehearsal's gloo ranks share the host's cores
+        torch.set_num_threads(1)
+    launches = {name: 0 for name in WRAPPERS}
+    for mode, shape in eval_runs(world, every_base):
+        t0 = time.perf_counter()
+        for k, v in _tp_eval(rank, world, device, _eval_preset(preset), rows, mode, shape,
+                             root, new_tokens).items():
+            launches[k] += v
+        _say(rank)(f"  19c {mode} {shape[0]}x{shape[1]} wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def _with_ek_layout(fn):
+    """Run fn(root) over an EK100 layout (write_ek_fixture, EVAL_CLIPS
+    validation clips) in a temporary directory, removed after, with the
+    data-root variables put back."""
+    root = tempfile.mkdtemp(prefix="handsonvlm_ek_")
+    env = {k: os.environ.get(k) for k in ("HANDSONVLM_DATA_ROOT", "HANDSONVLM_ASSETS_DIR")}
+    try:
+        write_ek_fixture(root, n_val=EVAL_CLIPS)
+        return fn(root)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_eval_parallel(n: int, device: str = "cuda", preset: str = "7b",
+                        rows: int = TRAIN_ROWS, new_tokens: int = PAR_NEW_TOKENS,
+                        every_base: bool = False) -> dict:
+    """19c: the train CLI's evaluation over `n` ranks (one NCCL rank a
+    card), `eval_runs(n, every_base)` (`_tp_eval`) over the EK layout, then
+    the train CLI itself under torchrun (`_torchrun_eval_cli`). Returns
+    rank 0's launches of the sharded evaluations."""
+    t0 = time.perf_counter()
+
+    def run(root):
+        launches = spawn(_eval_rank, n, device, preset, rows, root, new_tokens, every_base,
+                         device=device, timeout=1200)[0]
+        log(f"  19c runs wall {time.perf_counter() - t0:.2f} s")
+        _torchrun_eval_cli(n, device, _eval_preset(preset), root)
+        return launches
+
+    return _with_ek_layout(run)
+
+
+def _torchrun_eval_cli(n: int, device: str, preset: str, root: str) -> None:
+    """19c CLI: `torchrun --nproc-per-node n -m handsonvlm_torch.train.train`
+    with `--model-axis 2 --eval-every 1 --eval-samples 4` (QLoRA int8_fused,
+    one step over --synthetic) over the EK layout `root`: it must print one
+    `eval/*` line (the random head is not steered: n may be 0)."""
+    out = tempfile.mkdtemp(prefix="hv_eval_cli_")
+    try:
+        argv = tp_cli_argv(preset, out, 1, n // 2, device) + [
+            "--model-axis", "2", "--eval-every", "1", "--eval-samples", str(EVAL_CLIPS)]
+        env = dict(os.environ, HANDSONVLM_DATA_ROOT=root,
+                   HANDSONVLM_ASSETS_DIR=os.path.join(root, "assets"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", str(n), "-m", "handsonvlm_torch.train.train",
+                               *argv], env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        evals = [m for m in lines if "eval/n" in m]
+        log(f"  19c CLI under torchrun, {n} ranks, --model-axis 2 --eval-every 1 --eval-samples "
+            f"{EVAL_CLIPS}: exit {proc.returncode}, wall {wall:.2f} s (model build, step, "
+            f"evaluation, checkpoint); eval lines {evals}")
+        if proc.returncode != 0 or len(evals) != 1:
+            raise AssertionError("19c CLI: torchrun run failed or printed other than one eval "
+                                 f"line\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_eval_one_card(device: str = "cuda", preset: str = "7b",
+                        new_tokens: int = PAR_NEW_TOKENS) -> dict:
+    """19c on one card: the one-rank evaluation of the steered bf16 model
+    (`random:<preset>`) over the EK layout, per-clip draws, n > 0, scores
+    finite, launches exact."""
+    device = torch.device(device)
+    preset = _eval_preset(preset)
+
+    def run(root):
+        model, cfg, tokenizer = _steered_model("sft", preset, device)
+        res = _timed_eval("19c one card (bf16, steered)", model, cfg, tokenizer,
+                          _ek_dataset(root, tokenizer), None, new_tokens, device, "sft")
+        launches = read_launches()
+        if not (res["n"] > 0 and all(np.isfinite(res[k]) for k in ("ade", "fde", "wde"))):
+            raise AssertionError(f"19c one card: n {res['n']}, scores {res}")
+        del model
+        _free(device)
+        return launches
+
+    return _with_ek_layout(run)
 
 
 def model_bytes(model) -> int:

@@ -11,10 +11,13 @@ draws (`route_draws(rng, np_rng)`, which each dataset family of the mixture
 defines over the generators it holds) to `THREAD_RNG` / `THREAD_NP_RNG`,
 which forward each draw to the generators of the item the calling thread is
 making. An item's generators come from its dataset's seed and the item's
-call number, taken under a lock: item n of a dataset is the same in every
-run with that seed and start step, whichever thread makes it. So two runs
-with one seed draw the same multiset of items, and a run resumed at step k
-draws new ones.
+key: its place in the run, (step, position in the global batch), which
+`PrefetchLoader` sets for the thread that makes it (`keyed`), or outside a
+loader its call number, taken under a lock. So an item is the same in every
+run and on every rank with that seed and start step, whichever thread makes
+it: the ranks of a tensor-parallel group, which each draw the global batch,
+take the same rows, two runs with one seed draw the same batches, and a run
+resumed at step k draws new ones.
 
 (The JAX package draws every item from a fresh `np.random.RandomState()`,
 so its runs never repeat; the port's streams repeat only for one seed and
@@ -23,9 +26,10 @@ start step.)
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -50,6 +54,24 @@ THREAD_RNG = _ThreadGenerator(0)
 THREAD_NP_RNG = _ThreadGenerator(1)
 
 
+def item_key() -> Optional[Tuple[int, ...]]:
+    """The key of the item the calling thread is making (`keyed`), None
+    outside a loader."""
+    return getattr(_LOCAL, "key", None)
+
+
+@contextlib.contextmanager
+def keyed(key: Tuple[int, ...]):
+    """Make the items read inside the block under `key` (the loader's
+    (step, position in the global batch))."""
+    prev = item_key()
+    _LOCAL.key = tuple(key)
+    try:
+        yield
+    finally:
+        _LOCAL.key = prev
+
+
 def item_generators(seq: np.random.SeedSequence) -> Tuple[random.Random, np.random.Generator]:
     """The (random.Random, np.random.Generator) pair of one seed sequence."""
     return (random.Random(int.from_bytes(seq.generate_state(4).tobytes(), "little")),
@@ -58,8 +80,8 @@ def item_generators(seq: np.random.SeedSequence) -> Tuple[random.Random, np.rand
 
 class ItemSeeds:
     """A seed sequence and a call counter: each `next_sequence()` call
-    takes the next call number under a lock and returns its child
-    sequence."""
+    returns the child sequence of the calling thread's item key, or
+    without one of the next call number, taken under a lock."""
 
     def __init__(self, seq: np.random.SeedSequence):
         self.seq = seq
@@ -67,10 +89,12 @@ class ItemSeeds:
         self._calls = 0
 
     def next_sequence(self) -> np.random.SeedSequence:
-        with self._lock:
-            n = self._calls
-            self._calls += 1
-        return np.random.SeedSequence(self.seq.entropy, spawn_key=self.seq.spawn_key + (n,))
+        key = item_key()
+        if key is None:
+            with self._lock:
+                key = (self._calls,)
+                self._calls += 1
+        return np.random.SeedSequence(self.seq.entropy, spawn_key=self.seq.spawn_key + key)
 
 
 class SeededDataset:

@@ -6,7 +6,10 @@ EK conversation datasets (input_ids, labels, an image of the config's
 the whole training CLI (loader, collator, train step, checkpoints,
 artifacts) runs anywhere. The draws are the JAX package's: each sample
 seeds a numpy generator from numpy's global state, so the same global seed
-gives the same arrays in both packages.
+gives the same arrays in both packages; an item the loader makes under a
+key (`data/draws.keyed`: its step and place in the global batch) seeds it
+from (`seed`, key) instead, so every rank and every run draws the same
+batches.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from handsonvlm_torch.constants import (
     GENERAL_TRAJECTORY_ANSWER_TEMPLATES,
     HAND_TOKEN_TEMPLATE,
 )
+from handsonvlm_torch.data.draws import item_key
 from handsonvlm_torch.data.tokenization import preprocess_multimodal, preprocess_v1
 
 _NOUNS = ["fridge", "pan", "cupboard", "kettle", "tap", "plate", "knife", "onion"]
@@ -39,7 +43,9 @@ class SyntheticConversationDataset:
         return self.n
 
     def __getitem__(self, _: int):
-        rng = np.random.default_rng(np.random.randint(0, 2**31))
+        key = item_key()
+        rng = np.random.default_rng(np.random.randint(0, 2**31) if key is None
+                                    else np.random.SeedSequence(self.seed, spawn_key=key))
         narration = f"{rng.choice(_VERBS)} the {rng.choice(_NOUNS)}"
         question = str(rng.choice(ACTION_QUESTION_TEMPLATES)).format(narration)
         answer = str(rng.choice(GENERAL_TRAJECTORY_ANSWER_TEMPLATES)).format(

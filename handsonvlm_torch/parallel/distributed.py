@@ -4,7 +4,9 @@ Port of `handsonvlm_tpu/parallel/distributed.py`: the JAX package calls
 `jax.distributed.initialize()` and gathers eval metrics with
 `process_allgather`; here `initialize` starts the `torch.distributed`
 default group (NCCL on the card, gloo on the CPU) from torchrun's
-environment or from explicit arguments, and `gather_metrics` all-gathers.
+environment or from explicit arguments, and `gather_metrics` all-gathers;
+`gather_records` collects per-clip evaluation records the ranks hold in
+unequal numbers.
 
 An NCCL initialisation that fails raises: there is no gloo fallback on a
 card. `spawn` starts N ranks of a function on this machine (the tests,
@@ -96,6 +98,23 @@ def gather_metrics(tree: Any) -> Any:
         return torch.cat(parts).cpu().numpy()
 
     return _map(gather, tree)
+
+
+def gather_records(records: dict) -> dict:
+    """Merge the ranks' per-clip records ({clip index: picklable record},
+    in unequal numbers a rank, so pickled rather than `gather_metrics`'
+    equal shapes) into one dict in clip order, on every rank. The ranks
+    hold disjoint clips. One process: `records` in clip order."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return dict(sorted(records.items()))
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, records)
+    merged: dict = {}
+    for part in parts:
+        if merged.keys() & part.keys():
+            raise ValueError(f"clips {sorted(merged.keys() & part.keys())} held by two ranks")
+        merged.update(part)
+    return dict(sorted(merged.items()))
 
 
 def _map(fn, tree):

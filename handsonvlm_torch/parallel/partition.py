@@ -39,6 +39,15 @@ and the whole state dict a one-rank run saves (FSDP shards gathered over
 `data`, model slices over `model`, one tensor at a time), so a checkpoint
 written by N ranks resumes in one and the other way round, whatever the
 mesh.
+
+`eval_model` gives a rank the model it decodes with during training (the
+train CLI's `--eval-every`): a plain copy of its model slices, whole over
+`data`, beside the sharded one, which it leaves untouched. FSDP2 would
+all-gather each unit over `data` at every decode step, in lockstep across
+data ranks that decode clips of other lengths, and its gathers under the
+sampler's `inference_mode` would leave inference tensors behind for the
+next training step; the copy takes the gathers once, outside
+`inference_mode`, and is dropped after the evaluation.
 """
 
 from __future__ import annotations
@@ -284,6 +293,43 @@ def load_full_state_dict(module: nn.Module, state: Dict[str, Any]) -> None:
             full = slice_dim(full, cuts[name][1], cuts[name][0])
         part = local_part(full, t)
         (t.to_local() if isinstance(t, DTensor) else t).copy_(part)
+
+
+@torch.no_grad()
+def eval_model(model: nn.Module, cfg) -> nn.Module:
+    """The model a rank decodes with during training: a plain `HandsOnVLM`
+    (no FSDP unit, so a decode step issues no collective over the data
+    axis) holding this rank's model slices, each DTensor made whole over
+    `data` (a collective: every rank calls it) and every other tensor (the
+    replicated parameters, the QLoRA bases, the LoRA adapters) shared with
+    the training model, whose parameters, buffers and FSDP state are left
+    as they are. The Megatron cut is kept (`tp_layout`, the adapters'
+    `tp_for`): run it with the model group's `TPGroup`. A model that is not
+    sharded is returned as it is. The copy costs the whole-over-`data`
+    bytes of the sharded parameters."""
+    if not is_sharded(model):
+        return model
+    from handsonvlm_torch.models.handsonvlm import HandsOnVLM
+    from handsonvlm_torch.models.lora import LoRA
+
+    state = {name: full_tensor(t).detach() for name, t in model.state_dict().items()}
+    with torch.device("meta"):
+        plain = HandsOnVLM(cfg, quantize=model.llama.quantize)
+        if model.lora is not None:
+            plain.lora = LoRA(cfg.llama, r=1, targets=tuple(model.lora.adapters))
+    for name, t in state.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = plain.get_submodule(owner)
+        kept = isinstance(getattr(mod, leaf), nn.Parameter)
+        setattr(mod, leaf, nn.Parameter(t, requires_grad=False) if kept else t)
+    left = [n for n, t in list(plain.named_parameters()) + list(plain.named_buffers())
+            if t.is_meta]
+    if left:
+        raise ValueError(f"eval_model: {left[:3]} not in the training model's state dict")
+    plain.llama.tp_layout = model.llama.tp_layout
+    if model.lora is not None:
+        plain.lora.tp_for = getattr(model.lora, "tp_for", None)
+    return plain.eval()
 
 
 def bytes_per_rank(model: nn.Module) -> Dict[str, int]:

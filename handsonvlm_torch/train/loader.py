@@ -8,7 +8,11 @@ Multi-process semantics as in the JAX package: every process draws the
 SAME global index stream from `seed` and keeps only its `process_index`-th
 interleaved slice (the rank and world size of `torch.distributed` when it
 is initialised, else 0 and 1), so the ranks' slices reassemble the global
-batch. A producer error reaches the consumer, which re-raises it.
+batch. Each item is made under its key, (first_step + step, position in
+the global batch) (`data/draws.keyed`), so a dataset that seeds its draws
+from the key makes the same batch, in the same order, in every process
+and run, whichever worker thread reads an item. A producer error reaches
+the consumer, which re-raises it.
 
 Staging: with a `device`, each array of the batch becomes a tensor there,
 through pinned host memory and a non-blocking copy for a CUDA device (the
@@ -26,6 +30,8 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from handsonvlm_torch.data.draws import keyed
 
 
 def process_index_count():
@@ -50,6 +56,7 @@ class PrefetchLoader:
         seed: int = 0,
         process_index: Optional[int] = None,
         process_count: Optional[int] = None,
+        first_step: int = 0,
     ):
         self.dataset = dataset
         self.collate = collate
@@ -60,6 +67,7 @@ class PrefetchLoader:
         self.device = None if device is None else torch.device(device)
         self.drop_keys = drop_keys
         self.seed = seed
+        self.first_step = first_step  # the run's start step: the first batch's key
         rank, world = process_index_count()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
@@ -74,6 +82,14 @@ class PrefetchLoader:
         seed) and keep this process's interleaved slice."""
         idxs = rng.integers(0, len(self.dataset), size=self.batch_size)
         return idxs[self.process_index :: self.process_count]
+
+    def _item(self, job):
+        """One item, made under its key (step, position in the global
+        batch): a dataset that seeds its draws from it (data/draws.py)
+        makes the same item whichever worker thread reads it."""
+        key, i = job
+        with keyed(key):
+            return self.dataset[int(i)]
 
     def _stage(self, batch: Dict[str, np.ndarray]) -> Dict:
         if self.device is None:
@@ -90,9 +106,11 @@ class PrefetchLoader:
         try:
             rng = np.random.default_rng(self.seed)
             with ThreadPoolExecutor(self.num_workers) as pool:
-                for _ in range(self.num_steps):
+                for t in range(self.num_steps):
                     idxs = self.local_indices(rng)
-                    samples = list(pool.map(lambda i: self.dataset[int(i)], idxs))
+                    places = range(self.process_index, self.batch_size, self.process_count)
+                    samples = list(pool.map(self._item, [
+                        ((self.first_step + t, k), i) for k, i in zip(places, idxs)]))
                     batch = self.collate(samples)
                     batch = {k: v for k, v in batch.items() if k not in self.drop_keys}
                     q.put(self._stage(batch))

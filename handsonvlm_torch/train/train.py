@@ -18,7 +18,9 @@ mixture read from disk: the EPIC conversation group (`epic_kitchen`,
 `reasoning`, `vanilla`) from the EK layout under $HANDSONVLM_DATA_ROOT, the
 LITA tasks and `pretrain` from `--data-path`. `--eval-every N` scores
 `--eval-samples` EK validation clips (ADE/FDE/WDE through
-eval/evaluator.py) every N steps. Each dataset of the mixture draws from
+eval/evaluator.py) every N steps, each clip with draws of its own (seeded
+from the step and the clip), so a state scores the same whatever the
+launch. Each dataset of the mixture draws from
 generators of its own, seeded from `--seed`, its place in the mixture and
 the step the run starts from (data/draws.py): one seed gives one stream of
 items, and a resumed run draws new ones. `--device` (default cuda) picks the
@@ -39,12 +41,23 @@ the QLoRA base) and of the adapters (`parallel/tp.shard_for_training`),
 FSDP2 shards those slices over the data axis, the M ranks of a model group
 take the same rows, and the checkpoints and adapter artifacts stay the
 whole one-rank state dicts. `--model-axis` with `--seq-parallel` above 1
-is refused, as the JAX mesh refuses it, and so is `--eval-every` over
-several ranks (the evaluator decodes on one).
+is refused, as the JAX mesh refuses it.
 
-  torchrun --nproc-per-node 4 -m handsonvlm_torch.train.train --model-path random:7b \
-      --preset 7b --model-axis 2 --qlora int8_fused --lora-r 128 --synthetic 4 \
-      --samples-per-epoch 4 --batch-size 2 --max-steps 2 --output-dir ./runs/tp
+Under torchrun `--eval-every` splits the clips over the eval groups, clip
+i to group i mod G: with `--model-axis M` the N / M model groups, each
+decoding its clips in lockstep on its ranks' Megatron slices (the
+sampler's `tp`); otherwise (FSDP2 alone, `--seq-parallel`) every rank on
+the whole model. Each rank decodes from `parallel/partition.eval_model`, a
+plain copy of its slices made whole over the data axis, so that no decode
+step waits on another data group, and the training model, its optimizer
+and the data draws are left as a run without evaluation has them. Every
+rank gathers the groups' per-clip records and scores their union in clip
+order; rank 0 alone prints and logs the `eval/*` line.
+
+  torchrun --nproc-per-node 4 -m handsonvlm_torch.train.train --model-path random:7b \\
+      --preset 7b --model-axis 2 --qlora int8_fused --lora-r 128 --synthetic 4 \\
+      --samples-per-epoch 4 --batch-size 2 --max-steps 2 --output-dir ./runs/tp \\
+      [--eval-every 1 --eval-samples 4]     # with the EK layout under $HANDSONVLM_DATA_ROOT
 """
 
 from __future__ import annotations
@@ -129,7 +142,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the --tasks data draws, each dataset's own, derived "
                         "with its place in the mixture and the step the run starts "
-                        "from (data/draws.py)")
+                        "from (data/draws.py), and of --synthetic's items, each drawn "
+                        "from (seed, its step and place in the global batch)")
     return p.parse_args(argv)
 
 
@@ -154,8 +168,6 @@ def _check_flags(args, world: int = 1) -> None:
     if args.batch_size % data:
         raise SystemExit(f"--batch-size {args.batch_size} is not divisible by the {data} "
                          "ranks of the 'data' axis")
-    if args.eval_every and world > 1:
-        raise SystemExit("--eval-every decodes on one rank: run it without torchrun")
     if args.qlora and not args.lora_r:
         raise SystemExit("--qlora requires --lora-r (the base is frozen)")
     if args.tune_mm_mlp_adapter and args.lora_r:
@@ -326,7 +338,8 @@ def main(argv=None):
 
     mixture_seed = None
     if args.synthetic:
-        groups = [[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic)]]
+        groups = [[SyntheticConversationDataset(tokenizer, cfg, n=args.synthetic,
+                                                seed=args.seed)]]
         rates = [1.0]
     else:
         groups, rates = task_datasets(args, tokenizer)
@@ -339,7 +352,7 @@ def main(argv=None):
     # every rank draws the global batch; the step keeps this rank's rows
     loader = PrefetchLoader(hybrid, collate, args.batch_size,
                             num_steps=max(total_steps - state.step, 0), device=device,
-                            process_index=0, process_count=1)
+                            process_index=0, process_count=1, first_step=state.step)
     step_fn = make_train_step(cfg, opt, remat=args.remat_policy, mesh=mesh,
                               seq_mesh=mesh if args.seq_parallel > 1 else None)
     save_every = args.save_every or steps_per_epoch
@@ -351,7 +364,7 @@ def main(argv=None):
     if args.eval_every:
         from handsonvlm_torch.data.epic_dataset import EpicConversationDataset
         from handsonvlm_torch.data.epic_structures import get_epic_hoi_dataset_by_name
-        from handsonvlm_torch.eval.evaluator import InferenceEngine, evaluate_epic_kitchen_traj
+        from handsonvlm_torch.eval.evaluator import evaluate_sharded
 
         eval_hoi = get_epic_hoi_dataset_by_name(
             args.ek_version, "validation", load_images=True, rephrase_rate=0.0,
@@ -359,9 +372,9 @@ def main(argv=None):
         eval_dataset = EpicConversationDataset(tokenizer, eval_hoi, deterministic=True)
 
     def run_eval(model, step):
-        engine = InferenceEngine(model=model, cfg=cfg, tokenizer=tokenizer)
-        res = evaluate_epic_kitchen_traj(engine, eval_dataset, seed=step, log_every=0,
-                                         limit=args.eval_samples)
+        """The evaluation at `step` (every rank calls it and gets the scores)."""
+        res = evaluate_sharded(model, cfg, tokenizer, eval_dataset, mesh, seed=step,
+                               limit=args.eval_samples)
         return {f"eval/{k}": res[k] for k in ("ade", "fde", "wde", "n")}
 
     def save(step):
@@ -378,8 +391,9 @@ def main(argv=None):
         step = state.step
         if eval_dataset is not None and step % args.eval_every == 0:
             em = run_eval(state.model, step)
-            print(json.dumps(dict(em, step=step)), flush=True)
-            writer.log(em, step)
+            if main_rank:
+                print(json.dumps(dict(em, step=step)), flush=True)
+                writer.log(em, step)
         if step % args.log_every == 0:
             m = dict(metrics, lr=sched(step),
                      sec_per_step=(time.time() - t0) / max(args.log_every, 1))

@@ -288,3 +288,96 @@ def _tp_checkpoints(job):
         back = full_state_dict(model), opt.state_dict()
         out[mode] = {"mine": mine, "back": back, "step": state.step}
     return out
+
+
+class _Items:
+    """A dataset's items, each read once (the ranks decode the same clips
+    in several runs, each with the same per-clip draws)."""
+
+    def __init__(self, dataset):
+        self.dataset, self.items = dataset, {}
+        self.route_draws = dataset.route_draws
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        if i not in self.items:
+            self.items[i] = self.dataset[i]
+        return self.items[i]
+
+
+def _pin_latent(pinned: bool) -> None:
+    """With `pinned`, the sampler decodes every waypoint at the CVAE's
+    latent 0 instead of a draw (the JAX side of the test pins its own)."""
+    from handsonvlm_torch.infer import sampler
+    from handsonvlm_torch.models.handsonvlm import decode_hand_waypoint
+
+    def at_zero(model, cfg, hidden, *, z=None, generator=None):
+        z = torch.zeros((hidden.shape[0] * 2, cfg.traj.latent_dim), dtype=hidden.dtype,
+                        device=hidden.device)
+        return decode_hand_waypoint(model, cfg, hidden, z=z)
+
+    sampler.decode_hand_waypoint = at_zero if pinned else decode_hand_waypoint
+
+
+def eval_rank(rank: int, world: int, job: dict) -> dict:
+    """The train CLI's evaluation over several ranks on this rank: for each
+    run of `job["runs"]` (shape, mode, pinned), the model
+    `job["states"][mode]` cut for this rank on a ('data', 'model') mesh of
+    `shape` (or, for shape "seq2", FSDP2 over a ('data', 'seq') mesh of 2 x
+    2), sharded by FSDP2, then `eval.evaluator.evaluate_sharded` of the EK
+    validation clips under `job["root"]` (greedy, the CVAE latent pinned
+    to 0, when `pinned`); then the train CLI for each of `job["cli"]` ({name: argv}),
+    its stdout kept. Returns per run the rank's result (scores and the
+    per-clip records of every group) and its collectives; per
+    CLI run the final step and what the rank printed."""
+    import contextlib
+    import io
+    import os
+
+    from handsonvlm_torch.data.epic_dataset import EpicConversationDataset
+    from handsonvlm_torch.data.epic_structures import get_epic_hoi_dataset_by_name
+    from handsonvlm_torch.data.mock_tokenizer import MockTokenizer
+    from handsonvlm_torch.eval.evaluator import evaluate_sharded
+    from handsonvlm_torch.infer.builder import build_model
+    from handsonvlm_torch.models.lora import LoRA
+    from handsonvlm_torch.parallel import tp as tp_mod
+    from handsonvlm_torch.parallel.mesh import create_mesh, model_group
+    from handsonvlm_torch.parallel.partition import shard_model
+    from handsonvlm_torch.parallel.tp import shard_for_training
+
+    torch.set_num_threads(1)
+    os.environ["HANDSONVLM_DATA_ROOT"] = job["root"]
+    os.environ["HANDSONVLM_ASSETS_DIR"] = os.path.join(job["root"], "assets")
+    cfg, tokenizer = job["cfg"], MockTokenizer()
+    hoi = get_epic_hoi_dataset_by_name("ek100", "validation", load_images=True,
+                                       rephrase_rate=0.0, use_percentage=1.0)
+    dataset = _Items(EpicConversationDataset(tokenizer, hoi, deterministic=True))
+    out = {"runs": {}}
+    for shape, mode, pinned in job["runs"]:
+        model = build_model(cfg, "cpu", quantize=job["quant"][mode])
+        if mode != "sft":
+            model.lora = LoRA(cfg.llama, r=job["r"], alpha=2.0 * job["r"])
+        model.load_state_dict({k: _t(v) for k, v in job["states"][mode].items()})
+        mesh = (create_mesh(seq=2, device="cpu") if shape == "seq2"
+                else create_mesh(data=shape[0], model=shape[1], device="cpu"))
+        if model_group(mesh) is not None:
+            shard_for_training(model, cfg, model_group(mesh))
+        shard_model(model, mesh)
+        _pin_latent(pinned)
+        c0 = tp_mod.COLLECTIVES
+        res = evaluate_sharded(model, cfg, tokenizer, dataset, mesh, seed=job["seed"],
+                               limit=job["clips"], max_new_tokens=job["new_tokens"],
+                               **({"temperature": 0.0} if pinned else {}))
+        _pin_latent(False)
+        out["runs"][(shape, mode, pinned)] = {"res": res, "collectives": tp_mod.COLLECTIVES - c0}
+    out["cli"] = {}
+    for name, argv in job.get("cli", {}).items():
+        from handsonvlm_torch.train import train
+
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            step = train.main(argv).step
+        out["cli"][name] = {"step": step, "stdout": text.getvalue()}
+    return out

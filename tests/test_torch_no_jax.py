@@ -463,7 +463,11 @@ def test_chip_smoke_parallel_phase_runs_without_jax():
     against the one-card route; 4 new tokens where the card decodes 32;
     tensor parallelism inside training at (1, 2) in every mode against the
     one-card step, and the train CLI with --model-axis 2 resumed in one
-    rank), then the dry run over 2 ranks, both kinds. Neither jax nor the
+    rank; 19c at tiny224: the sharded evaluation of the steered model
+    against one rank's of the gathered state at (2, 1) and (1, 2), the
+    planted wrong slice the rule refuses, the steps around it, the CLI
+    with --eval-every under torchrun), then the dry run over 2 ranks, both
+    kinds. Neither jax nor the
     JAX package loaded in the parent; each rank imports chip_smoke and the
     port alone."""
     code = ("import chip_smoke as cs\n"
@@ -482,6 +486,11 @@ def test_chip_smoke_parallel_phase_runs_without_jax():
                  "dryrun_multichip ok: mesh=(2,1)", "tp_decode_tokens=4",
                  "19b TP sft 1x2 step 0 against one card's", "19b TP int8_fused 1x2 step 1",
                  "19b CLI resumed on one rank: resumed from step 2",
+                 "19c int8_fused 2x1 against one card's evaluation of the whole state: n 4 / 4",
+                 "19c sft 1x2 against one card's evaluation of the whole state: n 4 / 4",
+                 "19c sft 1x2 step 1 (after the evaluation) against one card's",
+                 "19c sft 1x2 planted fault (rank 1 on rank 0's slices) against one card's",
+                 "--eval-every 1 --eval-samples 4: exit 0",
                  "dryrun_multichip tp-train ok: mesh=(1, 2)"):
         assert line in proc.stdout, line
 
