@@ -40,6 +40,7 @@ from handsonvlm_torch.models.handsonvlm import (
 )
 from handsonvlm_torch.models.llama import KVCache, apply_llama, lm_logits, quantize_kv_cache
 from handsonvlm_torch.parallel.tp import broadcast_from_first, check_layout, tp_size
+from handsonvlm_torch.utils import profiling
 
 MAX_HAND_STEPS = 10  # generous cap; eval pads/clips to 4
 
@@ -122,30 +123,34 @@ def prefill(
     join uses it so that each row stays position-exact against its solo
     prefill (serve/continuous.join_many).
     Returns (last_hidden (B,D), cache, cache_attn_mask (B, max_len)); with
-    kv_quant="int8" the cache is a QuantKVCache."""
+    kv_quant="int8" the cache is a QuantKVCache. Spans (utils/profiling.py):
+    `join.vision` (CLIP and the projector), `join.prefill` (the splice and
+    the decoder)."""
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     b = input_ids.shape[0]
-    text_embeds = model.llama.embed_tokens(torch.where(input_ids < 0, 0, input_ids))
-    visual = encode_video(model, cfg, images, attn_impl=attn_impl, frame_map=frame_map)
-    sp = splice_visual_tokens(text_embeds, input_ids, visual.to(text_embeds.dtype),
-                              attn_mask=attn_mask)
-    t_out = sp.embeds.shape[1]
-    if t_out + 1 > max_len:
-        raise ValueError(f"prompt {t_out} does not fit cache {max_len}")
-    layout = check_layout(model.llama, tp)
-    cache = KVCache.create(cfg.llama, b, max_len, sp.embeds.dtype, sp.embeds.device,
-                           kv_heads=layout.kv_heads(cfg.llama.kv_heads) if layout else None)
-    cache_mask = torch.cat([sp.attn_mask, torch.ones((b, max_len - t_out), dtype=torch.bool,
-                                                     device=sp.embeds.device)], dim=1)
-    positions = None
-    if positions_from_mask:
-        positions = (torch.cumsum(sp.attn_mask.long(), dim=1) - 1).clamp(min=0)
-    hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
-                                attn_mask=cache_mask, positions=positions, kv_cache=cache,
-                                attn_impl=attn_impl, lora=model.lora, tp=tp)
-    if kv_quant == "int8":
-        cache = quantize_kv_cache(cache)
+    with profiling.span("join.vision"):
+        visual = encode_video(model, cfg, images, attn_impl=attn_impl, frame_map=frame_map)
+    with profiling.span("join.prefill"):
+        text_embeds = model.llama.embed_tokens(torch.where(input_ids < 0, 0, input_ids))
+        sp = splice_visual_tokens(text_embeds, input_ids, visual.to(text_embeds.dtype),
+                                  attn_mask=attn_mask)
+        t_out = sp.embeds.shape[1]
+        if t_out + 1 > max_len:
+            raise ValueError(f"prompt {t_out} does not fit cache {max_len}")
+        layout = check_layout(model.llama, tp)
+        cache = KVCache.create(cfg.llama, b, max_len, sp.embeds.dtype, sp.embeds.device,
+                               kv_heads=layout.kv_heads(cfg.llama.kv_heads) if layout else None)
+        cache_mask = torch.cat([sp.attn_mask, torch.ones((b, max_len - t_out), dtype=torch.bool,
+                                                         device=sp.embeds.device)], dim=1)
+        positions = None
+        if positions_from_mask:
+            positions = (torch.cumsum(sp.attn_mask.long(), dim=1) - 1).clamp(min=0)
+        hidden, cache = apply_llama(model.llama, cfg.llama, inputs_embeds=sp.embeds,
+                                    attn_mask=cache_mask, positions=positions, kv_cache=cache,
+                                    attn_impl=attn_impl, lora=model.lora, tp=tp)
+        if kv_quant == "int8":
+            cache = quantize_kv_cache(cache)
     return hidden[:, -1, :], cache, cache_mask
 
 

@@ -26,6 +26,14 @@ from the host: one torch call per operation, the cache written in place.
   chunk per step. `can_admit` refuses joins that would overrun; an idle
   engine resets the cursor to 0; `compact()` reclaims dead cache blocks in
   place (kernel B8, ops/cache_ops) without changing a live row's stream.
+- Spans (utils/profiling.py, kept while the tracer is on): `engine.join`
+  (rid: its requests' ids) over `join.vision`, `join.prefill`,
+  `join.splice` and `join.first_token`; `engine.step` (rid: the index of
+  its first decode forward) over `step.mask`, then for each forward
+  `decode.draws`, `decode.upload` and `decode.dispatch` (the forward's
+  launches, enqueued only), then `step.readback` and `step.bookkeeping`;
+  `engine.compact`. With the tracer on, the host's waits on the card are
+  counted under the span they happen in (`profiling`'s `syncs`).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from handsonvlm_torch.ops.cache_ops import (
     gather_cache_blocks,
 )
 from handsonvlm_torch.ops.decode_attention import pick_block_k
+from handsonvlm_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -238,6 +247,11 @@ class ContinuousEngine:
         return self._join(requests)
 
     def _join(self, requests) -> List[int]:
+        rid = tuple(r.get("rid") for r in requests)
+        with profiling.span("engine.join", rid):
+            return self._join_rows(requests)
+
+    def _join_rows(self, requests) -> List[int]:
         self._reset_if_idle()
         n = len(requests)
         id_rows = [np.asarray(r["input_ids"])[0] for r in requests]
@@ -273,7 +287,8 @@ class ContinuousEngine:
             attn_impl=self.attn_impl, frame_map=frame_map, kv_quant=self.kv_quant,
             positions_from_mask=n > 1)
         self.prefills += 1
-        self._splice(pcache, rows, at, s1)
+        with profiling.span("join.splice"):
+            self._splice(pcache, rows, at, s1)
         del pcache
         self.pos = self.cache.index = at + s1
         # the rows already live step over the new bucket (a masked hole in
@@ -296,8 +311,9 @@ class ContinuousEngine:
         temps = [self.temperature if r.get("temperature") is None else r["temperature"]
                  for r in requests]
         top_ps = [self.top_p if r.get("top_p") is None else r["top_p"] for r in requests]
-        tok, wp = self._first_tokens(rows, [r["seed"] for r in requests], last_hidden,
-                                     temps, top_ps)
+        with profiling.span("join.first_token"):
+            tok, wp = self._first_tokens(rows, [r["seed"] for r in requests], last_hidden,
+                                         temps, top_ps)
         for i, r in enumerate(rows):
             t0 = int(tok[i])
             self.slots[r] = _Slot(busy=True, max_new=requests[i]["max_new"],
@@ -313,57 +329,67 @@ class ContinuousEngine:
         """`chunk` decode steps for every slot; returns the finished
         requests. Idle and finished rows decode masked garbage that the
         host discards; their draws are not taken."""
+        with profiling.span("engine.step", self.decode_steps):
+            return self._step()
+
+    def _step(self):
         if self.pos + self.chunk > self.s:
             raise RuntimeError("cache exhausted")
         # the chunk writes [pos, pos + chunk) for every row
         self.mask[:, self.pos:self.pos + self.chunk] = True
-        mask = torch.as_tensor(self.mask, device=self.device)
+        with profiling.span("step.mask"):
+            mask = torch.as_tensor(self.mask, device=self.device)
         busy = [r for r, s in enumerate(self.slots) if s.busy]
         draws = np.zeros((self.b, 1 + 2 * self.cfg.traj.latent_dim), np.float32)
         tokens, wps = [], []
         for _ in range(self.chunk):
-            if busy:
-                draws[busy] = self._draws(busy)
-            u, z = self._upload_draws(draws)
-            emb = embed_next_token(self.model, self.cfg, self.cur_token, self.cur_waypoint)
-            positions = (self.cache.index - self.starts)[:, None]
-            hidden, _ = apply_llama(self.model.llama, self.cfg.llama,
-                                    inputs_embeds=emb[:, None, :], attn_mask=mask,
-                                    positions=positions, kv_cache=self.cache,
-                                    attn_impl=self.attn_impl, lora=self.model.lora)
-            h = hidden[:, 0]
-            logits = lm_logits(self.model.llama, self.cfg.llama, h)
-            ntok = sample_rows(logits, self.temps, self.top_ps, u)
-            nwp = decode_hand_waypoint(self.model, self.cfg, h, z=z).float()
-            ntok = torch.where(self.finished, PAD_TOKEN_ID, ntok)
-            tokens.append(ntok)
-            wps.append(nwp)
-            self.finished = self.finished | (ntok == self.eos)
-            self.cur_token, self.cur_waypoint = ntok, nwp
+            with profiling.span("decode.draws"):
+                if busy:
+                    draws[busy] = self._draws(busy)
+            with profiling.span("decode.upload"):
+                u, z = self._upload_draws(draws)
+            with profiling.span("decode.dispatch"):
+                emb = embed_next_token(self.model, self.cfg, self.cur_token, self.cur_waypoint)
+                positions = (self.cache.index - self.starts)[:, None]
+                hidden, _ = apply_llama(self.model.llama, self.cfg.llama,
+                                        inputs_embeds=emb[:, None, :], attn_mask=mask,
+                                        positions=positions, kv_cache=self.cache,
+                                        attn_impl=self.attn_impl, lora=self.model.lora)
+                h = hidden[:, 0]
+                logits = lm_logits(self.model.llama, self.cfg.llama, h)
+                ntok = sample_rows(logits, self.temps, self.top_ps, u)
+                nwp = decode_hand_waypoint(self.model, self.cfg, h, z=z).float()
+                ntok = torch.where(self.finished, PAD_TOKEN_ID, ntok)
+                tokens.append(ntok)
+                wps.append(nwp)
+                self.finished = self.finished | (ntok == self.eos)
+                self.cur_token, self.cur_waypoint = ntok, nwp
             self.decode_steps += 1
         self.pos = self.cache.index
         # one copy to the host for the whole chunk
-        packed = torch.cat([torch.stack(tokens, 1).float()[..., None],
-                            torch.stack(wps, 1).reshape(self.b, self.chunk, 4)], -1).cpu()
+        with profiling.span("step.readback"):
+            packed = torch.cat([torch.stack(tokens, 1).float()[..., None],
+                                torch.stack(wps, 1).reshape(self.b, self.chunk, 4)], -1).cpu()
         toks = packed[..., 0].numpy().astype(np.int64)
         wps_h = packed[..., 1:].numpy().reshape(self.b, self.chunk, 2, 2)
 
         done = []
-        for r, slot in enumerate(self.slots):
-            if not slot.busy:
-                continue
-            for i in range(self.chunk):
+        with profiling.span("step.bookkeeping"):
+            for r, slot in enumerate(self.slots):
+                if not slot.busy:
+                    continue
+                for i in range(self.chunk):
+                    if slot.done or len(slot.tokens) >= slot.max_new:
+                        break
+                    tok = int(toks[r, i])
+                    slot.tokens.append(tok)
+                    slot.wps.append(wps_h[r, i])
+                    slot.hands.append(tok == self.cfg.hand_token_id)
+                    if tok == self.eos:
+                        slot.done = True
                 if slot.done or len(slot.tokens) >= slot.max_new:
-                    break
-                tok = int(toks[r, i])
-                slot.tokens.append(tok)
-                slot.wps.append(wps_h[r, i])
-                slot.hands.append(tok == self.cfg.hand_token_id)
-                if tok == self.eos:
-                    slot.done = True
-            if slot.done or len(slot.tokens) >= slot.max_new:
-                done.append((r, self._finalize(slot)))
-                self.slots[r] = _Slot()
+                    done.append((r, self._finalize(slot)))
+                    self.slots[r] = _Slot()
         return done
 
     @torch.inference_mode()
@@ -385,6 +411,10 @@ class ContinuousEngine:
         Returns the cursor positions reclaimed (0: not worth a rewrite, or
         nothing changed since the last attempt). Cost: one in-place pass
         over the moved blocks of each cache plane (B8), no second cache."""
+        with profiling.span("engine.compact"):
+            return self._compact()
+
+    def _compact(self) -> int:
         if self.idle():
             reclaimed = self.pos
             if reclaimed:

@@ -20,6 +20,11 @@ finished request frees its slot mid-flight.
 - A TTFT SLO sheds load: `submit` raises `SLORejected` when
   `estimate_ttft()` exceeds it, the estimate counting the admission hold of
   an idle engine.
+- Spans (utils/profiling.py, kept while the tracer is on): `sched.queue`
+  for each ticket from its enqueue to the start of its group's join (rid:
+  the ticket's id, which the engine's spans of the request carry too), and
+  `sched.admit` around each admission pass. `ttfts` keeps the latest
+  `TTFT_KEPT` latencies.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import heapq
+import itertools
 import threading
 import time
 from typing import Callable, List, Optional
@@ -36,6 +42,10 @@ import torch
 
 from handsonvlm_torch.infer.sampler import EOS_TOKEN_ID, SampleOutput
 from handsonvlm_torch.serve.continuous import ContinuousEngine
+from handsonvlm_torch.utils import profiling
+
+TTFT_KEPT = 4096  # latest first-token latencies a scheduler keeps
+_RIDS = itertools.count()
 
 
 class SLORejected(RuntimeError):
@@ -59,6 +69,8 @@ class _Ticket:
     error: Optional[str] = None
     sent: int = 0  # tokens already streamed through on_tokens
     t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+    rid: int = dataclasses.field(default_factory=lambda: next(_RIDS))
+    t_queued_ns: int = 0  # perf_counter_ns() at the enqueue
 
 
 class ContinuousScheduler:
@@ -99,7 +111,8 @@ class ContinuousScheduler:
         self.admit_hold_s = admit_hold_s
         self._pending: collections.deque = collections.deque()
         self._live: dict = {}  # row -> ticket
-        self.ttfts: List[float] = []  # submit -> first-token latencies (s)
+        # submit -> first-token latencies (s), the latest TTFT_KEPT
+        self.ttfts: collections.deque = collections.deque(maxlen=TTFT_KEPT)
         self._cv = threading.Condition()
         self._stopped = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -137,6 +150,7 @@ class ContinuousScheduler:
                             f"estimated TTFT {est:.2f}s exceeds SLO {slo:.2f}s "
                             f"({len(self._pending)} queued, {len(self._live)} decoding)")
             self._consec_rejections = 0
+            t.t_queued_ns = time.perf_counter_ns()
             self._pending.append(t)
             self._cv.notify()
         if not t.event.wait(timeout):
@@ -218,7 +232,8 @@ class ContinuousScheduler:
                     if self._stopped:
                         break
                 try:
-                    self._admit()
+                    with profiling.span("sched.admit"):
+                        self._admit()
                     if self._live:
                         self._step_once()
                 except Exception as e:  # noqa: BLE001 - fail the waiters, not strand them
@@ -287,9 +302,13 @@ class ContinuousScheduler:
             try:
                 join_key = (len(group), eng._bucket(max(t.ids.shape[1] for t in group)))
                 t_join = time.perf_counter()
+                t_ns = time.perf_counter_ns()
+                for t in group:
+                    profiling.record("sched.queue", t.t_queued_ns, t_ns, t.rid)
                 rows = eng.join_many([
                     dict(input_ids=t.ids, images=t.images, seed=t.seed, max_new=t.max_new,
-                         temperature=t.temperature, top_p=t.top_p, frame_map=t.frame_map)
+                         temperature=t.temperature, top_p=t.top_p, frame_map=t.frame_map,
+                         rid=t.rid)
                     for t in group])
                 if join_key in self._seen_joins:
                     self._ewma("_join_s", time.perf_counter() - t_join)

@@ -29,6 +29,11 @@ their slices of the decoder (`forward`'s `tp`), so the share is scaled by
 the data axis's size alone, the counts and the metrics are summed over the
 data axis, and `grad_norm` sums the slices' squares over the model group.
 
+Spans (utils/profiling.py, kept while the tracer is on): `train.step`
+(rid: `state.step`) over `train.to_device`, `train.forward`,
+`train.backward`, `train.optimizer` and `train.readout` (the metrics and
+`grad_norm` read back).
+
 `grad_norm` is the global norm of the trainable parameters' gradients, the
 norm the clip reads. Under LoRA it differs from the value the JAX package
 logs: JAX differentiates every leaf and its logged `grad_norm` leaves out
@@ -47,6 +52,7 @@ import torch
 from handsonvlm_torch.config import HandsOnVLMConfig
 from handsonvlm_torch.models.handsonvlm import NUM_HAND_TOKENS
 from handsonvlm_torch.train.train_state import TrainState
+from handsonvlm_torch.utils import profiling
 
 METRICS = ("loss", "text_loss", "traj_loss", "traj_kl_loss")
 
@@ -125,35 +131,46 @@ def make_train_step(cfg: HandsOnVLMConfig, optimizer, attn_impl: str = "auto", r
 
     def step(state: TrainState, batch: Dict, rng: int, *,
              eps: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        with profiling.span("train.step", state.step):
+            return _step(state, batch, rng, eps)
+
+    def _step(state: TrainState, batch: Dict, rng: int, eps) -> Dict[str, float]:
         model = state.model
         device = model.llama.embed_tokens.weight.device
-        batch = _on(batch, device)
+        with profiling.span("train.to_device"):
+            batch = _on(batch, device)
         generator = None if eps is not None else step_generator(rng, state.step, device)
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
-            loss, metrics = loss_fn(model, cfg, batch, eps=eps, generator=generator,
-                                    attn_impl=attn_impl, remat=remat)
-            loss.backward()
+            with profiling.span("train.forward"):
+                loss, metrics = loss_fn(model, cfg, batch, eps=eps, generator=generator,
+                                        attn_impl=attn_impl, remat=remat)
+            with profiling.span("train.backward"):
+                loss.backward()
         else:
             world = dist.get_world_size()
             if world > 1 and not is_sharded(model):
                 raise ValueError("a data / sequence parallel step needs the model sharded "
                                  "by parallel.partition.shard_model")
-            if eps is None:
-                eps = draw_eps(model, cfg, batch["input_ids"].shape[0], generator)
-            rows, eps = _local_rows(batch, torch.as_tensor(eps, device=device), mesh)
-            loss, metrics = loss_fn(model, cfg, rows, eps=eps, attn_impl=attn_impl,
-                                    remat=remat, data_parallel=True, seq=seq_mesh, tp=tp,
-                                    data_group=group)
-            (loss * (world // tp_size(tp))).backward()
-            sync_replicated_grads(model)
-            total = torch.stack([metrics[k].detach().float() for k in METRICS])
-            dist.all_reduce(total, group=group)
-            metrics = dict(zip(METRICS, total))
-        grad_norm = optimizer.step()
+            with profiling.span("train.forward"):
+                if eps is None:
+                    eps = draw_eps(model, cfg, batch["input_ids"].shape[0], generator)
+                rows, eps = _local_rows(batch, torch.as_tensor(eps, device=device), mesh)
+                loss, metrics = loss_fn(model, cfg, rows, eps=eps, attn_impl=attn_impl,
+                                        remat=remat, data_parallel=True, seq=seq_mesh, tp=tp,
+                                        data_group=group)
+            with profiling.span("train.backward"):
+                (loss * (world // tp_size(tp))).backward()
+                sync_replicated_grads(model)
+                total = torch.stack([metrics[k].detach().float() for k in METRICS])
+                dist.all_reduce(total, group=group)
+                metrics = dict(zip(METRICS, total))
+        with profiling.span("train.optimizer"):
+            grad_norm = optimizer.step()
         state.step += 1
-        out = {k: float(v.detach()) for k, v in metrics.items()}
-        out["grad_norm"] = float(grad_norm)
+        with profiling.span("train.readout"):
+            out = {k: float(v.detach()) for k, v in metrics.items()}
+            out["grad_norm"] = float(grad_norm)
         return out
 
     return step

@@ -1,7 +1,7 @@
 """The port's small tools against the JAX package's: weight deltas
 (convert/delta.py), the HF export (convert/to_hf.py, the counterpart of
 convert/jax_to_hf.py), the GPT review (eval/gpt_review.py, with an injected
-judge), the profiler trace and step timer (utils/profiling.py), and the
+judge), the profiler trace (utils/profiling.py), and the
 meters and logger (utils/meters.py, utils/logging.py).
 
 Tolerances: the HF export and its round trip exactly (a rename of f32
@@ -195,18 +195,6 @@ def test_profiler_trace_on_cpu(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("aten::mm" in str(e.get("name", "")) for e in events)
     assert any(e.key == "aten::mm" for e in prof.key_averages())
-    with pytest.raises(NotImplementedError, match="trace"):
-        profiling.start_server(9999)
-
-
-def test_step_timer_skips_warmup():
-    timer = profiling.StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            pass
-    s = timer.summary()
-    assert s["steps"] == 3.0 and timer.steady_steps == 2
-    assert np.isfinite(s["sec_per_step"])
 
 
 def test_meters_and_logger_as_jax(tmp_path, capsys):
